@@ -1,0 +1,329 @@
+// K1: fused volume stage of the collocated-hex ES-DG Euler RHS.
+//
+// Replaces the TPU kernel esdg_cns_tpu/ops/pallas_volume.py::_volume_kernel
+// (wrapper euler_volume_pallas; bodies _entropy_project_hex and the
+// triangular line fd, _fd_packed on the default path).  Per element it
+// computes:
+//   1. entropy variables v(U) at the Nq collocated volume nodes;
+//   2. the face extrapolation Ef v ([Nfq x Nq] per field), in this kernel;
+//   3. U(v_f) at the Nfq face points (pow/exp of the inverse map);
+//   4. flux variables (rho, u, beta) and (log rho, log beta) at all
+//      Nh = Nq + Nfq points, staged in shared memory;
+//   5. skew line-sparse EC flux differencing along the three directions
+//      with the cvol/cface tables of ops/tensor_product_fd._hex_line_coeffs:
+//      one metric term per direction on axis-aligned meshes (DIAG), the
+//      3-term affine contraction otherwise;
+//   6. the face-row reduction (skew negatives of the vol-face couplings);
+//   7. out = 2 (1/wq) acc_vol + 2 LIFT ((1/wf) face_rows), LIFT in-kernel.
+// Outputs: ph_qf [5, Nq, K] and traces [7, Nfq, K] =
+// (rho, u1, u2, u3, beta, log rho, log beta) at the face points, faces
+// r-, r+, s-, s+, t-, t+ in the face-node order of ref_hex (Ef's rows).
+//
+// What bounds it on this card: at N=3, K=32768 each element evaluates
+// 672 two-point fluxes (3 directions x 16 lines x (6 vol-vol + 8
+// vol-face) pairs), each with five IEEE divisions and a select-guarded
+// logarithmic mean, plus 2 x 30720 multiply-adds of the dense Ef and
+// LIFT products.  The HBM stream is only q, the metric and the two
+// outputs (in f32: 42 MB in, 42 MB + 88 MB out, about 0.17 GB per RHS),
+// so the kernel is bound by arithmetic and division/transcendental
+// throughput, and by shared-memory bandwidth in the two dense products
+// — not by HBM.
+//
+// Simple design: a block owns TE elements (16, or 8 where the f64 tile
+// would not fit) and 256 threads; threadIdx.x runs over the elements, so
+// every load and store of the K-last [., ., K] arrays coalesces.  The
+// element's Nh-point flux variables (7 x Nh values) and a [5 x Nq]
+// accumulator live in shared memory (184 KB per block in f64 at N=3).
+// In the flux differencing one thread owns one node line of one
+// direction: it loads the line's N+1 volume points and its two face
+// points, evaluates every vol-vol pair ONCE (a < a', the triangular form
+// of the reference: node a' receives the negated contribution, exact
+// because S1 is skew and the flux symmetric) and every vol-face pair,
+// keeps the line's sums in registers and adds them to the shared
+// accumulator; a face point belongs to exactly one line, so its face row
+// is written without atomics, over the face values it was computed from.
+// The three directions are separated by barriers.  Lanes past K compute
+// on the quiescent state (rho=1, m=0, E=1) and store nothing.
+// Summation order differs from the reference (FMA contraction, sums in
+// another order): f32 agrees with the plain version to ~1e-6 of max|out|,
+// f64 to ~1e-14.
+//
+// Making it fast (register tiling of the lines, the sparse Ef, fewer
+// divisions, wider occupancy) is later work.
+#include "common.cuh"
+
+namespace esdg {
+
+constexpr int kVolumeThreads = 256;
+constexpr size_t kMaxSmem = 232448;  // 227 KB usable per block on sm_90
+
+// shared memory of a tile of te elements: 7 x Nh flux variables and a
+// 5 x Nq accumulator per element
+template <typename T, int N1>
+constexpr size_t volume_smem_bytes(int te) {
+  return size_t(7 * (N1 * N1 * N1 + 6 * N1 * N1) + 5 * N1 * N1 * N1) * te *
+         sizeof(T);
+}
+
+template <typename T, int N1>
+struct VolumeTile {
+  static constexpr int NQ = N1 * N1 * N1;
+  static constexpr int NFP = N1 * N1;
+  static constexpr int NFQ = 6 * NFP;
+  static constexpr int NH = NQ + NFQ;
+  static constexpr int TE =
+      volume_smem_bytes<T, N1>(16) <= kMaxSmem ? 16 : 8;
+  static constexpr int NW = kVolumeThreads / TE;
+  static constexpr size_t SMEM = volume_smem_bytes<T, N1>(TE);
+  static_assert(SMEM <= kMaxSmem, "volume tile exceeds shared memory");
+};
+
+template <typename T, int N1, bool DIAG>
+__global__ void __launch_bounds__(kVolumeThreads)
+    hex_volume_kernel(const T* __restrict__ q, const T* __restrict__ geo,
+                      const T* __restrict__ cvol, const T* __restrict__ cface,
+                      const T* __restrict__ iw, const T* __restrict__ iwf,
+                      const T* __restrict__ ef, const T* __restrict__ lift,
+                      T* __restrict__ out, T* __restrict__ traces,
+                      long long K, double gamma) {
+  using Tile = VolumeTile<T, N1>;
+  constexpr int NQ = Tile::NQ, NFP = Tile::NFP, NFQ = Tile::NFQ;
+  constexpr int NH = Tile::NH, TE = Tile::TE, NW = Tile::NW;
+  const Consts<T> c(gamma);
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sh = reinterpret_cast<T*>(smem_raw);  // [7][NH][TE] flux variables
+  T* acc = sh + 7 * NH * TE;               // [5][NQ][TE]
+  const int e = threadIdx.x;               // element of the tile
+  const int w = threadIdx.y;               // worker of the element
+  const long long k = (long long)blockIdx.x * TE + e;
+  const bool live = k < K;
+  auto SH = [&](int r, int node) -> T& { return sh[(r * NH + node) * TE + e]; };
+  auto ACC = [&](int f, int node) -> T& { return acc[(f * NQ + node) * TE + e]; };
+
+  // ---- 1. v(U) at the volume nodes (into acc) + volume flux variables ----
+  for (int i = w; i < NQ; i += NW) {
+    T u[5] = {T(1), T(0), T(0), T(0), T(1)};  // quiescent past K
+    if (live) {
+#pragma unroll
+      for (int f = 0; f < 5; ++f) u[f] = q[(long long)(f * NQ + i) * K + k];
+    }
+    const T rho = u[0], E = u[4];
+    const T rhou2 = u[1] * u[1] + u[2] * u[2] + u[3] * u[3];
+    const T p = c.gm1 * (E - (T(0.5) * rhou2) / rho);
+    const T s = log(p) - c.gamma * log(rho);
+    ACC(0, i) = (c.gamma_p1 - s) - (c.gm1 * E) / p;
+#pragma unroll
+    for (int j = 1; j < 4; ++j) ACC(j, i) = (c.gm1 * u[j]) / p;
+    ACC(4, i) = (-c.gm1 * rho) / p;
+    const T beta = rho / (T(2) * p);
+    SH(0, i) = rho;
+#pragma unroll
+    for (int j = 1; j < 4; ++j) SH(j, i) = u[j] / rho;
+    SH(4, i) = beta;
+    SH(5, i) = log(rho);
+    SH(6, i) = log(beta);
+  }
+  __syncthreads();
+
+  // ---- 2.-3. v_f = Ef v, U(v_f), face flux variables and traces ----
+  for (int fp = w; fp < NFQ; fp += NW) {
+    T fv[5] = {T(0), T(0), T(0), T(0), T(0)};
+    const T* erow = ef + fp * NQ;
+    for (int j = 0; j < NQ; ++j) {
+      const T a = __ldg(erow + j);
+#pragma unroll
+      for (int f = 0; f < 5; ++f) fv[f] += a * ACC(f, j);
+    }
+    const T vnorm = fv[1] * fv[1] + fv[2] * fv[2] + fv[3] * fv[3];
+    const T sf = (c.gamma - fv[0]) + vnorm / (T(2) * fv[4]);
+    const T rhoe =
+        pow(c.gm1 / pow(-fv[4], c.gamma), c.inv_gm1) * exp(-sf / c.gm1);
+    const T frho = rhoe * (-fv[4]);
+    const T fm1 = rhoe * fv[1], fm2 = rhoe * fv[2], fm3 = rhoe * fv[3];
+    const T fe = rhoe * (T(1) - vnorm / (T(2) * fv[4]));
+    const T fpress =
+        c.gm1 * (fe - (T(0.5) * (fm1 * fm1 + fm2 * fm2 + fm3 * fm3)) / frho);
+    const T fbeta = frho / (T(2) * fpress);
+    const T vals[7] = {frho,  fm1 / frho, fm2 / frho,     fm3 / frho,
+                       fbeta, log(frho),  log(fbeta)};
+#pragma unroll
+    for (int r = 0; r < 7; ++r) {
+      SH(r, NQ + fp) = vals[r];
+      if (live) traces[(long long)(r * NFQ + fp) * K + k] = vals[r];
+    }
+  }
+  __syncthreads();  // v is read by every worker above; now reuse acc
+  for (int i = w; i < NQ; i += NW) {
+#pragma unroll
+    for (int f = 0; f < 5; ++f) ACC(f, i) = T(0);
+  }
+  __syncthreads();
+
+  // ---- 4.-6. line-sparse skew EC flux differencing ----
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    T g[3] = {T(1), T(0), T(0)};
+    if (live) {
+      if (DIAG) {
+        g[0] = geo[(long long)(d * 3 + d) * K + k];
+      } else {
+#pragma unroll
+        for (int x = 0; x < 3; ++x) g[x] = geo[(long long)(d * 3 + x) * K + k];
+      }
+    }
+    const int stride = d == 0 ? 1 : (d == 1 ? N1 : N1 * N1);
+    for (int L = w; L < NFP; L += NW) {
+      // line L of direction d: volume nodes base + a*stride, a = 0..N1-1;
+      // it pierces face node L of faces 2d and 2d+1
+      const int base =
+          d == 0 ? N1 * L : (d == 1 ? (L % N1) + N1 * N1 * (L / N1) : L);
+      T qv[N1][7];
+      T al[N1][5];
+#pragma unroll
+      for (int a = 0; a < N1; ++a) {
+#pragma unroll
+        for (int r = 0; r < 7; ++r) qv[a][r] = SH(r, base + a * stride);
+#pragma unroll
+        for (int f = 0; f < 5; ++f) al[a][f] = T(0);
+      }
+      // vol-vol pairs, each once: node a gets cvol*F, node ap its negative
+#pragma unroll
+      for (int ap = 1; ap < N1; ++ap) {
+#pragma unroll
+        for (int a = 0; a < ap; ++a) {
+          T fr[5];
+          contracted_flux<T, DIAG>(qv[a], qv[ap], d, g, c, fr);
+          const T cf = __ldg(cvol + (d * N1 + ap) * NQ + base + a * stride);
+#pragma unroll
+          for (int f = 0; f < 5; ++f) {
+            const T wv = cf * fr[f];
+            al[a][f] += wv;
+            al[ap][f] -= wv;
+          }
+        }
+      }
+      // vol-face pairs of the two faces the line pierces
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const int fid = 2 * d + side;
+        const int frow = NQ + fid * NFP + L;
+        T qf[7];
+#pragma unroll
+        for (int r = 0; r < 7; ++r) qf[r] = SH(r, frow);
+        T fs[5] = {T(0), T(0), T(0), T(0), T(0)};
+#pragma unroll
+        for (int a = 0; a < N1; ++a) {
+          T fr[5];
+          contracted_flux<T, DIAG>(qv[a], qf, d, g, c, fr);
+          const T cf = __ldg(cface + fid * NQ + base + a * stride);
+#pragma unroll
+          for (int f = 0; f < 5; ++f) {
+            const T wv = cf * fr[f];
+            al[a][f] += wv;
+            fs[f] -= wv;
+          }
+        }
+        // (1/wf)-scaled face row over this point's face values: no other
+        // thread reads face point (fid, L)
+        const T iwf_l = iwf[L];
+#pragma unroll
+        for (int f = 0; f < 5; ++f) SH(f, frow) = iwf_l * fs[f];
+      }
+#pragma unroll
+      for (int a = 0; a < N1; ++a) {
+#pragma unroll
+        for (int f = 0; f < 5; ++f) ACC(f, base + a * stride) += al[a][f];
+      }
+    }
+    __syncthreads();  // the next direction's lines cross these nodes
+  }
+
+  // ---- 7. Ph QF = 2 (1/wq) QF_vol + 2 LIFT ((1/wf) QF_face) ----
+  if (!live) return;  // no barrier below
+  for (int i = w; i < NQ; i += NW) {
+    T s[5] = {T(0), T(0), T(0), T(0), T(0)};
+    const T* lrow = lift + i * NFQ;
+    for (int fp = 0; fp < NFQ; ++fp) {
+      const T a = __ldg(lrow + fp);
+#pragma unroll
+      for (int f = 0; f < 5; ++f) s[f] += a * SH(f, NQ + fp);
+    }
+    const T two_iw = T(2) * iw[i];
+#pragma unroll
+    for (int f = 0; f < 5; ++f)
+      out[(long long)(f * NQ + i) * K + k] = two_iw * ACC(f, i) + T(2) * s[f];
+  }
+}
+
+template <typename T, int N1, bool DIAG>
+int launch_volume(const void* q, const void* geo, const void* cvol,
+                  const void* cface, const void* iw, const void* iwf,
+                  const void* ef, const void* lift, void* out, void* traces,
+                  long long K, double gamma, cudaStream_t stream) {
+  using Tile = VolumeTile<T, N1>;
+  auto kern = hex_volume_kernel<T, N1, DIAG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tile::SMEM));
+  if (err != cudaSuccess) return int(err);
+  const dim3 block(Tile::TE, Tile::NW);
+  const dim3 grid(unsigned((K + Tile::TE - 1) / Tile::TE));
+  kern<<<grid, block, Tile::SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(geo),
+      static_cast<const T*>(cvol), static_cast<const T*>(cface),
+      static_cast<const T*>(iw), static_cast<const T*>(iwf),
+      static_cast<const T*>(ef), static_cast<const T*>(lift),
+      static_cast<T*>(out), static_cast<T*>(traces), K, gamma);
+  return int(cudaGetLastError());
+}
+
+template <typename T, bool DIAG>
+int dispatch_volume(int n1, const void* q, const void* geo, const void* cvol,
+                    const void* cface, const void* iw, const void* iwf,
+                    const void* ef, const void* lift, void* out,
+                    void* traces, long long K, double gamma,
+                    cudaStream_t stream) {
+#define ESDG_VOLUME_CASE(N)                                                  \
+  case N:                                                                    \
+    return launch_volume<T, N, DIAG>(q, geo, cvol, cface, iw, iwf, ef, lift, \
+                                     out, traces, K, gamma, stream);
+  switch (n1) {
+    ESDG_VOLUME_CASE(2)
+    ESDG_VOLUME_CASE(3)
+    ESDG_VOLUME_CASE(4)
+    ESDG_VOLUME_CASE(5)
+    default:
+      return -1;
+  }
+#undef ESDG_VOLUME_CASE
+}
+
+}  // namespace esdg
+
+// dtype: 0 = float32, 1 = float64.  Returns cudaGetLastError() after the
+// launch, -1 for an unsupported line length n1, -2 for an unknown dtype.
+extern "C" int esdg_hex_volume(int dtype, int n1, int diag, const void* q,
+                               const void* geo, const void* cvol,
+                               const void* cface, const void* iw,
+                               const void* iwf, const void* ef,
+                               const void* lift, void* out, void* traces,
+                               long long K, double gamma, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return diag ? esdg::dispatch_volume<float, true>(
+                      n1, q, geo, cvol, cface, iw, iwf, ef, lift, out,
+                      traces, K, gamma, st)
+                : esdg::dispatch_volume<float, false>(
+                      n1, q, geo, cvol, cface, iw, iwf, ef, lift, out,
+                      traces, K, gamma, st);
+  }
+  if (dtype == 1) {
+    return diag ? esdg::dispatch_volume<double, true>(
+                      n1, q, geo, cvol, cface, iw, iwf, ef, lift, out,
+                      traces, K, gamma, st)
+                : esdg::dispatch_volume<double, false>(
+                      n1, q, geo, cvol, cface, iw, iwf, ef, lift, out,
+                      traces, K, gamma, st);
+  }
+  return -2;
+}

@@ -1,0 +1,358 @@
+"""Fused volume (K1) and surface (K2) stages of the collocated-hex Euler RHS.
+
+Port of the main-path kernels of ``esdg_cns_tpu/ops/pallas_volume.py``:
+
+  * ``euler_volume`` (K1, CUDA ``csrc/hex_volume.cu``) replaces
+    ``_volume_kernel`` / ``euler_volume_pallas``;
+  * ``euler_surface`` (K2, CUDA ``csrc/hex_surface.cu``) replaces
+    ``_surface_kernel`` / ``euler_surface_pallas``.
+
+Each wrapper has a plain PyTorch version beside it (``*_plain``).  The
+wrapper takes the plain version only for CPU tensors; for CUDA tensors
+it launches its kernel or raises.  Each counts its launches in a plain
+integer attribute (``euler_volume.launches``), bumped only where the
+kernel is launched.
+
+The TPU kernels' lane blocking, sublane padding and packed folds are
+layouts, not math: the port keeps the math.  The CUDA kernels cover
+affine meshes (diagonal and general metric); on curved geometry the
+wrapper raises and the plain version (CPU) covers it.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ..physics.euler import ec_flux_fields
+from .tensor_product_fd import LineOps, _hex_line_coeffs, flux_differencing_lines
+
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+
+
+def detect_axis_aligned(disc, tol: float = 1e-9) -> bool:
+    """True when the hex discretization's metric is diagonal and every
+    face-group normal has a single nonzero component (uniform/cartesian
+    meshes).
+
+    Host-side, when the RHS is constructed.  tol matches the setup-time
+    snap gate (core.discretization._snap, 1e-9 relative; the curl-form noise is
+    absolute, so its RELATIVE size grows with k1d — 1e-11 failed at the
+    k1d=32 mesh): any off-axis entry the snap left alone fails detection,
+    so a detected-aligned mesh carries EXACT zeros in the entries the
+    diag kernels statically drop, and the specialization is never an
+    approximation.
+    """
+    if disc.elem_type != "hex" or disc.line_ops is None:
+        return False
+    geo = disc.geo.detach().cpu().numpy()
+    if geo.shape[1] != 1:        # curved
+        return False
+    scale = np.abs(geo).max()
+    for d in range(3):
+        for x in range(3):
+            if x != d and np.abs(geo[d * 3 + x]).max() > tol * scale:
+                return False
+    nxj = np.stack([a.detach().cpu().numpy() for a in disc.nxj])
+    nfp = nxj.shape[1] // 6
+    nscale = np.abs(nxj).max()
+    for fid in range(6):
+        d = fid // 2
+        rows = slice(fid * nfp, (fid + 1) * nfp)
+        for x in range(3):
+            if x != d and np.abs(nxj[x, rows]).max() > tol * nscale:
+                return False
+    return True
+
+
+def _inv_weights(line_ops: LineOps):
+    """(1/wq [Nq], 1/wface [Nfp]) from the 1D weights."""
+    n1 = line_ops.n1d
+    w1 = np.asarray(line_ops.w1)
+    idx = np.arange(n1 ** 3)
+    wq = w1[idx % n1] * w1[(idx // n1) % n1] * w1[idx // (n1 * n1)]
+    fidx = np.arange(n1 * n1)
+    wf = w1[fidx % n1] * w1[fidx // n1]
+    return 1.0 / wq, 1.0 / wf
+
+
+@functools.lru_cache(maxsize=16)
+def _volume_consts(line_ops: LineOps, dtype: torch.dtype, device: torch.device):
+    """cvol [3 n1, Nq], cface [6, Nq], 1/wq [Nq], 1/wf [Nfp] on the device."""
+    cvol, cface = _hex_line_coeffs(line_ops)
+    iw, iwf = _inv_weights(line_ops)
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device)
+                 for a in (cvol, cface, iw, iwf))
+
+
+def _check_cuda(name, tensors, dtype, device):
+    """Raise unless every tensor is a contiguous CUDA tensor of one dtype."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {dtype} not supported "
+                        "(float32 or float64)")
+    for key, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {key} on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {key} is {t.dtype}, expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+def _check_shape(name, key, t, shape):
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+
+
+def _raise_on(name, rc):
+    if rc == -1:
+        raise NotImplementedError(f"{name}: no kernel for this polynomial "
+                                  "degree (N = 1..4 are built)")
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
+
+
+# -----------------------------------------------------------------------------
+# K1: volume stage
+# -----------------------------------------------------------------------------
+
+def _entropy_project_hex(q, ef, gamma):
+    """Collocated-hex entropy projection (mirror of the TPU kernel's
+    ``_entropy_project_hex``): q [5, Nq, K] -> hybridized flux variables
+    qh [5, Nh, K] = (rho, u1..3, beta) and logs qlog [2, Nh, K]."""
+    gm1 = gamma - 1.0
+    rho, m1, m2, m3, e = q.unbind(0)
+    rhou2 = m1 * m1 + m2 * m2 + m3 * m3
+    p = gm1 * (e - 0.5 * rhou2 / rho)
+    s = torch.log(p) - gamma * torch.log(rho)
+    v1 = (gamma + 1.0 - s) - gm1 * e / p
+    vm = [gm1 * m / p for m in (m1, m2, m3)]
+    ve = -gm1 * rho / p
+
+    fv1, fve = ef @ v1, ef @ ve
+    fvm = [ef @ v for v in vm]
+    vnorm = fvm[0] * fvm[0] + fvm[1] * fvm[1] + fvm[2] * fvm[2]
+    sf = gamma - fv1 + vnorm / (2.0 * fve)
+    rhoe = (gm1 / (-fve) ** gamma) ** (1.0 / gm1) * torch.exp(-sf / gm1)
+    frho = rhoe * (-fve)
+    fmom = [rhoe * v for v in fvm]
+    fe = rhoe * (1.0 - vnorm / (2.0 * fve))
+
+    beta_v = rho / (2.0 * p)
+    uvel = [m / rho for m in (m1, m2, m3)]
+    fp = gm1 * (fe - 0.5 * (fmom[0] * fmom[0] + fmom[1] * fmom[1]
+                            + fmom[2] * fmom[2]) / frho)
+    beta_f = frho / (2.0 * fp)
+    fuvel = [m / frho for m in fmom]
+
+    hyb = lambda vol_x, face_x: torch.cat([vol_x, face_x], dim=0)
+    qh = torch.stack([hyb(rho, frho)]
+                     + [hyb(uvel[d], fuvel[d]) for d in range(3)]
+                     + [hyb(beta_v, beta_f)])
+    return qh, torch.stack([torch.log(qh[0]), torch.log(qh[4])])
+
+
+def euler_volume_plain(q, geo, ef, lift, gamma, *, line_ops: LineOps,
+                       diag: bool = False):
+    """Plain PyTorch fused volume stage; same contract as ``euler_volume``.
+
+    Entropy projection, line-sparse flux differencing, then
+    Ph QF = QF_vol / wq + LIFT (QF_face / wf).  diag (affine meshes only,
+    as in the kernel) drops the off-diagonal metric terms, exactly as
+    the kernel's single-term contraction does.
+    """
+    nq = q.shape[1]
+    qh, qlog = _entropy_project_hex(q, ef, gamma)
+    curved = geo.shape[1] != 1
+    if diag and not curved:
+        eye = torch.eye(3, dtype=geo.dtype, device=geo.device)
+        geo = geo * eye.reshape(9, 1, 1)
+    qf = flux_differencing_lines(qh, qlog, geo, gamma, elem_type="hex",
+                                 line_ops=line_ops, nq=nq)   # = 2 QF
+    iw, iwf = _inv_weights(line_ops)
+    iw = torch.as_tensor(iw, dtype=q.dtype, device=q.device)[:, None]
+    iwf = torch.as_tensor(np.tile(iwf, 6), dtype=q.dtype,
+                          device=q.device)[:, None]
+    ph_qf = iw * qf[:, :nq] + lift @ (iwf * qf[:, nq:])
+    traces = torch.cat([qh[:, nq:], qlog[:, nq:]], dim=0)
+    return ph_qf, traces
+
+
+def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
+                 diag: bool = False):
+    """Fused volume stage.  Returns (ph_qf [5, Nq, K], traces [7, Nfq, K])
+    with traces = (rho, u1, u2, u3, beta, log rho, log beta) at the face
+    points.
+
+    q [5, Nq, K] conservative state; geo [9, 1, K] affine metric (curved
+    [9, Nh, K] only on the CPU); ef [Nfq, Nq] face extrapolation;
+    lift [Nq, Nfq].  diag: axis-aligned mesh (``detect_axis_aligned``).
+    """
+    if q.device.type == "cpu":
+        return euler_volume_plain(q, geo, ef, lift, gamma,
+                                  line_ops=line_ops, diag=diag)
+    if q.device.type != "cuda":
+        raise ValueError(f"euler_volume: no kernel for device {q.device}")
+    name = "euler_volume"
+    nf, nq, k = q.shape
+    n1 = line_ops.n1d
+    nfq = 6 * n1 * n1
+    if geo.shape[1] != 1:
+        raise NotImplementedError(
+            "euler_volume: the CUDA kernel covers affine meshes only; "
+            "curved geometry runs the plain version on the CPU")
+    _check_cuda(name, {"q": q, "geo": geo, "ef": ef, "lift": lift},
+                q.dtype, q.device)
+    for key, t, shape in (("q", q, (5, n1 ** 3, k)), ("geo", geo, (9, 1, k)),
+                          ("ef", ef, (nfq, nq)), ("lift", lift, (nq, nfq))):
+        _check_shape(name, key, t, shape)
+    out = torch.empty((nf, nq, k), dtype=q.dtype, device=q.device)
+    traces = torch.empty((7, nfq, k), dtype=q.dtype, device=q.device)
+    if k == 0:
+        return out, traces
+    cvol, cface, iw, iwf = _volume_consts(line_ops, q.dtype, q.device)
+    from ..kernels import library
+
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.esdg_hex_volume(
+            _DTYPE_CODE[q.dtype], n1, int(diag),
+            q.data_ptr(), geo.data_ptr(), cvol.data_ptr(), cface.data_ptr(),
+            iw.data_ptr(), iwf.data_ptr(), ef.data_ptr(), lift.data_ptr(),
+            out.data_ptr(), traces.data_ptr(), k, float(gamma), stream)
+    _raise_on(name, rc)
+    euler_volume.launches += 1
+    return out, traces
+
+
+euler_volume.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# K2: surface stage
+# -----------------------------------------------------------------------------
+
+def euler_surface_plain(traces, nbr, nxj, sj, inv_sj, inv_jac, lift, ph_qf,
+                        gamma, *, dissipation: bool = True,
+                        diag: bool = False):
+    """Plain PyTorch fused surface stage; same contract as
+    ``euler_surface`` (mirror of the TPU ``_surface_kernel``)."""
+    gm1 = gamma - 1.0
+    nfp = traces.shape[1] // 6
+
+    def conservative(q5):
+        # (rho, u, beta) -> (rho, m, E) with p = rho/(2 beta)
+        rho, u1, u2, u3, beta = q5
+        u2norm = u1 * u1 + u2 * u2 + u3 * u3
+        e = rho / (2.0 * beta * gm1) + 0.5 * rho * u2norm
+        return rho, rho * u1, rho * u2, rho * u3, e
+
+    def group_flux(qm, qp, logs_m, logs_p, nxj_g, sj_g, isj_g, dirs):
+        """EC flux + LF for one row group (or the whole face set)."""
+        fluxes = ec_flux_fields(qm, qp, logs_m, logs_p, gamma, dirs=dirs)
+        if dirs is None:
+            flux = [sum(fluxes[x][f] * nxj_g[x] for x in range(3))
+                    for f in range(5)]
+        else:
+            flux = [fluxes[0][f] * nxj_g[0] for f in range(5)]
+        if dissipation:
+            um = conservative(qm)
+            up = conservative(qp)
+
+            def lam(u):
+                rho, m1, m2, m3, e = u
+                if dirs is None:
+                    un = (m1 * nxj_g[0] + m2 * nxj_g[1]
+                          + m3 * nxj_g[2]) * isj_g
+                else:
+                    un = (m1, m2, m3)[dirs[0]] * nxj_g[0] * isj_g
+                p = gm1 * (e - 0.5 * un * un / rho)
+                return torch.abs(un / rho) + torch.sqrt(gamma * p / rho)
+
+            lfc = 0.25 * torch.maximum(lam(um), lam(up)) * sj_g
+            for f in range(5):
+                flux[f] = flux[f] - lfc * (up[f] - um[f])
+        return flux
+
+    if diag:
+        parts = []
+        for d in range(3):
+            rows = slice(2 * d * nfp, 2 * (d + 1) * nfp)
+            nxj_g = nxj[0, rows]
+            sj_g = torch.abs(nxj_g)           # = sqrt(nxj_d^2): exact
+            parts.append(group_flux(
+                tuple(traces[i, rows] for i in range(5)),
+                tuple(nbr[i, rows] for i in range(5)),
+                (traces[5, rows], traces[6, rows]),
+                (nbr[5, rows], nbr[6, rows]),
+                (nxj_g,), sj_g, 1.0 / sj_g, (d,),
+            ))
+        flux = [torch.cat([parts[d][f] for d in range(3)], dim=0)
+                for f in range(5)]
+    else:
+        flux = group_flux(
+            tuple(traces[i] for i in range(5)),
+            tuple(nbr[i] for i in range(5)),
+            (traces[5], traces[6]), (nbr[5], nbr[6]),
+            tuple(nxj[x] for x in range(3)), sj, inv_sj, None,
+        )
+    return -(ph_qf + lift @ torch.stack(flux)) * inv_jac
+
+
+def euler_surface(traces, nbr, nxj, sj, inv_sj, inv_jac, lift, ph_qf,
+                  gamma, *, dissipation: bool = True, diag: bool = False):
+    """Fused surface stage; returns the complete RHS dq [5, Nq, K].
+
+    traces, nbr [7, Nfq, K]: local and gathered neighbour traces.
+    diag: nxj is the COMPACT [1, Nfq, K] normal (each face point's single
+    nonzero component) and inv_jac its first row [1, K]; sj / inv_sj are
+    not read (derived in the kernel).  General: nxj [3, Nfq, K], sj and
+    inv_sj [Nfq, K], inv_jac [Nq, K].
+    """
+    if traces.device.type == "cpu":
+        return euler_surface_plain(traces, nbr, nxj, sj, inv_sj, inv_jac,
+                                   lift, ph_qf, gamma,
+                                   dissipation=dissipation, diag=diag)
+    if traces.device.type != "cuda":
+        raise ValueError(f"euler_surface: no kernel for device {traces.device}")
+    name = "euler_surface"
+    _, nfq, k = traces.shape
+    nq = ph_qf.shape[1]
+    n1 = round((nfq // 6) ** 0.5)
+    tensors = {"traces": traces, "nbr": nbr, "nxj": nxj, "inv_jac": inv_jac,
+               "lift": lift, "ph_qf": ph_qf}
+    shapes = {"traces": (7, nfq, k), "nbr": (7, nfq, k),
+              "nxj": (1 if diag else 3, nfq, k),
+              "inv_jac": (1 if diag else nq, k), "lift": (nq, nfq),
+              "ph_qf": (5, n1 ** 3, k)}
+    if not diag:
+        tensors.update(sj=sj, inv_sj=inv_sj)
+        shapes.update(sj=(nfq, k), inv_sj=(nfq, k))
+    _check_cuda(name, tensors, traces.dtype, traces.device)
+    for key, t in tensors.items():
+        _check_shape(name, key, t, shapes[key])
+    out = torch.empty((5, nq, k), dtype=traces.dtype, device=traces.device)
+    if k == 0:
+        return out
+    from ..kernels import library
+
+    lib = library()
+    sj_ptr = nxj.data_ptr() if diag else sj.data_ptr()
+    isj_ptr = nxj.data_ptr() if diag else inv_sj.data_ptr()
+    with torch.cuda.device(traces.device):
+        stream = torch.cuda.current_stream(traces.device).cuda_stream
+        rc = lib.esdg_hex_surface(
+            _DTYPE_CODE[traces.dtype], n1, int(diag), int(dissipation),
+            traces.data_ptr(), nbr.data_ptr(), nxj.data_ptr(), sj_ptr,
+            isj_ptr, inv_jac.data_ptr(), lift.data_ptr(), ph_qf.data_ptr(),
+            out.data_ptr(), k, float(gamma), stream)
+    _raise_on(name, rc)
+    euler_surface.launches += 1
+    return out
+
+
+euler_surface.launches = 0

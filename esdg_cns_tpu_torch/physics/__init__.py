@@ -1,0 +1,37 @@
+"""Physics: Euler constitutive maps and EC fluxes."""
+
+from .euler import (
+    GAMMA,
+    betafun,
+    conservative_to_primitive_beta,
+    ec_flux,
+    ec_flux_fields,
+    entropy_fun,
+    euler_flux,
+    logmean,
+    pfun,
+    primitive_to_conservative,
+    psi_fun,
+    sfun,
+    u_vfun,
+    v_ufun,
+    wavespeed,
+)
+
+__all__ = [
+    "GAMMA",
+    "betafun",
+    "conservative_to_primitive_beta",
+    "ec_flux",
+    "ec_flux_fields",
+    "entropy_fun",
+    "euler_flux",
+    "logmean",
+    "pfun",
+    "primitive_to_conservative",
+    "psi_fun",
+    "sfun",
+    "u_vfun",
+    "v_ufun",
+    "wavespeed",
+]

@@ -1,0 +1,154 @@
+"""CUDA kernels of the port against their plain PyTorch versions.
+
+These tests need an NVIDIA GPU (marker ``gpu``) and skip elsewhere; the
+decision is taken inside the ``cuda`` fixture.  The file imports no JAX,
+so it also runs on a machine without it:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Tolerances are max |kernel - plain| / max |plain|: the kernels sum in
+another order than the plain version and contract multiply-adds into
+FMAs, and libdevice's transcendentals differ by an ulp or two.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from esdg_cns_tpu_torch.ops import fused_volume as fv
+from esdg_cns_tpu_torch.physics import primitive_to_conservative
+from esdg_cns_tpu_torch.presets import euler_hex_3d
+from esdg_cns_tpu_torch.solvers import make_euler_rhs, make_euler_rhs_fused
+
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+GAMMA = 1.4
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _random_state(disc, dtype, device, seed=0):
+    """Seeded state with all three velocity components nonzero."""
+    rng = np.random.default_rng(seed)
+    sh = (disc.np_, disc.num_elements)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return primitive_to_conservative(
+        f(2 + 0.1 * rng.random(sh)), f(0.3 * rng.standard_normal((3, *sh))),
+        f(2 + 0.1 * rng.random(sh)))
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _surface_inputs(disc, diag):
+    if diag:
+        return (disc.nxj[0] + disc.nxj[1] + disc.nxj[2])[None], disc.inv_jac[:1]
+    return torch.stack(disc.nxj), disc.inv_jac
+
+
+# k1d=3 gives K=27: a ragged last tile for both kernels
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k1d", [(1, 3), (2, 3), (3, 3), (4, 2)])
+@pytest.mark.parametrize("diag", [True, False])
+def test_kernels_match_plain(cuda, dtype, n, k1d, diag):
+    disc, _ = euler_hex_3d(n=n, k1d=k1d, dtype=dtype, device=cuda)
+    q = _random_state(disc, dtype, cuda)
+    ef = disc.vhp[disc.nq:]
+    vargs = (q, disc.geo, ef, disc.lift, GAMMA)
+    vkw = dict(line_ops=disc.line_ops, diag=diag)
+    before = fv.euler_volume.launches
+    p_out, p_tr = fv.euler_volume_plain(*vargs, **vkw)
+    k_out, k_tr = fv.euler_volume(*vargs, **vkw)
+    torch.cuda.synchronize()
+    assert fv.euler_volume.launches == before + 1
+    assert _rel(k_out, p_out) <= TOL[dtype]
+    assert _rel(k_tr, p_tr) <= TOL[dtype]
+
+    nxj, inv_jac = _surface_inputs(disc, diag)
+    nbr = disc.gather_traces(p_tr)
+    for dissipation in (True, False):
+        sargs = (p_tr, nbr, nxj, disc.sj, disc.inv_sj, inv_jac, disc.lift,
+                 p_out, GAMMA)
+        skw = dict(dissipation=dissipation, diag=diag)
+        p_s = fv.euler_surface_plain(*sargs, **skw)
+        k_s = fv.euler_surface(*sargs, **skw)
+        torch.cuda.synchronize()
+        assert _rel(k_s, p_s) <= TOL[dtype]
+
+
+def _random_affine(disc, dtype, device, seed=11):
+    """Seeded non-diagonal affine geometry: geo [9, 1, K] with all nine
+    entries O(1), nxj [3, Nfq, K] with sj = |nxj| and inv_sj = 1/sj, and
+    inv_jac [Nq, K] varying per node.  Unlike the uniform mesh, no cross
+    term is an exact zero."""
+    rng = np.random.default_rng(seed)
+    k = disc.num_elements
+    geo = rng.uniform(0.5, 1.5, (9, 1, k)) * rng.choice([-1.0, 1.0], (9, 1, k))
+    nxj = rng.standard_normal((3, disc.nfq, k))
+    sj = np.sqrt((nxj ** 2).sum(axis=0))
+    inv_jac = rng.uniform(0.5, 2.0, (disc.nq, k))
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return f(geo), f(nxj), f(sj), f(1.0 / sj), f(inv_jac)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k1d", [(1, 3), (2, 3), (3, 3), (4, 2)])
+def test_general_kernels_on_random_affine_metric(cuda, dtype, n, k1d):
+    disc, _ = euler_hex_3d(n=n, k1d=k1d, dtype=dtype, device=cuda)
+    q = _random_state(disc, dtype, cuda)
+    geo, nxj, sj, inv_sj, inv_jac = _random_affine(disc, dtype, cuda)
+    vargs = (q, geo, disc.vhp[disc.nq:], disc.lift, GAMMA)
+    vkw = dict(line_ops=disc.line_ops, diag=False)
+    p_out, p_tr = fv.euler_volume_plain(*vargs, **vkw)
+    k_out, k_tr = fv.euler_volume(*vargs, **vkw)
+    torch.cuda.synchronize()
+    assert _rel(k_out, p_out) <= TOL[dtype]
+    assert _rel(k_tr, p_tr) <= TOL[dtype]
+
+    nbr = disc.gather_traces(p_tr)
+    for dissipation in (True, False):
+        sargs = (p_tr, nbr, nxj, sj, inv_sj, inv_jac, disc.lift, p_out,
+                 GAMMA)
+        skw = dict(dissipation=dissipation, diag=False)
+        p_s = fv.euler_surface_plain(*sargs, **skw)
+        k_s = fv.euler_surface(*sargs, **skw)
+        torch.cuda.synchronize()
+        assert _rel(k_s, p_s) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_fused_rhs_matches_twin_and_conserves_entropy(cuda):
+    disc, _ = euler_hex_3d(n=3, k1d=3, dtype=torch.float64, device=cuda)
+    q = _random_state(disc, torch.float64, cuda, seed=1)
+    a, _ = make_euler_rhs(disc, dissipation=True, compute_rhstest=False)(q)
+    b, _ = make_euler_rhs_fused(disc, dissipation=True)(q)
+    assert _rel(b, a) <= 1e-11
+    _, aux = make_euler_rhs_fused(disc, dissipation=False,
+                                  compute_rhstest=True)(q)
+    assert abs(float(aux["rhstest"])) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
+    disc, q = euler_hex_3d(n=2, k1d=2, curved=True, dtype=torch.float32,
+                           device=cuda)
+    ef = disc.vhp[disc.nq:]
+    with pytest.raises(NotImplementedError):
+        fv.euler_volume(q, disc.geo, ef, disc.lift, GAMMA,
+                        line_ops=disc.line_ops)
+    disc, q = euler_hex_3d(n=2, k1d=2, dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError):
+        fv.euler_volume(q, disc.geo.double(), ef, disc.lift, GAMMA,
+                        line_ops=disc.line_ops)
+    with pytest.raises(ValueError):
+        fv.euler_volume(q[:, :, ::2], disc.geo[:, :, ::2], ef, disc.lift,
+                        GAMMA, line_ops=disc.line_ops)
