@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's two paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,25 +7,52 @@ Phases (each raises on failure; nothing is caught):
   1. device: the card's name and power limit (nvidia-smi) and the TF32
      switches, which stay off;
   2. build: nvcc builds esdg_cns_tpu_torch/csrc/*.cu for sm_90a; prints the
-     build time and ptxas' register/spill report of the N=3 kernels;
-  3. kernels: K1 (euler_volume) and K2 (euler_surface) against their plain
-     PyTorch versions on the card, at the main-path shapes (N=3, k1d=32,
-     f32, axis-aligned) and at N=3, k1d=8 in f64 (axis-aligned and general);
-     the general variant also on a seeded random non-diagonal affine metric
-     (k1d=32 f32, k1d=8 f64), where no cross term is an exact zero;
-  4. main path: presets.euler_hex_3d(3, 32, f32) -> make_euler_rhs_fused ->
+     build time and ptxas' register/spill report of the N=3 hex kernels and
+     of the tri kernels;
+  3. Euler kernels: K1 (euler_volume) and K2 (euler_surface) against their
+     plain PyTorch versions on the card, at the main-path shapes (N=3,
+     k1d=32, f32, axis-aligned) and at N=3, k1d=8 in f64 (axis-aligned and
+     general); the general variant also on a seeded random non-diagonal
+     affine metric (k1d=32 f32, k1d=8 f64), where no cross term is an exact
+     zero;
+  4. Euler path: presets.euler_hex_3d(3, 32, f32) -> make_euler_rhs_fused ->
      lsrk45 for 20 steps with every launch counter at 0 before; checks the
      state is finite, each kernel launched once per stage, the state agrees
      with the plain twin make_euler_rhs(flux_diff_impl='lines') run from the
      same q0, and sum(wJq q) per field is conserved; then an f64 k1d=4
      entropy-conservation check (dissipation off) on the kernel path;
-  5. timing with CUDA events (medians of 5 repeats after warm-up): the
-     main-path rate in DOF*RK-stage/s (5 Np K stages / s, bench.py's
-     definition) over 1200 stages, the twin's rate over fewer stages, and
-     per-kernel times beside the plain versions.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
-prints no result: there is no CPU path.
+  5. Euler timing with CUDA events (medians of 5 repeats after warm-up): the
+     rate in DOF*RK-stage/s (5 Np K stages / s, bench.py's definition) over
+     1200 stages, the twin's rate over fewer stages, and per-kernel device
+     times beside the plain versions; then torch.profiler over 20 stages:
+     device time by kernel and the device's busy share;
+  6. cavity kernels: K3 (euler_modal_volume) and K4 (cns_surface_viscous,
+     both fold_tail forms) against their plain versions on seeded moving
+     states (esdg_cns_tpu_torch.cavity_cases: velocity of standard
+     deviation 0.3, so no velocity term multiplies zeros) at the cavity's
+     shapes (tri N=3, k1d=128, f32, isothermal walls), and at k1d=8 in f64
+     for every BC shape (isothermal, adiabatic, slip, an array lid profile,
+     a Dirichlet region of seeded states, no BC, and all four kinds with
+     array wall speeds and temperatures), and at k1d=5 (K=50, a ragged
+     last tile);
+  7. cavity path: presets.lid_driven_cavity(3, 128, f32) ->
+     make_cns_rhs_affine (bench.py's flags) -> lsrk45 for 20 steps at
+     dt=1e-4 with every launch counter at 0 before; checks K3 and K4
+     launched once per stage, the state is finite f32, agrees with the twin
+     make_cns_rhs run from the same q0, and conserves mass; then an f64
+     k1d=8 entropy check (adiabatic walls at rest, rhstest on) on the kernel
+     path;
+  8. cavity timing: the rate in DOF*RK-stage/s (4 Np K stages / s,
+     bench.py's cns definition) over 1200 stages at dt=1e-6, the twin's
+     rate, K3 and K4 beside their plain versions, the two exchanges, the
+     rest of the stage, and the profiler's split as in phase 5.
+A kernel's time is its device time: the timed calls are queued behind a
+sleeping kernel, so the host's dispatch does not enter it.
+The line before the last is {"kernels": [...]} with each kernel's bound
+(the larger of its bytes over 3.35 TB/s and its operations over 67
+TFLOP/s, from this run's shapes); the last line is {"ok": true,
+"device": {...}}.  Without a CUDA device it exits non-zero and prints no
+result: there is no CPU path.
 """
 
 import json
@@ -34,9 +61,12 @@ import subprocess
 import sys
 import time
 
-# the main path: N=3, k1d=32 (K=32768, 10.5M DOF), f32
+# the Euler path: N=3, k1d=32 (K=32768, 10.5M DOF), f32
 N, K1D, STEPS, DT = 3, 32, 20, 1e-3
 TIMED_STEPS, TWIN_TIMED_STEPS, REPEATS = 240, 5, 5
+# the cavity path: tri N=3, k1d=128 (K=32768, 1.31M DOF), f32
+CAV_N, CAV_K1D, CAV_STEPS, CAV_DT = 3, 128, 20, 1e-4
+CAV_TIMED_DT = 1e-6        # timing run, as bench.py's
 # kernel vs plain, max |kernel - plain| / max |plain|: the kernels sum in
 # another order than the plain version and contract multiply-adds into
 # FMAs, and libdevice's log/exp/pow differ from PyTorch's by an ulp or two
@@ -50,6 +80,24 @@ TWIN_TOL_F32 = 1e-5
 CONSERVATION_TOL_F32 = 1e-8
 # f64 entropy balance with dissipation off (k1d=4)
 RHSTEST_TOL_F64 = 1e-10
+# cavity mass, |change of sum(wJq rho)| / sum(wJq rho) over 20 steps.  The
+# walls carry no mass flux and rho+ = rho- on them, so the RHS conserves
+# mass to roundoff: in f64 (the kernel path at k1d=128) the drift must
+# stay at roundoff.  In f32 the state starts at rest and most nodes get
+# increments below half an ulp of rho, which round away coherently (4.3e-8
+# at k1d=128 on an H100; the f32 twin's drift is printed beside it), so the
+# f32 limit lies between that reading and the coherent worst case of 100
+# stages x 2^-24: 100 times looser than the 1e-8 first asked of f32, which
+# the f64 limit carries instead.
+CAV_MASS_TOL_F64 = 1e-12
+CAV_MASS_TOL_F32 = 1e-6
+# device-only timing: the stream sleeps this many cycles (about 0.1 s at
+# the H100's clock) while the host queues the timed calls behind it
+SLEEP_CYCLES = 200_000_000
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s and FP32
+# operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def card_label():
@@ -66,8 +114,11 @@ def rel_err(a, b):
     return d / float(b.abs().max()), d
 
 
-def cuda_ms(fn, n_calls, repeats=REPEATS):
-    """Median over repeats of the mean per-call time of fn, CUDA events."""
+def cuda_ms(fn, n_calls, repeats=REPEATS, device_only=False):
+    """Median over repeats of the mean per-call time of fn, CUDA events.
+
+    device_only: queue the calls behind a sleeping kernel, so the events
+    bracket the device's work alone and not the host's dispatch."""
     import torch
 
     fn()   # warm-up
@@ -76,6 +127,8 @@ def cuda_ms(fn, n_calls, repeats=REPEATS):
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         for _ in range(n_calls):
             fn()
@@ -83,6 +136,102 @@ def cuda_ms(fn, n_calls, repeats=REPEATS):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop) / n_calls)
     return statistics.median(times)
+
+
+def device_profile(fn, stages):
+    """torch.profiler (CUDA activity) over one call of fn: (device busy
+    ms, window ms from the first kernel's start to the last one's end,
+    [(kernel, device ms)] by total time), per stage; None when the
+    profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not evs:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    window = max(b for _, b in spans) - spans[0][0]
+    by_name = {}
+    for e in evs:
+        name = e.name.split("(")[0].replace("void ", "")[:60]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return (busy / 1e3 / stages, window / 1e3 / stages,
+            [(n, us / 1e3 / stages) for n, us in top])
+
+
+def print_profile(card, label, prof):
+    if prof is None:
+        print(f"[{card}] {label} profile: not measured (the profiler "
+              "recorded no device activity)")
+        return
+    busy, window, top = prof
+    print(f"[{card}] {label} profile (torch.profiler, 20 stages): device "
+          f"busy {busy:.4f} of {window:.4f} ms/stage ({busy / window:.1%})")
+    for name, ms in top[:8]:
+        print(f"    {ms:.4f} ms/stage  {name}")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM peak and
+    operations over the FP32 peak."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# Operations per element, counted by hand from the sources at the shapes
+# they are given: an FMA is two operations, a division, log, exp, pow or
+# sqrt one (so the bound is a floor); dense products as written; each
+# two-point flux pair counted ONCE (the triangular form, the least work).
+# Pair costs: the 3D EC pair with one metric direction (diag) 74, the 2D
+# EC pair with both directions, the metric contraction and both rows'
+# accumulation 85.
+def ops_k1(n1):
+    nq, nfq = n1 ** 3, 6 * n1 * n1
+    pairs = 3 * n1 * n1 * (n1 * (n1 - 1) // 2 + 2 * n1)
+    return (27 * nq + 2 * nfq * nq * 5 + 40 * nfq + 74 * pairs + 5 * nfq
+            + 2 * nq * nfq * 5 + 15 * nq)
+
+
+def ops_k2(n1):
+    nq, nfq = n1 ** 3, 6 * n1 * n1
+    return 120 * nfq + 2 * nq * nfq * 5 + 15 * nq
+
+
+def ops_k3(np_, nq, nh):
+    pairs = nq * (nq - 1) // 2 + nq * (nh - nq)
+    return (2 * nq * np_ * 4 + 20 * nq + 2 * nh * nq * 4 + 40 * nh
+            + 85 * pairs + 2 * np_ * nh * 4 + 4 * np_)
+
+
+def ops_k4(np_, nq, nfq):
+    """The tail-folded form (merged_tail), as the cavity path runs it."""
+    face = 170 * nfq                         # traces, BC, flux, LF, penalty
+    quad = (2 * 3 * nq * nq * 4 + 2 * 2 * nq * nfq * 4 + 2 * 2 * 4 * nfq
+            + nq * (32 + 60 + 48))           # front, surface, grad, sigma
+    tail = (2 * 2 * nfq * nq * 4 + 12 * nfq  # traction
+            + 3 * 4 * nq * 2 + 2 * 2 * np_ * nq * 4)   # divergence
+    fold = 2 * 2 * np_ * nfq * 4 + 6 * 4 * np_   # LIFTs and assembly
+    return face + quad + tail + fold
 
 
 def main():
@@ -97,9 +246,29 @@ def main():
 
     from esdg_cns_tpu_torch import kernels
     from esdg_cns_tpu_torch.ops import fused_volume as fv
-    from esdg_cns_tpu_torch.presets import euler_hex_3d
-    from esdg_cns_tpu_torch.solvers import make_euler_rhs, make_euler_rhs_fused
+    from esdg_cns_tpu_torch.ops import modal_volume as mv
+    from esdg_cns_tpu_torch.ops import surface_viscous as sv
+    from esdg_cns_tpu_torch.presets import euler_hex_3d, lid_driven_cavity
+    from esdg_cns_tpu_torch.solvers import (make_cns_rhs, make_cns_rhs_affine,
+                                            make_euler_rhs,
+                                            make_euler_rhs_fused)
     from esdg_cns_tpu_torch.timestepping import lsrk45
+    # the cavity BC shapes, moving states and K4's arguments, shared with
+    # tests/test_torch_gpu.py
+    from esdg_cns_tpu_torch.cavity_cases import (CAVITY_BCS, VELOCITY,
+                                                 cavity_case, k4_inputs)
+
+    wrappers = {"euler_volume": fv.euler_volume,
+                "euler_surface": fv.euler_surface,
+                "euler_modal_volume": mv.euler_modal_volume,
+                "cns_surface_viscous": sv.cns_surface_viscous}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {name: w.launches for name, w in wrappers.items()}
 
     # ---- 1. device ----
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -120,13 +289,22 @@ def main():
     for line in info.log.splitlines():
         if "Compiling entry function" in line:
             entry = line
-        elif entry and "Li4E" in entry and ("registers" in line
-                                             or "spill" in line):
-            kind = "volume" if "volume" in entry else "surface"
-            variant = ("f64" if "Id" in entry.split("kernel")[1][:3]
-                       else "f32") + (" diag" if "Lb1E" in entry else " general")
-            report = line.split("ptxas info    :")[-1].strip()
+            continue
+        if not entry or not ("registers" in line or "spill" in line):
+            continue
+        report = line.split("ptxas info    :")[-1].strip()
+        name = entry.split("'")[1] if "'" in entry else entry
+        if "Li4E" in name:
+            kind = "volume" if "volume" in name else "surface"
+            variant = ("f64" if "Id" in name.split("kernel")[1][:3]
+                       else "f32") + (" diag" if "Lb1E" in name
+                                      else " general")
             print(f"ptxas N=3 {kind} {variant}: {report}")
+        elif "tri_modal_volume" in name or "cns_surface_viscous" in name:
+            kind = ("tri_modal_volume" if "tri_modal" in name
+                    else "cns_surface_viscous")
+            prec = "f64" if "kernelId" in name else "f32"
+            print(f"ptxas {kind} {prec}: {report}")
 
     gamma = 1.4
 
@@ -179,13 +357,14 @@ def main():
         print(f"K2 euler_surface {tag}: rel {e_s:.3e} (tol {tol:.0e})")
         if not e_s <= tol:
             raise AssertionError(f"K2 disagrees with its plain version ({tag})")
-        return max(a_out, a_tr), a_s, vargs, vkw, sargs, skw
+        return max(a_out, a_tr), a_s, vargs, vkw, sargs, skw, (k_out, k_tr,
+                                                               k_s)
 
-    # ---- 3. kernels against their plain versions ----
+    # ---- 3. Euler kernels against their plain versions ----
     disc, q0 = euler_hex_3d(n=N, k1d=K1D, dtype=torch.float32, device=dev)
     if not fv.detect_axis_aligned(disc):
         raise AssertionError("the k1d=32 mesh must be detected axis-aligned")
-    main_abs_v, main_abs_s, vargs, vkw, sargs, skw = check_kernels(
+    main_abs_v, main_abs_s, vargs, vkw, sargs, skw, kouts = check_kernels(
         disc, q0, True, "N=3 k1d=32 f32 diag (main path)")
     disc8, q8 = euler_hex_3d(n=N, k1d=8, dtype=torch.float64, device=dev)
     check_kernels(disc8, q8, True, "N=3 k1d=8 f64 diag")
@@ -196,14 +375,13 @@ def main():
                   random_affine(disc))
     del disc8, q8
 
-    # ---- 4. the main path ----
+    # ---- 4. the Euler path ----
     rhs = make_euler_rhs_fused(disc, dissipation=True)
-    fv.euler_volume.launches = 0
-    fv.euler_surface.launches = 0
+    zero_counts()
     qf, _ = lsrk45(rhs, q0, DT, STEPS)
     torch.cuda.synchronize()
-    launches = {"euler_volume": fv.euler_volume.launches,
-                "euler_surface": fv.euler_surface.launches}
+    counts = read_counts()
+    launches = {k: counts[k] for k in ("euler_volume", "euler_surface")}
     stages = 5 * STEPS
     print(f"main path: {STEPS} LSRK45 steps ({stages} stages), launches "
           f"{launches}")
@@ -243,7 +421,7 @@ def main():
         raise AssertionError("entropy conservation violated")
     del disc4, q4
 
-    # ---- 5. timing ----
+    # ---- 5. Euler timing ----
     dof = 5 * disc.np_ * disc.num_elements
     step_ms = cuda_ms(lambda: lsrk45(rhs, q0, DT, TIMED_STEPS), 1)
     rate = dof * 5 * TIMED_STEPS / (step_ms / 1e3)
@@ -257,30 +435,235 @@ def main():
           f"{twin_ms / (5 * TWIN_TIMED_STEPS):.4f} ms/stage over "
           f"{5 * TWIN_TIMED_STEPS} stages, median of {REPEATS}")
 
-    k1_ms = cuda_ms(lambda: fv.euler_volume(*vargs, **vkw), 20)
-    k1_plain_ms = cuda_ms(lambda: fv.euler_volume_plain(*vargs, **vkw), 2)
-    k2_ms = cuda_ms(lambda: fv.euler_surface(*sargs, **skw), 20)
-    k2_plain_ms = cuda_ms(lambda: fv.euler_surface_plain(*sargs, **skw), 2)
-    gather_ms = cuda_ms(lambda: disc.gather_traces(sargs[0]), 20)
+    dev_ms = lambda fn, n: cuda_ms(fn, n, device_only=True)
+    k1_ms = dev_ms(lambda: fv.euler_volume(*vargs, **vkw), 20)
+    k1_plain_ms = dev_ms(lambda: fv.euler_volume_plain(*vargs, **vkw), 2)
+    k2_ms = dev_ms(lambda: fv.euler_surface(*sargs, **skw), 20)
+    k2_plain_ms = dev_ms(lambda: fv.euler_surface_plain(*sargs, **skw), 2)
+    gather_ms = dev_ms(lambda: disc.gather_traces(sargs[0]), 20)
     for name, ms, pms in (("K1 euler_volume", k1_ms, k1_plain_ms),
                           ("K2 euler_surface", k2_ms, k2_plain_ms)):
         print(f"[{card}] {name} N=3 k1d=32 f32: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms ({pms / ms:.1f}x)")
+              f"{pms:.4f} ms ({pms / ms:.1f}x), device times")
     print(f"[{card}] trace exchange (rolls): {gather_ms:.4f} ms; per stage "
           f"K1+exchange+K2 = {k1_ms + gather_ms + k2_ms:.4f} ms of "
           f"{stage_ms:.4f} ms")
+    print_profile(card, "Euler path", device_profile(
+        lambda: lsrk45(rhs, q0, DT, 4), 20))
+    k_out, k_tr, k_s = kouts
+    ne = disc.num_elements
+    # bytes the diag variants read and write: q, geo, Ef, LIFT -> ph_qf,
+    # traces; traces, neighbour traces, compact nxj, 1/J, LIFT, ph_qf -> dq
+    k1_bound = bound(nbytes(q0, disc.geo, vargs[2], disc.lift, k_out, k_tr),
+                     ops_k1(N + 1) * ne)
+    k2_bound = bound(nbytes(*sargs[:3], sargs[5], disc.lift, sargs[7], k_s),
+                     ops_k2(N + 1) * ne)
+    del rhs, twin, qf, vargs, sargs, kouts, k_out, k_tr, k_s, disc, q0
+    torch.cuda.empty_cache()
 
+    # ---- 6. cavity kernels against their plain versions ----
+    def cavity_kernels(disc, q, bc, p, tag):
+        """K3 and K4 (both forms) against their plain versions; returns the
+        max abs errors and the arguments, for timing."""
+        dtype = str(q.dtype).replace("torch.", "")
+        tol = TOL[dtype]
+        nq = disc.nq
+        k3args = (q, disc.geo, torch.stack(disc.q_skew), disc.vq, disc.vhp,
+                  disc.ph, gamma)
+        p3 = mv.euler_modal_volume_plain(*k3args, nq=nq)
+        k3 = mv.euler_modal_volume(*k3args, nq=nq)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, b) for a, b in zip(k3, p3)]
+        print(f"K3 euler_modal_volume {tag}: ph_qf, traces, vu_q rel "
+              + ", ".join(f"{e:.3e}" for e, _ in errs) + f" (tol {tol:.0e})")
+        if not all(e <= tol for e, _ in errs):
+            raise AssertionError(f"K3 disagrees with its plain version ({tag})")
+        abs3 = max(a for _, a in errs)
+        k4args, k4tail, k4kw = k4_inputs(disc, q, bc, p)
+        abs4 = 0.0
+        for fold in (False, True):
+            tail = k4tail if fold else ()
+            p4 = sv.cns_surface_viscous_plain(*k4args, *tail,
+                                              fold_tail=fold, **k4kw)
+            k4 = sv.cns_surface_viscous(*k4args, *tail, fold_tail=fold,
+                                        **k4kw)
+            torch.cuda.synchronize()
+            errs = [rel_err(a, b) for a, b in zip(k4, p4)]
+            names = (("dq_part", "t_f", "prod", "vuq") if fold else
+                     ("flux", "pen", "t_f", "div", "prod", "vuq"))
+            print(f"K4 cns_surface_viscous {tag} fold_tail={fold}: rel "
+                  + ", ".join(f"{n} {e:.3e}" for n, (e, _) in
+                              zip(names, errs)) + f" (tol {tol:.0e})")
+            if not all(e <= tol for e, _ in errs):
+                raise AssertionError(
+                    f"K4 disagrees with its plain version ({tag}, "
+                    f"fold_tail={fold})")
+            abs4 = max([abs4] + [a for _, a in errs])
+        return abs3, abs4, k3args, k4args, k4tail, k4kw, k3
+
+    cdisc, cq, cbc, cp = cavity_case("isothermal", CAV_N, CAV_K1D,
+                                     torch.float32, dev)
+    cav_abs3, cav_abs4, k3args, k4args, k4tail, k4kw, k3outs = cavity_kernels(
+        cdisc, cq, cbc, cp, f"tri N=3 k1d={CAV_K1D} f32 isothermal "
+        "(cavity path)")
+    print(f"(kernel checks on moving states: density and pressure x (1 + "
+          f"0.01 n), velocity + {VELOCITY} n, n seeded standard normal; "
+          f"max |u| {float((cq[1:3] / cq[0]).abs().max()):.3f} at k1d="
+          f"{CAV_K1D})")
+    for case in CAVITY_BCS:
+        d8, q8, bc8, p8 = cavity_case(case, CAV_N, 8, torch.float64, dev)
+        cavity_kernels(d8, q8, bc8, p8, f"tri N=3 k1d=8 f64 {case}")
+    d5, q5, bc5, p5 = cavity_case("isothermal", CAV_N, 5, torch.float64,
+                                  dev)
+    cavity_kernels(d5, q5, bc5, p5, "tri N=3 k1d=5 (K=50, ragged tile) f64 "
+                   "isothermal")
+    del d8, q8, bc8, d5, q5, bc5
+
+    # ---- 7. the cavity path ----
+    cdisc, cq0, cbc, cp = lid_driven_cavity(CAV_N, CAV_K1D,
+                                            dtype=torch.float32, device=dev)
+    flags = dict(mu=cp["mu"], pr=cp["pr"], re=cp["re"], bc=cbc,
+                 inviscid_dissipation=True, viscous_dissipation=True,
+                 compute_rhstest=False)
+    crhs = make_cns_rhs_affine(cdisc, volume_impl="fused",
+                               surface_impl="auto", **flags)
+    zero_counts()
+    cqf, _ = lsrk45(crhs, cq0, CAV_DT, CAV_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    cav_launches = {k: counts[k] for k in ("euler_modal_volume",
+                                           "cns_surface_viscous")}
+    stages = 5 * CAV_STEPS
+    print(f"cavity path: {CAV_STEPS} LSRK45 steps ({stages} stages) at "
+          f"dt={CAV_DT:g}, launches {counts}")
+    if any(v != stages for v in cav_launches.values()):
+        raise AssertionError(f"expected {stages} launches of K3 and K4")
+    if cqf.dtype != torch.float32 or not bool(torch.isfinite(cqf).all()):
+        raise AssertionError("cavity state not finite f32")
+    ctwin = make_cns_rhs(cdisc, **flags)
+    cqt, _ = lsrk45(ctwin, cq0, CAV_DT, CAV_STEPS)
+    e_ctwin, _ = rel_err(cqf, cqt)
+    print(f"cavity fused vs twin make_cns_rhs after {CAV_STEPS} steps: rel "
+          f"{e_ctwin:.3e} (tol {TWIN_TOL_F32:.0e})")
+    if not e_ctwin <= TWIN_TOL_F32:
+        raise AssertionError("cavity path disagrees with the twin")
+    vq64, w64 = cdisc.vq.double(), cdisc.wjq.double()
+    cmass = lambda q: float((w64 * (vq64 @ q[0].double())).sum())
+    cdrift = abs(cmass(cqf) - cmass(cq0)) / cmass(cq0)
+    cdrift_twin = abs(cmass(cqt) - cmass(cq0)) / cmass(cq0)
+    del cqt
+    d64, q64, bc64, p64 = lid_driven_cavity(CAV_N, CAV_K1D,
+                                            dtype=torch.float64, device=dev)
+    zero_counts()
+    q64f, _ = lsrk45(make_cns_rhs_affine(d64, **dict(flags, bc=bc64)), q64,
+                     CAV_DT, CAV_STEPS)
+    cdrift64 = abs(cmass(q64f) - cmass(q64)) / cmass(q64)
+    print(f"cavity mass |d sum(wJq rho)| / sum(wJq rho) after {CAV_STEPS} "
+          f"steps: f32 {cdrift:.2e} (tol {CAV_MASS_TOL_F32:.0e}; the f32 "
+          f"twin make_cns_rhs from the same q0: {cdrift_twin:.2e}), f64 "
+          f"kernel path (launches {read_counts()}) {cdrift64:.2e} (tol "
+          f"{CAV_MASS_TOL_F64:.0e})")
+    if not (cdrift <= CAV_MASS_TOL_F32 and cdrift64 <= CAV_MASS_TOL_F64):
+        raise AssertionError("cavity mass not conserved")
+    del d64, q64, q64f
+
+    edisc, eq0, ebc, ep = lid_driven_cavity(CAV_N, 8, bctype="adiabatic",
+                                            lid_profile=lambda x: 0.0 * x,
+                                            dtype=torch.float64, device=dev)
+    rng = np.random.default_rng(1)
+    eq = eq0 + 1e-3 * torch.as_tensor(
+        rng.standard_normal(tuple(eq0.shape)), device=dev) * torch.tensor(
+        [1.0, 0.1, 0.1, 1.0], dtype=torch.float64, device=dev)[:, None, None]
+    zero_counts()
+    _, eaux = make_cns_rhs_affine(
+        edisc, mu=ep["mu"], pr=ep["pr"], re=ep["re"], bc=ebc,
+        inviscid_dissipation=True, viscous_dissipation=True,
+        compute_rhstest=True)(eq)
+    rtv, rt = float(eaux["rhstest_visc"]), float(eaux["rhstest"])
+    print(f"f64 k1d=8 kernel path (K3 + K4 merged, launches "
+          f"{read_counts()}), adiabatic walls at rest: rhstest_visc "
+          f"{rtv:.3e} (>= 0), rhstest {rt:.3e} (< {RHSTEST_TOL_F64:.0e})")
+    if not (rtv >= 0.0 and rt < RHSTEST_TOL_F64):
+        raise AssertionError("cavity entropy stability violated")
+    del edisc, eq0, eq
+
+    # ---- 8. cavity timing ----
+    cdof = 4 * cdisc.np_ * cdisc.num_elements
+    cstep_ms = cuda_ms(lambda: lsrk45(crhs, cq0, CAV_TIMED_DT, TIMED_STEPS),
+                       1)
+    crate = cdof * 5 * TIMED_STEPS / (cstep_ms / 1e3)
+    ctwin_ms = cuda_ms(lambda: lsrk45(ctwin, cq0, CAV_TIMED_DT,
+                                      TWIN_TIMED_STEPS), 1)
+    ctwin_rate = cdof * 5 * TWIN_TIMED_STEPS / (ctwin_ms / 1e3)
+    cstage_ms = cstep_ms / (5 * TIMED_STEPS)
+    print(f"[{card}] cavity path (K3+exchange+K4+exchange+LIFT, LSRK45): "
+          f"{crate:.4e} DOF*RK-stage/s, {cstage_ms:.4f} ms/stage over "
+          f"{5 * TIMED_STEPS} stages, median of {REPEATS}")
+    print(f"[{card}] cavity twin make_cns_rhs: {ctwin_rate:.4e} "
+          f"DOF*RK-stage/s, {ctwin_ms / (5 * TWIN_TIMED_STEPS):.4f} ms/stage "
+          f"over {5 * TWIN_TIMED_STEPS} stages, median of {REPEATS}")
+    k3_call = lambda: mv.euler_modal_volume(*k3args, nq=cdisc.nq)
+    k4_call = lambda: sv.cns_surface_viscous(*k4args, *k4tail,
+                                             fold_tail=True, **k4kw)
+    k3_ms = dev_ms(k3_call, 20)
+    k3_plain_ms = dev_ms(
+        lambda: mv.euler_modal_volume_plain(*k3args, nq=cdisc.nq), 2)
+    k4_ms = dev_ms(k4_call, 20)
+    k4_plain_ms = dev_ms(lambda: sv.cns_surface_viscous_plain(
+        *k4args, *k4tail, fold_tail=True, **k4kw), 2)
+    ph_qf, tr, vu_q = k3outs
+    k4out = k4_call()
+    ex1_ms = dev_ms(lambda: cdisc.gather_traces(tr), 20)
+    ex2_ms = dev_ms(lambda: cdisc.gather_traces(k4out[1]), 20)
+    for name, ms, pms, host in (
+            ("K3 euler_modal_volume", k3_ms, k3_plain_ms,
+             cuda_ms(k3_call, 20)),
+            ("K4 cns_surface_viscous (fold_tail)", k4_ms, k4_plain_ms,
+             cuda_ms(k4_call, 20))):
+        print(f"[{card}] {name} tri N=3 k1d={CAV_K1D} f32: kernel "
+              f"{ms:.4f} ms, plain {pms:.4f} ms ({pms / ms:.1f}x), device "
+              f"times; back to back from the host {host:.4f} ms")
+    rest = cstage_ms - k3_ms - k4_ms - ex1_ms - ex2_ms
+    print(f"[{card}] cavity stage split: K3 {k3_ms:.4f} + exchange 1 "
+          f"(index_select, 6 rows) {ex1_ms:.4f} + K4 {k4_ms:.4f} + exchange "
+          f"2 (index_select, 4 rows) {ex2_ms:.4f} + rest (traction BC, jump "
+          f"LIFT, 1/J, LSRK45 update, host gaps) {rest:.4f} = "
+          f"{cstage_ms:.4f} ms")
+    cstage_dev_ms = dev_ms(lambda: lsrk45(crhs, cq0, CAV_TIMED_DT, 10),
+                           1) / 50
+    print(f"[{card}] cavity stage device time (queued ahead of the "
+          f"device): {cstage_dev_ms:.4f} ms of {cstage_ms:.4f} ms")
+    print_profile(card, "cavity path", device_profile(
+        lambda: lsrk45(crhs, cq0, CAV_TIMED_DT, 4), 20))
+    cne = cdisc.num_elements
+    k3_bound = bound(nbytes(*k3args[:6], *k3outs),
+                     ops_k3(cdisc.np_, cdisc.nq, cdisc.nh) * cne)
+    k4_bound = bound(nbytes(*k4args, *k4tail, *k4out),
+                     ops_k4(cdisc.np_, cdisc.nq, cdisc.nfq) * cne)
+
+    rows = [
+        ("euler_volume", "hex_volume.cu", "pallas_volume.py:87",
+         launches["euler_volume"], main_abs_v, k1_ms, k1_plain_ms, k1_bound),
+        ("euler_surface", "hex_surface.cu", "pallas_volume.py:1146",
+         launches["euler_surface"], main_abs_s, k2_ms, k2_plain_ms, k2_bound),
+        ("euler_modal_volume", "tri_modal_volume.cu",
+         "pallas_modal_volume.py:45", cav_launches["euler_modal_volume"],
+         cav_abs3, k3_ms, k3_plain_ms, k3_bound),
+        ("cns_surface_viscous", "cns_surface_viscous.cu",
+         "pallas_viscous.py:152", cav_launches["cns_surface_viscous"],
+         cav_abs4, k4_ms, k4_plain_ms, k4_bound),
+    ]
+    for name, *_, ms, _, (bms, by) in rows:
+        print(f"[{card}] {name}: bound {bms:.4f} ms by {by}, kernel "
+              f"{ms:.4f} ms ({bms / ms:.1%} of the bound)")
+    # no single PyTorch call computes any of the four: library_ms is null
     kernels_line = [
-        {"name": "euler_volume", "route": "cuda",
-         "source": "esdg_cns_tpu_torch/csrc/hex_volume.cu",
-         "replaces": "esdg_cns_tpu/ops/pallas_volume.py:87",
-         "launches": launches["euler_volume"], "max_abs_err": main_abs_v,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "euler_surface", "route": "cuda",
-         "source": "esdg_cns_tpu_torch/csrc/hex_surface.cu",
-         "replaces": "esdg_cns_tpu/ops/pallas_volume.py:1146",
-         "launches": launches["euler_surface"], "max_abs_err": main_abs_s,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": name, "route": "cuda",
+         "source": f"esdg_cns_tpu_torch/csrc/{src}",
+         "replaces": f"esdg_cns_tpu/ops/{rep}", "launches": n,
+         "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+         "bound_by": by, "library_ms": None}
+        for name, src, rep, n, err, ms, pms, (bms, by) in rows
     ]
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {

@@ -3,18 +3,23 @@
 The same entropy-stable DG semi-discretization as the JAX package
 (``esdg_cns_tpu``, which stays the reference), written with PyTorch on
 tensors and with hand-written CUDA kernels for NVIDIA Hopper (sm_90a) in
-place of the Pallas TPU kernels.
+place of the Pallas TPU kernels.  Two paths are ported:
 
-The first slice is the main path: 3D periodic compressible Euler on a
-Gauss-collocated hex mesh (``presets.euler_hex_3d``), the fused RHS
-(``solvers.euler_fused.make_euler_rhs_fused`` over the CUDA kernels in
-``csrc/``) and LSRK45 (``timestepping.lsrk45``), with the plain PyTorch
-twin ``solvers.euler.make_euler_rhs``.
+  * 3D periodic compressible Euler on a Gauss-collocated hex mesh
+    (``presets.euler_hex_3d`` -> ``solvers.make_euler_rhs_fused`` over the
+    CUDA kernels K1/K2 -> ``timestepping.lsrk45``), with the plain
+    PyTorch twin ``solvers.make_euler_rhs``;
+  * the 2D compressible Navier-Stokes lid-driven cavity on triangles
+    (``presets.lid_driven_cavity`` -> ``solvers.make_cns_rhs_affine`` over
+    the CUDA kernels K3/K4 -> ``timestepping.lsrk45``), with the plain
+    twin ``solvers.make_cns_rhs`` and entropy-stable wall BCs
+    (``solvers.boundary``).
 
-Host-side setup reuses the NumPy-only ``esdg_cns_tpu.basis`` and
-``esdg_cns_tpu.mesh``; nothing here imports ``jax``.  Every function
-takes an explicit ``device``.  The CUDA kernels build at first use into
-``build/esdg_cns_tpu_torch/`` (``kernels.py``).
+Host-side setup (``basis``, ``mesh``, ``core.ref_elem``) is the port's own
+NumPy copy of the JAX package's; nothing here imports ``jax`` or any
+module of ``esdg_cns_tpu``.  Every function takes an explicit ``device``.
+The CUDA kernels build at first use into ``build/esdg_cns_tpu_torch/``
+(``kernels.py``).
 """
 
 __version__ = "0.1.0"

@@ -14,9 +14,9 @@ Layout (kept from the JAX package so the two compare like with like):
   * geometric factors are stored at the hybridized points, collapsed to a
     single per-element value when the mesh is affine.
 
-Not ported: the compiled roll plan (``roll_plan`` / ``roll_masks``); no
-periodic hex path uses it, and meshes without ``grid_shape`` take the
-``map_p`` gather.
+Not ported: the compiled roll plan (``roll_plan`` / ``roll_masks``), a
+TPU re-expression of the same gather; meshes without ``grid_shape`` (the
+tri cavity among them) take the ``map_p`` gather, one ``index_select``.
 """
 
 from __future__ import annotations
@@ -27,13 +27,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from esdg_cns_tpu.mesh.connectivity import (
-    build_node_maps,
-    connect_mesh,
-    make_periodic,
-)
-from esdg_cns_tpu.mesh.geometry import geometric_factors_2d, geometric_factors_3d
-
+from ..mesh.connectivity import build_node_maps, connect_mesh, make_periodic
+from ..mesh.geometry import geometric_factors_2d, geometric_factors_3d
 from .ref_elem import RefElem
 
 # static fields, and the tensor fields (tuple-valued ones hold one tensor

@@ -1,11 +1,8 @@
 """Reference-element operator construction (host-side NumPy float64).
 
 The PyTorch port's copy of ``esdg_cns_tpu/core/ref_elem.py``: the same
-NumPy code, line for line, so both packages build bit-identical
-operators.  It is copied rather than imported because importing
-``esdg_cns_tpu.core`` pulls in ``jax`` (``core/__init__`` imports the
-JAX ``Discretization``); the NumPy ``basis`` and ``mesh`` packages are
-imported directly.
+NumPy code, line for line, over the port's own copies of ``basis`` and
+``mesh``, so both packages build bit-identical operators.
 
 The framework nucleus, capability parity with reference ``src/SetupDG.jl``
 (RefElemData :38-75; init_reference_interval :117, _tri :151, _quad :205,
@@ -32,16 +29,16 @@ from typing import Optional
 
 import numpy as np
 
-from esdg_cns_tpu.basis import hex as bhex
-from esdg_cns_tpu.basis import quad as bquad
-from esdg_cns_tpu.basis import tri as btri
-from esdg_cns_tpu.basis.jacobi import (
+from ..basis import hex as bhex
+from ..basis import quad as bquad
+from ..basis import tri as btri
+from ..basis.jacobi import (
     gauss_lobatto_quad,
     gauss_quad,
     grad_vandermonde_1d,
     vandermonde_1d,
 )
-from esdg_cns_tpu.mesh.generators import (
+from ..mesh.generators import (
     HEX_FACE_VERTICES,
     QUAD_FACE_VERTICES,
     TRI_FACE_VERTICES,

@@ -107,4 +107,50 @@ __device__ __forceinline__ void contracted_flux(const T* L, const T* R,
   }
 }
 
+// The same flux in 2D (the CNS tri kernels): one point is held as
+// T v[6] = (rho, u1, u2, beta, log rho, log beta).
+template <typename T>
+struct EcPair2 {
+  T rholog, pa, e_plus_p, velavg[2];
+};
+
+template <typename T>
+__device__ __forceinline__ EcPair2<T> ec_pair2(const T* L, const T* R,
+                                               const Consts<T>& c) {
+  EcPair2<T> p;
+  T num, den;
+  logmean_parts(L[0], R[0], L[4], R[4], c.cutoff, num, den);
+  p.rholog = num / den;
+  logmean_parts(L[3], R[3], L[5], R[5], c.cutoff, num, den);
+  const T inv_betalog = den / num;
+  const T rhoavg = T(0.5) * (L[0] + R[0]);
+  p.velavg[0] = T(0.5) * (L[1] + R[1]);
+  p.velavg[1] = T(0.5) * (L[2] + R[2]);
+  const T vel_dot = L[1] * R[1] + L[2] * R[2];
+  p.pa = rhoavg / (L[3] + R[3]);
+  p.e_plus_p = (p.rholog * inv_betalog) * c.half_over_gm1 + p.pa +
+               T(0.5) * p.rholog * vel_dot;
+  return p;
+}
+
+// 2D EC flux along direction d: f = (f_rho, f_m1, f_m2, f_E).
+template <typename T>
+__device__ __forceinline__ void ec_dir2(const EcPair2<T>& p, int d, T f[4]) {
+  const T f1 = p.rholog * p.velavg[d];
+  f[0] = f1;
+  f[1] = (d == 0) ? f1 * p.velavg[0] + p.pa : f1 * p.velavg[0];
+  f[2] = (d == 1) ? f1 * p.velavg[1] + p.pa : f1 * p.velavg[1];
+  f[3] = p.e_plus_p * p.velavg[d];
+}
+
+// Largest tile of elements (32, 16, 8, 4, 2 or 1) whose shared memory,
+// fixed + per_elem * te values of T, fits in a block.
+template <typename T>
+inline int tile_elements(size_t fixed, size_t per_elem) {
+  constexpr size_t kMax = 232448;  // 227 KB usable per block on sm_90
+  for (int te = 32; te >= 1; te /= 2)
+    if ((fixed + per_elem * te) * sizeof(T) <= kMax) return te;
+  return 0;
+}
+
 }  // namespace esdg

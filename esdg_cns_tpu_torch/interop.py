@@ -3,8 +3,9 @@
 The port never imports JAX; a caller that holds a JAX ``Discretization``
 hands its leaves over as numpy arrays (``np.asarray``) and its static
 fields as plain Python values, and gets the port's ``Discretization``
-with the same bits (in f64) on the requested device.  The tests use this
-to feed both packages the same operators.
+with the same bits (in f64) on the requested device; likewise a JAX
+``WallBC`` becomes the port's (``wall_bc_from_arrays``).  The tests use
+this to feed both packages the same operators and boundary conditions.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from .core.discretization import (
     Discretization,
 )
 from .ops.tensor_product_fd import LineOps
+from .solvers.boundary import Region, WallBC
 
 
 def _line_ops(lo):
@@ -67,6 +69,43 @@ def discretization_from_arrays(arrays: dict, meta: dict, *, device,
     if meta["grid_shape"] is not None:
         fields["grid_shape"] = tuple(meta["grid_shape"])
     return Discretization(**fields)
+
+
+def wall_bc_from_arrays(regions, nhat, bmask, dim: int, *, device,
+                        dtype: torch.dtype) -> WallBC:
+    """Build the port's WallBC from a WallBC's leaves as numpy.
+
+    regions: one mapping per region, in order, with 'kind', 'mask' (bool
+      [Nfq, K]), 'u_wall' (per direction a Python float or an [Nfq, K]
+      array), 'theta' (float, array or None) and, for 'dirichlet'
+      regions, 'state' and optionally 'entropy_state': the ghost traces
+      [Nf, Nfq, K] evaluated at the time of interest (they become
+      constant in t).
+    nhat: dim unit-normal arrays [Nfq, K]; bmask: bool [Nfq, K].
+    """
+    def arr(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def value(v):
+        return v if v is None or isinstance(v, (int, float)) else arr(v)
+
+    def const(a):
+        if a is None:
+            return None
+        a = arr(a)
+        return lambda t: a
+
+    out = []
+    for r in regions:
+        out.append(Region(
+            mask=torch.tensor(np.asarray(r["mask"]).astype(bool),
+                              device=device),
+            kind=r["kind"], u_wall=tuple(value(c) for c in r["u_wall"]),
+            theta=value(r.get("theta")), state=const(r.get("state")),
+            entropy_state=const(r.get("entropy_state"))))
+    return WallBC(regions=tuple(out), nhat=tuple(arr(n) for n in nhat),
+                  bmask=torch.tensor(np.asarray(bmask).astype(bool),
+                                     device=device), dim=dim)
 
 
 def state_from_numpy(a, *, device, dtype: torch.dtype) -> torch.Tensor:

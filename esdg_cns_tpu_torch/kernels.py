@@ -92,4 +92,18 @@ def library() -> ctypes.CDLL:
     lib.esdg_hex_surface.argtypes = [_I, _I, _I, _I] + [_P] * 9 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_surface.restype = _I
+    lib.esdg_tri_modal_volume.argtypes = [_I] + [_P] * 9 + [
+        ctypes.c_longlong, _I, _I, _I, ctypes.c_double, _P]
+    lib.esdg_tri_modal_volume.restype = _I
+    lib.esdg_cns_surface_viscous.argtypes = [_I] + [_P] * 4 + [
+        ctypes.c_longlong, _I, _I, _I] + [ctypes.c_double] * 5 + [
+        _I] * 4 + [_P]
+    lib.esdg_cns_surface_viscous.restype = _I
     return lib
+
+
+def pointer_array(tensors):
+    """A host array of device pointers (void*[]) for a kernel's C entry;
+    None stands for an argument the kernel does not read."""
+    return (_P * len(tensors))(*[None if t is None else t.data_ptr()
+                                 for t in tensors])

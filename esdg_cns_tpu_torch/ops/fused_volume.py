@@ -107,10 +107,10 @@ def _check_shape(name, key, t, shape):
                          f"expected {tuple(shape)}")
 
 
-def _raise_on(name, rc):
+def _raise_on(name, rc, unsupported="no kernel for this polynomial degree "
+                                    "(N = 1..4 are built)"):
     if rc == -1:
-        raise NotImplementedError(f"{name}: no kernel for this polynomial "
-                                  "degree (N = 1..4 are built)")
+        raise NotImplementedError(f"{name}: {unsupported}")
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
 

@@ -1,0 +1,114 @@
+"""Fused modal volume stage (K3) of the 2D tri CNS / Euler RHS.
+
+Port of ``esdg_cns_tpu/ops/pallas_modal_volume.py``:
+``euler_modal_volume`` (CUDA ``csrc/tri_modal_volume.cu``) replaces
+``_modal_volume_kernel`` / ``euler_modal_volume_pallas``.  Per element:
+Uq = Vq U, v(Uq), the hybridized projection and U(v_h) at the Nh points,
+flux variables and logs, skew EC flux differencing, Ph QF.
+
+``euler_modal_volume_plain`` is the same function in plain PyTorch, with
+the dense all-pairs flux differencing (``ops.flux_differencing``).  The
+wrapper takes it only for CPU tensors; for CUDA tensors it launches the
+kernel or raises.  ``euler_modal_volume.launches`` counts the launches.
+The TPU ``fd_mode`` variants ('tri', 'tri8', 'full') are layouts of one
+sum: the port computes that sum once.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..solvers.dg_ops import _apply
+from .flux_differencing import flux_differencing_xla
+from .fused_volume import _DTYPE_CODE, _check_cuda, _check_shape, _raise_on
+
+
+def euler_modal_volume_plain(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
+    """Plain PyTorch fused modal volume stage; same contract as
+    ``euler_modal_volume`` (any dim, affine or curved geo)."""
+    nf = q.shape[0]
+    gm1 = gamma - 1.0
+    q_skew = tuple(q_skew)
+
+    uq = _apply(vq, q)
+    rho, e = uq[0], uq[nf - 1]
+    mom = [uq[1 + d] for d in range(nf - 2)]
+    p = gm1 * (e - 0.5 * sum(m * m for m in mom) / rho)
+    s = torch.log(p) - gamma * torch.log(rho)
+    v1 = (gamma + 1.0 - s) - gm1 * e / p
+    vm = [gm1 * m / p for m in mom]
+    ve = -gm1 * rho / p
+    vu_q = torch.stack([v1, *vm, ve])
+
+    hv = _apply(vhp, vu_q)
+    hv1, hvm, hve = hv[0], [hv[1 + d] for d in range(nf - 2)], hv[nf - 1]
+    vnorm = sum(v * v for v in hvm)
+    sf = gamma - hv1 + vnorm / (2.0 * hve)
+    rhoe = (gm1 / (-hve) ** gamma) ** (1.0 / gm1) * torch.exp(-sf / gm1)
+    hrho = rhoe * (-hve)
+    he = rhoe * (1.0 - vnorm / (2.0 * hve))
+    hu = [v / (-hve) for v in hvm]
+    hp = gm1 * (he - 0.5 * hrho * sum(u * u for u in hu))
+    hbeta = hrho / (2.0 * hp)
+    qh = torch.stack([hrho, *hu, hbeta])
+    qlog = torch.stack([torch.log(hrho), torch.log(hbeta)])
+
+    traces = torch.cat([qh[:, nq:], qlog[:, nq:]], dim=0)
+    ph_qf = _apply(ph, flux_differencing_xla(qh, qlog, q_skew, geo, gamma))
+    return ph_qf.contiguous(), traces, vu_q
+
+
+def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
+    """Fused modal volume stage.
+
+    q [Nf, Np, K] conservative state; geo [dim*dim, 1, K] affine metric
+    (curved [dim*dim, Nh, K] only on the CPU); q_skew a [dim, Nh, Nh]
+    tensor or a tuple of dim [Nh, Nh]; vq [Nq, Np]; vhp [Nh, Nq];
+    ph [Np, Nh].  Returns (ph_qf [Nf, Np, K], traces [Nf + 2, Nfq, K] =
+    (rho, u_1..d, beta, log rho, log beta) at the face points,
+    vu_q [Nf, Nq, K] = v(Vq U)).  The CUDA kernel covers dim = 2.
+    """
+    if q.device.type == "cpu":
+        return euler_modal_volume_plain(q, geo, q_skew, vq, vhp, ph, gamma,
+                                        nq=nq)
+    if q.device.type != "cuda":
+        raise ValueError(f"euler_modal_volume: no kernel for device {q.device}")
+    name = "euler_modal_volume"
+    qs = q_skew if torch.is_tensor(q_skew) else torch.stack(tuple(q_skew))
+    nf, np_, k = q.shape
+    nh = vhp.shape[0]
+    if nf != 4:
+        raise NotImplementedError(f"{name}: the CUDA kernel covers 2D "
+                                  "(4 fields) only")
+    if geo.shape[1] != 1:
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel covers affine meshes only; curved "
+            "geometry runs the plain version on the CPU")
+    tensors = {"q": q, "geo": geo, "q_skew": qs, "vq": vq, "vhp": vhp,
+               "ph": ph}
+    _check_cuda(name, tensors, q.dtype, q.device)
+    for key, shape in (("geo", (4, 1, k)), ("q_skew", (2, nh, nh)),
+                       ("vq", (nq, np_)), ("vhp", (nh, nq)),
+                       ("ph", (np_, nh))):
+        _check_shape(name, key, tensors[key], shape)
+    out = torch.empty((nf, np_, k), dtype=q.dtype, device=q.device)
+    traces = torch.empty((nf + 2, nh - nq, k), dtype=q.dtype, device=q.device)
+    vu_q = torch.empty((nf, nq, k), dtype=q.dtype, device=q.device)
+    if k == 0:
+        return out, traces, vu_q
+    from ..kernels import library
+
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.esdg_tri_modal_volume(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), geo.data_ptr(), qs.data_ptr(),
+            vq.data_ptr(), vhp.data_ptr(), ph.data_ptr(), out.data_ptr(),
+            traces.data_ptr(), vu_q.data_ptr(), k, np_, nq, nh, float(gamma),
+            stream)
+    _raise_on(name, rc, "the element tile does not fit in shared memory")
+    euler_modal_volume.launches += 1
+    return out, traces, vu_q
+
+
+euler_modal_volume.launches = 0

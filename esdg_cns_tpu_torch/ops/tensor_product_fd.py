@@ -26,12 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from esdg_cns_tpu.basis.jacobi import (
-    gauss_quad,
-    grad_vandermonde_1d,
-    vandermonde_1d,
-)
-
+from ..basis.jacobi import gauss_quad, grad_vandermonde_1d, vandermonde_1d
 from ..physics.euler import ec_flux_fields
 
 

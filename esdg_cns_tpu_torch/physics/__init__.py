@@ -1,4 +1,4 @@
-"""Physics: Euler constitutive maps and EC fluxes."""
+"""Physics: Euler constitutive maps and EC fluxes, CNS viscous fluxes."""
 
 from .euler import (
     GAMMA,
@@ -17,6 +17,12 @@ from .euler import (
     v_ufun,
     wavespeed,
 )
+from .viscous import (
+    viscous_flux_1d,
+    viscous_flux_2d,
+    viscous_flux_3d,
+    viscous_flux_nd,
+)
 
 __all__ = [
     "GAMMA",
@@ -33,5 +39,9 @@ __all__ = [
     "sfun",
     "u_vfun",
     "v_ufun",
+    "viscous_flux_1d",
+    "viscous_flux_2d",
+    "viscous_flux_3d",
+    "viscous_flux_nd",
     "wavespeed",
 ]

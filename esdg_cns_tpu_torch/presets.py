@@ -1,9 +1,9 @@
 """Canonical problem setups.
 
-Port of ``esdg_cns_tpu.presets.euler_hex_3d``, the main-path
-configuration.  The initial state is drawn with numpy
-``default_rng(seed)`` exactly as the JAX preset draws it, so both
-packages start from identical bits.
+Port of ``esdg_cns_tpu.presets``: ``euler_hex_3d`` (the periodic Euler
+main path) and ``lid_driven_cavity`` (the 2D CNS cavity).  States, masks
+and parameters are built with the same NumPy and IEEE operations as the
+JAX presets, so both packages start from identical bits in f64.
 """
 
 from __future__ import annotations
@@ -11,10 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from esdg_cns_tpu.mesh.generators import uniform_hex_mesh
-
-from .core import build_discretization, ref_hex
+from .core import build_discretization, ref_hex, ref_tri
+from .mesh.generators import uniform_hex_mesh, uniform_tri_mesh
 from .physics import primitive_to_conservative
+from .solvers.boundary import Region, make_wall_bc, region_from_indicator
 
 
 def euler_hex_3d(n: int = 3, k1d: int = 8, *, curved: bool = False,
@@ -43,3 +43,49 @@ def euler_hex_3d(n: int = 3, k1d: int = 8, *, curved: bool = False,
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     q0 = primitive_to_conservative(f(rho), f(vel), f(p))
     return disc, q0
+
+
+def lid_driven_cavity(n: int = 3, k1d: int = 16, *,
+                      bctype: str = "isothermal", ma: float = 0.3,
+                      re: float = 1000.0, lid_profile=None,
+                      gamma: float = 1.4, dtype: torch.dtype, device):
+    """2D CNS lid-driven cavity on [-1,1]^2 with tri elements (reference
+    dg2D_CNS_cavity_optimized.jl: BCTYPE 1/2/3, Ma=0.3, Re=1000): the lid
+    y = 1 moves at u = 1 (or ``lid_profile(x)``, a NumPy function of the
+    face x-coordinates), the other walls are at rest; all walls of kind
+    ``bctype``.
+
+    Returns (disc, q0, bc, params) with q0 [4, Np, K] the fluid at rest
+    (rho = 1, p = 1/(Ma^2 gamma)) and params {mu, pr, re, gamma, ma}.
+    """
+    vx, vy, etov = uniform_tri_mesh(k1d)
+    disc = build_discretization(ref_tri(n), (vx, vy), etov, dtype=dtype,
+                                device=device)
+
+    tol = 1e-10
+    theta = (1.0 / (ma * ma * gamma * (gamma - 1.0))
+             if bctype == "isothermal" else None)
+    lid = region_from_indicator(
+        disc, lambda x, y: np.abs(y - 1) < tol, bctype,
+        u_wall=(1.0, 0.0), theta=theta,
+    )
+    if lid_profile is not None:
+        prof = lid_profile(disc.xf[0].cpu().numpy())
+        lid = Region(mask=lid.mask, kind=bctype,
+                     u_wall=(torch.as_tensor(prof, dtype=dtype,
+                                             device=device), 0.0),
+                     theta=lid.theta)
+    walls = region_from_indicator(
+        disc, lambda x, y: np.abs(y - 1) >= tol, bctype,
+        u_wall=(0.0, 0.0), theta=theta,
+    )
+    bc = make_wall_bc(disc, [lid, walls])
+
+    sh = (disc.np_, disc.num_elements)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    q0 = primitive_to_conservative(
+        f(np.ones(sh)), f(np.zeros((2, *sh))),
+        f(np.full(sh, 1.0 / (ma * ma * gamma))), gamma,
+    )
+    params = dict(mu=1.0 / re, pr=0.71, re=re, gamma=gamma, ma=ma)
+    return disc, q0, bc, params

@@ -1,11 +1,13 @@
-"""Operator application on stacked K-last fields.
+"""Operator application and first-order DG building blocks.
 
-Port of ``esdg_cns_tpu/solvers/dg_ops._apply``.  A plain matrix product
-outside any kernel: small dense reference operators applied to
-[..., Np, K] fields.  On the card it runs in full f32/f64; the caller
-keeps ``torch.backends.cuda.matmul.allow_tf32`` False, because TF32
-products (like the TPU's one-pass bf16 default) break the discrete SBP
-and entropy identities.
+Port of ``esdg_cns_tpu/solvers/dg_ops.py``: ``_apply`` (a plain matrix
+product of small dense reference operators with [..., Np, K] fields,
+outside any kernel) and the strong-form gradient / divergence with
+central (BR1) interface corrections (reference dg_grad!/dg_div!,
+dg2D_CNS_cavity_optimized.jl:548-611).  On the card the products run in
+full f32/f64; the caller keeps ``torch.backends.cuda.matmul.allow_tf32``
+False, because TF32 products (like the TPU's one-pass bf16 default)
+break the discrete SBP and entropy identities.
 """
 
 from __future__ import annotations
@@ -16,3 +18,45 @@ import torch
 def _apply(mat, x):
     """mat [i, j] applied to x [..., j, k] -> [..., i, k]."""
     return torch.einsum("ij,...jk->...ik", mat, x)
+
+
+def physical_derivatives(disc, u):
+    """Strong-form physical derivatives (times J): tuple over x-dirs of
+    sum_r geo[r*dim+x] * (D_r u), shape like u."""
+    dim = disc.dim
+    du_ref = [_apply(d, u) for d in disc.d]
+    out = []
+    for xdir in range(dim):
+        acc = None
+        for rdir in range(dim):
+            g = disc.geo_nodal[rdir * dim + xdir]  # [Ngn, K]
+            term = g * du_ref[rdir]
+            acc = term if acc is None else acc + term
+        out.append(acc)
+    return tuple(out)
+
+
+def dg_grad(disc, u, uf, up):
+    """BR1 gradient: strong volume derivative + 1/2 LIFT of the jump.
+
+    u [..., Np, K] nodal field; uf its trace [..., Nfq, K]; up the
+    neighbour (or ghost) trace.  Returns a tuple over x-dirs of
+    [..., Np, K].
+    """
+    vol = physical_derivatives(disc, u)
+    out = []
+    for xdir in range(disc.dim):
+        surf = _apply(disc.lift, 0.5 * (up - uf) * disc.nxj[xdir])
+        out.append((vol[xdir] + surf) * disc.inv_jac)
+    return tuple(out)
+
+
+def dg_div_contracted(disc, flux_vols, jump_n):
+    """BR1 divergence with the interface jump already normal-contracted
+    (jump_n [..., Nfq, K]): only sum_x flux_x nxj_x crosses the
+    exchange."""
+    acc = None
+    for xdir in range(disc.dim):
+        d = physical_derivatives(disc, flux_vols[xdir])[xdir]
+        acc = d if acc is None else acc + d
+    return (acc + _apply(disc.lift, jump_n)) * disc.inv_jac

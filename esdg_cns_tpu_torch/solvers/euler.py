@@ -1,8 +1,9 @@
 """Entropy-stable DG semi-discretization of compressible Euler.
 
 Port of ``esdg_cns_tpu/solvers/euler.py`` (``entropy_projection`` and
-``make_euler_rhs`` with the line-sparse flux differencing): the plain
-PyTorch twin of the fused main path, built from tensor ops only.
+``make_euler_rhs``): the plain PyTorch twin of the fused paths, built
+from tensor ops only, on collocated hexes (line-sparse flux
+differencing) and on triangles (dense flux differencing).
 
   1. entropy projection  U -> V at quadrature -> project -> U at
      hybridized points,
@@ -45,18 +46,18 @@ def make_euler_rhs(
     *,
     gamma: float = phys.GAMMA,
     dissipation: bool = True,
-    flux_diff_impl: str = "lines",
+    flux_diff_impl: str = "auto",
     compute_rhstest: bool = True,
     rhstest_mode: str = "native",
 ):
     """Build the plain ES-DG Euler RHS.
 
     Args:
-      disc: ``core.Discretization`` (collocated quad/hex).
+      disc: ``core.Discretization``.
       dissipation: add local Lax-Friedrichs interface dissipation
         (entropy-stable); without it the scheme is entropy-conservative.
-      flux_diff_impl: 'lines' (tensor-product sparse), the only one
-        ported.
+      flux_diff_impl: 'auto' ('lines' on collocated quad/hex, 'xla'
+        otherwise), 'lines' (tensor-product sparse) or 'xla' (dense).
       rhstest_mode: 'native' or 'f64' (utils.compensated).
 
     Returns rhs(q, t) -> (dq/dt [Nf, Np, K], aux dict with 'rhstest').
@@ -76,7 +77,7 @@ def make_euler_rhs(
         qlog = torch.stack([torch.log(qh[0]), torch.log(qh[-1])])
 
         # --- face traces + one batched neighbor exchange ---
-        flux = inviscid_surface(
+        flux, _ = inviscid_surface(
             disc, disc.gather_traces, qh[:, nq:, :], uh[:, nq:, :],
             qlog[:, nq:, :], gamma=gamma, dissipation=dissipation,
         )

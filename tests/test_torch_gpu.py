@@ -15,10 +15,18 @@ import numpy as np
 import pytest
 import torch
 
+from esdg_cns_tpu_torch.cavity_cases import CAVITY_BCS, cavity_case, k4_inputs
 from esdg_cns_tpu_torch.ops import fused_volume as fv
+from esdg_cns_tpu_torch.ops import modal_volume as mv
+from esdg_cns_tpu_torch.ops import surface_viscous as sv
 from esdg_cns_tpu_torch.physics import primitive_to_conservative
-from esdg_cns_tpu_torch.presets import euler_hex_3d
-from esdg_cns_tpu_torch.solvers import make_euler_rhs, make_euler_rhs_fused
+from esdg_cns_tpu_torch.presets import euler_hex_3d, lid_driven_cavity
+from esdg_cns_tpu_torch.solvers import (
+    make_cns_rhs,
+    make_cns_rhs_affine,
+    make_euler_rhs,
+    make_euler_rhs_fused,
+)
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 GAMMA = 1.4
@@ -152,3 +160,81 @@ def test_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
     with pytest.raises(ValueError):
         fv.euler_volume(q[:, :, ::2], disc.geo[:, :, ::2], ef, disc.lift,
                         GAMMA, line_ops=disc.line_ops)
+
+
+# ---- the 2D CNS cavity kernels: K3 (modal volume) and K4 (merged
+# surface + viscous) ----
+
+# k1d=3 gives K=18 and k1d=5 K=50: ragged last tiles
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k1d", [(2, 3), (3, 5), (3, 8)])
+def test_modal_volume_kernel_matches_plain(cuda, dtype, n, k1d):
+    disc, q, _, _ = cavity_case("isothermal", n, k1d, dtype, cuda)
+    args = (q, disc.geo, disc.q_skew, disc.vq, disc.vhp, disc.ph, GAMMA)
+    before = mv.euler_modal_volume.launches
+    plain = mv.euler_modal_volume_plain(*args, nq=disc.nq)
+    kern = mv.euler_modal_volume(*args, nq=disc.nq)
+    torch.cuda.synchronize()
+    assert mv.euler_modal_volume.launches == before + 1
+    for a, b in zip(kern, plain):
+        assert _rel(a, b) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", CAVITY_BCS)
+@pytest.mark.parametrize("fold_tail", [False, True])
+def test_surface_viscous_kernel_matches_plain(cuda, dtype, case, fold_tail):
+    disc, q, bc, p = cavity_case(case, 3, 5, dtype, cuda)
+    args, tail, kw = k4_inputs(disc, q, bc, p)
+    tail = tail if fold_tail else ()
+    before = sv.cns_surface_viscous.launches
+    plain = sv.cns_surface_viscous_plain(*args, *tail, fold_tail=fold_tail,
+                                         **kw)
+    kern = sv.cns_surface_viscous(*args, *tail, fold_tail=fold_tail, **kw)
+    torch.cuda.synchronize()
+    assert sv.cns_surface_viscous.launches == before + 1
+    assert len(kern) == len(plain)
+    for a, b in zip(kern, plain):
+        if b.abs().max() > 0:
+            assert _rel(a, b) <= TOL[dtype], case
+        else:
+            assert a.abs().max() == 0
+
+
+@pytest.mark.gpu
+def test_fused_cavity_rhs_matches_twin_and_is_entropy_stable(cuda):
+    disc, q, bc, p = cavity_case("isothermal", 3, 5, torch.float64, cuda)
+    flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
+                 inviscid_dissipation=True, viscous_dissipation=True)
+    a, _ = make_cns_rhs(disc, **flags)(q)
+    b, _ = make_cns_rhs_affine(disc, compute_rhstest=False, **flags)(q)
+    assert _rel(b, a) <= 1e-11
+    disc, q0, bc, p = lid_driven_cavity(n=3, k1d=4, bctype="adiabatic",
+                                        lid_profile=lambda x: 0.0 * x,
+                                        dtype=torch.float64, device=cuda)
+    rng = np.random.default_rng(1)
+    q = q0 + 1e-3 * torch.as_tensor(
+        rng.standard_normal(tuple(q0.shape)), device=cuda) * torch.tensor(
+        [1.0, 0.1, 0.1, 1.0], dtype=torch.float64, device=cuda)[:, None, None]
+    _, aux = make_cns_rhs_affine(disc, mu=p["mu"], pr=p["pr"], re=p["re"],
+                                 bc=bc, inviscid_dissipation=True,
+                                 viscous_dissipation=True)(q)
+    assert float(aux["rhstest_visc"]) >= 0.0
+    assert float(aux["rhstest"]) < 1e-10
+
+
+@pytest.mark.gpu
+def test_cavity_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
+    disc, q, bc, p = cavity_case("isothermal", 2, 3, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        mv.euler_modal_volume(q, disc.geo.double(), disc.q_skew, disc.vq,
+                              disc.vhp, disc.ph, GAMMA, nq=disc.nq)
+    with pytest.raises(NotImplementedError):
+        mv.euler_modal_volume(q, disc.geo.expand(4, disc.nh, -1).contiguous(),
+                              disc.q_skew, disc.vq, disc.vhp, disc.ph, GAMMA,
+                              nq=disc.nq)
+    args, _, kw = k4_inputs(disc, q, bc, p)
+    with pytest.raises(ValueError):
+        sv.cns_surface_viscous(*args[:7], args[7][:-1], *args[8:], **kw)

@@ -1,10 +1,15 @@
-"""The port stands alone: it runs with JAX unimportable, and its chip
-check refuses to run without a CUDA device (there is no CPU path)."""
+"""The port stands alone: it runs with JAX unimportable and loads no
+module of the JAX package, its copies of the NumPy ``basis`` and ``mesh``
+packages build what the originals build, and its chip check refuses to
+run without a CUDA device (there is no CPU path)."""
 
+import filecmp
 import os
 import shutil
 import subprocess
 import sys
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -25,10 +30,21 @@ qf, _ = lsrk45(make_euler_rhs_fused(disc), q0, 1e-3, 1)
 assert bool(torch.isfinite(qf).all())
 rel = float((a - b).abs().max() / b.abs().max())
 assert rel < 1e-11, rel
+from esdg_cns_tpu_torch.presets import lid_driven_cavity
+from esdg_cns_tpu_torch.solvers import make_cns_rhs, make_cns_rhs_affine
+disc, q0, bc, p = lid_driven_cavity(n=2, k1d=2, dtype=torch.float64,
+                                    device="cpu")
+flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
+             inviscid_dissipation=True, viscous_dissipation=True,
+             compute_rhstest=False)
+a, _ = make_cns_rhs_affine(disc, **flags)(q0 * 1.01)
+b, _ = make_cns_rhs(disc, **flags)(q0 * 1.01)
+rel = float((a - b).abs().max() / b.abs().max())
+assert rel < 1e-11, rel
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-          or m.startswith("esdg_cns_tpu.") and m.split(".")[1]
-          not in ("basis", "mesh")]
+          or m == "esdg_cns_tpu" or m.startswith("esdg_cns_tpu.")]
 assert loaded == ["jax"], loaded
+assert sys.modules["jax"] is None
 print("OK")
 """
 
@@ -40,7 +56,8 @@ def _env():
 
 
 def test_port_runs_with_jax_blocked():
-    """(g) importing every module and one RHS, with no JAX."""
+    """(g) importing every module, one Euler and one cavity RHS, with no
+    JAX; no module of the JAX package is loaded."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        env=_env(), capture_output=True, text=True,
                        timeout=300)
@@ -65,3 +82,31 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_basis_and_mesh_copies_match_the_jax_package():
+    """The port's copies of basis/ and mesh/: the quadrature tables are
+    byte-equal, and ref_tri(3) and uniform_tri_mesh(4) are bitwise equal
+    to what the JAX package's NumPy originals build."""
+    from esdg_cns_tpu.core.ref_elem import ref_tri as jax_ref_tri
+    from esdg_cns_tpu.mesh import uniform_tri_mesh as jax_tri_mesh
+    from esdg_cns_tpu_torch.core import ref_tri
+    from esdg_cns_tpu_torch.mesh import uniform_tri_mesh
+
+    src = os.path.join(REPO, "esdg_cns_tpu", "basis", "quadrature_data")
+    dst = os.path.join(REPO, "esdg_cns_tpu_torch", "basis",
+                       "quadrature_data")
+    names = sorted(os.listdir(src))
+    assert names == sorted(os.listdir(dst)) and len(names) == 27
+    _, mismatch, errors = filecmp.cmpfiles(src, dst, names, shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+
+    a, b = ref_tri(3), jax_ref_tri(3)
+    for f in ("vq", "vf", "pq", "lift", "vh", "ph", "vhp", "ef", "wq", "wf",
+              "m", "vdm", "v1", "vp"):
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    for f in ("r", "rq", "rf", "nrst_j", "d", "q_skew"):
+        for x, y in zip(getattr(a, f), getattr(b, f)):
+            assert np.array_equal(x, y), f
+    for x, y in zip(uniform_tri_mesh(4), jax_tri_mesh(4)):
+        assert np.array_equal(x, y)
