@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's two paths once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -45,7 +45,26 @@ Phases (each raises on failure; nothing is caught):
   8. cavity timing: the rate in DOF*RK-stage/s (4 Np K stages / s,
      bench.py's cns definition) over 1200 stages at dt=1e-6, the twin's
      rate, K3 and K4 beside their plain versions, the two exchanges, the
-     rest of the stage, and the profiler's split as in phase 5.
+     rest of the stage, and the profiler's split as in phase 5;
+  9. 3D cavity kernels: K1 (in this use), K4 at dim=3 (both fold_tail
+     forms), K8 (cns_surface) and K7 (cns_viscous) against their plain
+     versions on the 3D cavity's moving states (hex N=3, k1d=16, f32,
+     isothermal), at k1d=4 in f64 for every BC shape, and at k1d=3 (K=27, a
+     ragged last tile); K8 and K7 also over the 2D cases of phase 6;
+ 10. 3D cavity path: presets.lid_driven_cavity_3d(3, 16, f32) ->
+     make_cns_rhs_affine(volume_impl='fused_hex', bench.py's flags) ->
+     lsrk45 for 20 steps at dt=1e-4 with every launch counter at 0 before;
+     checks K1 and K4 launched once per stage, the state is finite f32 and
+     agrees with the twin make_cns_rhs; the f64 kernel path conserves mass
+     over 20 steps; an f64 k1d=4 entropy check (adiabatic walls, the lid at
+     rest, rhstest on);
+ 11. 3D cavity timing, as phase 8: the rate over 1200 stages, the twin's,
+     K1 and K4 beside their plain versions, the exchanges, the profiler;
+ 12. the split path on both cavities at full width: surface_impl='fused'
+     (K3 or K1, then K8, then K7) against merged_tail on one RHS (f32, and
+     f64 at k1d=8 / k1d=4), 20 steps with every counter at 0 before (K8
+     and K7 launched once per stage), the rate over 1200 stages, and K8
+     and K7 beside their plain versions.
 A kernel's time is its device time: the timed calls are queued behind a
 sleeping kernel, so the host's dispatch does not enter it.
 The line before the last is {"kernels": [...]} with each kernel's bound
@@ -67,6 +86,9 @@ TIMED_STEPS, TWIN_TIMED_STEPS, REPEATS = 240, 5, 5
 # the cavity path: tri N=3, k1d=128 (K=32768, 1.31M DOF), f32
 CAV_N, CAV_K1D, CAV_STEPS, CAV_DT = 3, 128, 20, 1e-4
 CAV_TIMED_DT = 1e-6        # timing run, as bench.py's
+# the 3D cavity path: hex N=3, k1d=16 (K=4096, 1.31M DOF), f32; the same
+# steps and time steps as the 2D cavity
+CAV3_N, CAV3_K1D = 3, 16
 # kernel vs plain, max |kernel - plain| / max |plain|: the kernels sum in
 # another order than the plain version and contract multiply-adds into
 # FMAs, and libdevice's log/exp/pow differ from PyTorch's by an ulp or two
@@ -80,6 +102,9 @@ TWIN_TOL_F32 = 1e-5
 CONSERVATION_TOL_F32 = 1e-8
 # f64 entropy balance with dissipation off (k1d=4)
 RHSTEST_TOL_F64 = 1e-10
+# the split path (K8 then K7) against the merged kernel (K4) on one RHS,
+# max |split - merged| / max |merged|: the same arithmetic in two kernels
+SPLIT_TOL = {"float32": 1e-5, "float64": 1e-12}
 # cavity mass, |change of sum(wJq rho)| / sum(wJq rho) over 20 steps.  The
 # walls carry no mass flux and rho+ = rho- on them, so the RHS conserves
 # mass to roundoff: in f64 (the kernel path at k1d=128) the drift must
@@ -223,15 +248,44 @@ def ops_k3(np_, nq, nh):
             + 85 * pairs + 2 * np_ * nh * 4 + 4 * np_)
 
 
-def ops_k4(np_, nq, nfq):
-    """The tail-folded form (merged_tail), as the cavity path runs it."""
-    face = 170 * nfq                         # traces, BC, flux, LF, penalty
-    quad = (2 * 3 * nq * nq * 4 + 2 * 2 * nq * nfq * 4 + 2 * 2 * 4 * nfq
-            + nq * (32 + 60 + 48))           # front, surface, grad, sigma
-    tail = (2 * 2 * nfq * nq * 4 + 12 * nfq  # traction
-            + 3 * 4 * nq * 2 + 2 * 2 * np_ * nq * 4)   # divergence
-    fold = 2 * 2 * np_ * nfq * 4 + 6 * 4 * np_   # LIFTs and assembly
-    return face + quad + tail + fold
+def ops_face(dim, rebuild_local):
+    """One face node of the CNS surface stage: the traces rebuilt (the
+    neighbour's conservative and entropy ones, with rebuild_local the
+    local ones too), the BC ghosts and ghost logs, the EC pair and its dim
+    directions contracted with the normal, LF, the entropy BC, the jump and
+    the penalty rows."""
+    nf = dim + 2
+    cons, evars = 3 * dim + 4, 3 * dim + 7
+    rebuild = cons + evars + (cons + evars if rebuild_local else 0)
+    ghosts = 4 * dim + 2 + 3 * dim
+    pair = 34 + 4 * dim + dim * (2 * dim + 2 + 2 * nf)
+    lf = 4 * dim + 19 + 3 * nf
+    return rebuild + ghosts + pair + lf + nf + 4 * dim + 6 + nf
+
+
+def ops_visc(dim, np_, nq, nfq, proj):
+    """One element of the viscous mid-section, each contraction formed
+    once (the kernels repeat some per node; the bound counts what the
+    function needs): the front product; the surface gradient term
+    (0.5·dv·nxj once per face node, then its lift); per quadrature node
+    the gradients, K(v) (83 operations in 2D, 190 in 3D) and the
+    production; the contracted traction; the divergence (g_r = Σ_x
+    geo[r,x]·σ_x once per node, then the D_r Pq products)."""
+    nf = dim + 2
+    sigma = 83 if dim == 2 else 190
+    front = 2 * (proj + dim) * nq * nq * nf
+    surface = 2 * dim * nq * nfq * nf + nfq * nf * (1 + dim)
+    node = nf * dim * (2 * dim + 1) + sigma + 3 * dim * nf
+    traction = nfq * (2 * dim * nf * nq + 2 * dim * nf)
+    div = dim * nq * nf * (2 * dim - 1) + 2 * dim * np_ * nq * nf
+    return front + surface + nq * node + traction + div
+
+
+def ops_k4(dim, np_, nq, nfq, proj):
+    """The tail-folded form (merged_tail), as the cavity paths run it."""
+    fold = (4 * (dim + 2) * nfq + 6 * (dim + 2)) * np_   # LIFTs, assembly
+    return (nfq * ops_face(dim, True) + ops_visc(dim, np_, nq, nfq, proj)
+            + fold)
 
 
 def main():
@@ -245,23 +299,28 @@ def main():
         return 2
 
     from esdg_cns_tpu_torch import kernels
+    from esdg_cns_tpu_torch.ops import cns_surface as cs
     from esdg_cns_tpu_torch.ops import fused_volume as fv
     from esdg_cns_tpu_torch.ops import modal_volume as mv
     from esdg_cns_tpu_torch.ops import surface_viscous as sv
-    from esdg_cns_tpu_torch.presets import euler_hex_3d, lid_driven_cavity
+    from esdg_cns_tpu_torch.presets import (euler_hex_3d, lid_driven_cavity,
+                                            lid_driven_cavity_3d)
     from esdg_cns_tpu_torch.solvers import (make_cns_rhs, make_cns_rhs_affine,
                                             make_euler_rhs,
                                             make_euler_rhs_fused)
     from esdg_cns_tpu_torch.timestepping import lsrk45
-    # the cavity BC shapes, moving states and K4's arguments, shared with
-    # tests/test_torch_gpu.py
+    # the cavity BC shapes, moving states and the kernels' arguments,
+    # shared with tests/test_torch_gpu.py
     from esdg_cns_tpu_torch.cavity_cases import (CAVITY_BCS, VELOCITY,
-                                                 cavity_case, k4_inputs)
+                                                 cavity_case, k4_inputs,
+                                                 k7_inputs, k8_inputs)
 
     wrappers = {"euler_volume": fv.euler_volume,
                 "euler_surface": fv.euler_surface,
                 "euler_modal_volume": mv.euler_modal_volume,
-                "cns_surface_viscous": sv.cns_surface_viscous}
+                "cns_surface_viscous": sv.cns_surface_viscous,
+                "cns_surface": cs.cns_surface,
+                "cns_viscous": sv.cns_viscous}
 
     def zero_counts():
         for w in wrappers.values():
@@ -300,11 +359,15 @@ def main():
                        else "f32") + (" diag" if "Lb1E" in name
                                       else " general")
             print(f"ptxas N=3 {kind} {variant}: {report}")
-        elif "tri_modal_volume" in name or "cns_surface_viscous" in name:
-            kind = ("tri_modal_volume" if "tri_modal" in name
-                    else "cns_surface_viscous")
-            prec = "f64" if "kernelId" in name else "f32"
-            print(f"ptxas {kind} {prec}: {report}")
+        elif "tri_modal_volume" in name or "cns_" in name:
+            kind = next(k for k in ("tri_modal_volume", "cns_surface_viscous",
+                                    "cns_surface", "cns_viscous")
+                        if k in name)
+            form = name.split("kernel")[1]
+            prec = "f64" if form.startswith("Id") else "f32"
+            dim = "" if kind == "tri_modal_volume" else (
+                " 3D" if "Li3E" in form else " 2D")
+            print(f"ptxas {kind}{dim} {prec}: {report}")
 
     gamma = 1.4
 
@@ -462,50 +525,77 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 6. cavity kernels against their plain versions ----
-    def cavity_kernels(disc, q, bc, p, tag):
-        """K3 and K4 (both forms) against their plain versions; returns the
-        max abs errors and the arguments, for timing."""
-        dtype = str(q.dtype).replace("torch.", "")
-        tol = TOL[dtype]
-        nq = disc.nq
-        k3args = (q, disc.geo, torch.stack(disc.q_skew), disc.vq, disc.vhp,
-                  disc.ph, gamma)
-        p3 = mv.euler_modal_volume_plain(*k3args, nq=nq)
-        k3 = mv.euler_modal_volume(*k3args, nq=nq)
+    def held(name, tag, kern, plain, tol, names):
+        """max |kernel - plain| / max |plain| per output, printed; raises
+        past tol; returns the largest absolute error."""
         torch.cuda.synchronize()
-        errs = [rel_err(a, b) for a, b in zip(k3, p3)]
-        print(f"K3 euler_modal_volume {tag}: ph_qf, traces, vu_q rel "
-              + ", ".join(f"{e:.3e}" for e, _ in errs) + f" (tol {tol:.0e})")
+        errs = []
+        for a, b in zip(kern, plain):
+            d, m = float((a - b).abs().max()), float(b.abs().max())
+            errs.append((d / m if m > 0 else d, d))
+        print(f"{name} {tag}: rel " + ", ".join(
+            f"{n} {e:.3e}" for n, (e, _) in zip(names, errs))
+            + f" (tol {tol:.0e})")
         if not all(e <= tol for e, _ in errs):
-            raise AssertionError(f"K3 disagrees with its plain version ({tag})")
-        abs3 = max(a for _, a in errs)
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"({tag})")
+        return max(a for _, a in errs)
+
+    def cavity_kernels(disc, q, bc, p, tag):
+        """The cavity's kernels against their plain versions: the volume
+        front (K3 on tris, K1 on hexes), K4 (both fold_tail forms), K8 and
+        K7.  Returns ({kernel: max abs error}, {kernel: arguments}, the
+        front kernel's outputs)."""
+        tol = TOL[str(q.dtype).replace("torch.", "")]
+        nq = disc.nq
+        errs, ins = {}, {}
+        if disc.dim == 2:
+            args = (q, disc.geo, torch.stack(disc.q_skew), disc.vq,
+                    disc.vhp, disc.ph, gamma)
+            kw = dict(nq=nq)
+            front_k = mv.euler_modal_volume(*args, **kw)
+            errs["front"] = held(
+                "K3 euler_modal_volume", tag, front_k,
+                mv.euler_modal_volume_plain(*args, **kw), tol,
+                ("ph_qf", "traces", "vu_q"))
+        else:
+            args = (q, disc.geo, disc.vhp[nq:], disc.lift, gamma)
+            kw = dict(line_ops=disc.line_ops,
+                      diag=fv.detect_axis_aligned(disc))
+            front_k = fv.euler_volume(*args, **kw)
+            errs["front"] = held("K1 euler_volume", tag, front_k,
+                                 fv.euler_volume_plain(*args, **kw), tol,
+                                 ("ph_qf", "traces"))
+        ins["front"] = (args, kw)
         k4args, k4tail, k4kw = k4_inputs(disc, q, bc, p)
-        abs4 = 0.0
+        ins["k4"] = (k4args, k4tail, k4kw)
+        errs["k4"] = 0.0
         for fold in (False, True):
             tail = k4tail if fold else ()
-            p4 = sv.cns_surface_viscous_plain(*k4args, *tail,
-                                              fold_tail=fold, **k4kw)
-            k4 = sv.cns_surface_viscous(*k4args, *tail, fold_tail=fold,
-                                        **k4kw)
-            torch.cuda.synchronize()
-            errs = [rel_err(a, b) for a, b in zip(k4, p4)]
             names = (("dq_part", "t_f", "prod", "vuq") if fold else
                      ("flux", "pen", "t_f", "div", "prod", "vuq"))
-            print(f"K4 cns_surface_viscous {tag} fold_tail={fold}: rel "
-                  + ", ".join(f"{n} {e:.3e}" for n, (e, _) in
-                              zip(names, errs)) + f" (tol {tol:.0e})")
-            if not all(e <= tol for e, _ in errs):
-                raise AssertionError(
-                    f"K4 disagrees with its plain version ({tag}, "
-                    f"fold_tail={fold})")
-            abs4 = max([abs4] + [a for _, a in errs])
-        return abs3, abs4, k3args, k4args, k4tail, k4kw, k3
+            errs["k4"] = max(errs["k4"], held(
+                "K4 cns_surface_viscous", f"{tag} fold_tail={fold}",
+                sv.cns_surface_viscous(*k4args, *tail, fold_tail=fold,
+                                       **k4kw),
+                sv.cns_surface_viscous_plain(*k4args, *tail, fold_tail=fold,
+                                             **k4kw), tol, names))
+        ins["k8"] = k8_inputs(disc, q, bc, p)
+        errs["k8"] = held("K8 cns_surface", tag, cs.cns_surface(
+            *ins["k8"][0], **ins["k8"][1]), cs.cns_surface_plain(
+            *ins["k8"][0], **ins["k8"][1]), tol, ("flux", "dv", "pen"))
+        ins["k7"] = k7_inputs(disc, q, bc, p)
+        errs["k7"] = held("K7 cns_viscous", tag, sv.cns_viscous(
+            *ins["k7"][0], **ins["k7"][1]), sv.cns_viscous_plain(
+            *ins["k7"][0], **ins["k7"][1]), tol,
+            ("t_f", "div", "prod", "vuq"))
+        return errs, ins, front_k
 
     cdisc, cq, cbc, cp = cavity_case("isothermal", CAV_N, CAV_K1D,
                                      torch.float32, dev)
-    cav_abs3, cav_abs4, k3args, k4args, k4tail, k4kw, k3outs = cavity_kernels(
-        cdisc, cq, cbc, cp, f"tri N=3 k1d={CAV_K1D} f32 isothermal "
-        "(cavity path)")
+    cerrs, cins, k3outs = cavity_kernels(
+        cdisc, cq, cbc, cp, f"tri N=3 k1d={CAV_K1D} f32 isothermal (cavity "
+        "path)")
     print(f"(kernel checks on moving states: density and pressure x (1 + "
           f"0.01 n), velocity + {VELOCITY} n, n seeded standard normal; "
           f"max |u| {float((cq[1:3] / cq[0]).abs().max()):.3f} at k1d="
@@ -547,17 +637,20 @@ def main():
           f"{e_ctwin:.3e} (tol {TWIN_TOL_F32:.0e})")
     if not e_ctwin <= TWIN_TOL_F32:
         raise AssertionError("cavity path disagrees with the twin")
-    vq64, w64 = cdisc.vq.double(), cdisc.wjq.double()
-    cmass = lambda q: float((w64 * (vq64 @ q[0].double())).sum())
-    cdrift = abs(cmass(cqf) - cmass(cq0)) / cmass(cq0)
-    cdrift_twin = abs(cmass(cqt) - cmass(cq0)) / cmass(cq0)
+
+    def mass(disc, q):
+        return float((disc.wjq.double()
+                      * (disc.vq.double() @ q[0].double())).sum())
+
+    cdrift = abs(mass(cdisc, cqf) - mass(cdisc, cq0)) / mass(cdisc, cq0)
+    cdrift_twin = abs(mass(cdisc, cqt) - mass(cdisc, cq0)) / mass(cdisc, cq0)
     del cqt
     d64, q64, bc64, p64 = lid_driven_cavity(CAV_N, CAV_K1D,
                                             dtype=torch.float64, device=dev)
     zero_counts()
     q64f, _ = lsrk45(make_cns_rhs_affine(d64, **dict(flags, bc=bc64)), q64,
                      CAV_DT, CAV_STEPS)
-    cdrift64 = abs(cmass(q64f) - cmass(q64)) / cmass(q64)
+    cdrift64 = abs(mass(d64, q64f) - mass(d64, q64)) / mass(d64, q64)
     print(f"cavity mass |d sum(wJq rho)| / sum(wJq rho) after {CAV_STEPS} "
           f"steps: f32 {cdrift:.2e} (tol {CAV_MASS_TOL_F32:.0e}; the f32 "
           f"twin make_cns_rhs from the same q0: {cdrift_twin:.2e}), f64 "
@@ -588,41 +681,60 @@ def main():
     del edisc, eq0, eq
 
     # ---- 8. cavity timing ----
+    def path_timing(label, rhs, q0, dof, twin):
+        """(ms per stage, DOF*RK-stage/s) of rhs over 1200 stages, and the
+        twin's rate, printed."""
+        step_ms = cuda_ms(lambda: lsrk45(rhs, q0, CAV_TIMED_DT, TIMED_STEPS),
+                          1)
+        rate = dof * 5 * TIMED_STEPS / (step_ms / 1e3)
+        stage_ms = step_ms / (5 * TIMED_STEPS)
+        print(f"[{card}] {label}: {rate:.4e} DOF*RK-stage/s, "
+              f"{stage_ms:.4f} ms/stage over {5 * TIMED_STEPS} stages, "
+              f"median of {REPEATS}")
+        if twin is not None:
+            twin_ms = cuda_ms(lambda: lsrk45(twin, q0, CAV_TIMED_DT,
+                                             TWIN_TIMED_STEPS), 1)
+            print(f"[{card}] {label}, twin make_cns_rhs: "
+                  f"{dof * 5 * TWIN_TIMED_STEPS / (twin_ms / 1e3):.4e} "
+                  f"DOF*RK-stage/s, {twin_ms / (5 * TWIN_TIMED_STEPS):.4f} "
+                  f"ms/stage over {5 * TWIN_TIMED_STEPS} stages, median of "
+                  f"{REPEATS}")
+        return stage_ms, rate
+
+    def kernel_times(shape, calls):
+        """Device times of each (name, kernel call, plain call), printed
+        beside the host's back-to-back time; returns {name: (ms, plain
+        ms)}."""
+        out = {}
+        for name, kcall, pcall in calls:
+            ms, pms = dev_ms(kcall, 20), dev_ms(pcall, 2)
+            print(f"[{card}] {name} {shape}: kernel {ms:.4f} ms, plain "
+                  f"{pms:.4f} ms ({pms / ms:.1f}x), device times; back to "
+                  f"back from the host {cuda_ms(kcall, 20):.4f} ms")
+            out[name] = (ms, pms)
+        return out
+
     cdof = 4 * cdisc.np_ * cdisc.num_elements
-    cstep_ms = cuda_ms(lambda: lsrk45(crhs, cq0, CAV_TIMED_DT, TIMED_STEPS),
-                       1)
-    crate = cdof * 5 * TIMED_STEPS / (cstep_ms / 1e3)
-    ctwin_ms = cuda_ms(lambda: lsrk45(ctwin, cq0, CAV_TIMED_DT,
-                                      TWIN_TIMED_STEPS), 1)
-    ctwin_rate = cdof * 5 * TWIN_TIMED_STEPS / (ctwin_ms / 1e3)
-    cstage_ms = cstep_ms / (5 * TIMED_STEPS)
-    print(f"[{card}] cavity path (K3+exchange+K4+exchange+LIFT, LSRK45): "
-          f"{crate:.4e} DOF*RK-stage/s, {cstage_ms:.4f} ms/stage over "
-          f"{5 * TIMED_STEPS} stages, median of {REPEATS}")
-    print(f"[{card}] cavity twin make_cns_rhs: {ctwin_rate:.4e} "
-          f"DOF*RK-stage/s, {ctwin_ms / (5 * TWIN_TIMED_STEPS):.4f} ms/stage "
-          f"over {5 * TWIN_TIMED_STEPS} stages, median of {REPEATS}")
-    k3_call = lambda: mv.euler_modal_volume(*k3args, nq=cdisc.nq)
+    cstage_ms, _ = path_timing(
+        "cavity path (K3+exchange+K4+exchange+LIFT, LSRK45)", crhs, cq0,
+        cdof, ctwin)
+    k3args, k3kw = cins["front"]
+    k4args, k4tail, k4kw = cins["k4"]
+    k3_call = lambda: mv.euler_modal_volume(*k3args, **k3kw)
     k4_call = lambda: sv.cns_surface_viscous(*k4args, *k4tail,
                                              fold_tail=True, **k4kw)
-    k3_ms = dev_ms(k3_call, 20)
-    k3_plain_ms = dev_ms(
-        lambda: mv.euler_modal_volume_plain(*k3args, nq=cdisc.nq), 2)
-    k4_ms = dev_ms(k4_call, 20)
-    k4_plain_ms = dev_ms(lambda: sv.cns_surface_viscous_plain(
-        *k4args, *k4tail, fold_tail=True, **k4kw), 2)
-    ph_qf, tr, vu_q = k3outs
+    ctimes = kernel_times(f"tri N=3 k1d={CAV_K1D} f32", [
+        ("K3 euler_modal_volume", k3_call,
+         lambda: mv.euler_modal_volume_plain(*k3args, **k3kw)),
+        ("K4 cns_surface_viscous (fold_tail)", k4_call,
+         lambda: sv.cns_surface_viscous_plain(*k4args, *k4tail,
+                                              fold_tail=True, **k4kw))])
+    k3_ms, k3_plain_ms = ctimes["K3 euler_modal_volume"]
+    k4_ms, k4_plain_ms = ctimes["K4 cns_surface_viscous (fold_tail)"]
+    tr = k3outs[1]
     k4out = k4_call()
     ex1_ms = dev_ms(lambda: cdisc.gather_traces(tr), 20)
     ex2_ms = dev_ms(lambda: cdisc.gather_traces(k4out[1]), 20)
-    for name, ms, pms, host in (
-            ("K3 euler_modal_volume", k3_ms, k3_plain_ms,
-             cuda_ms(k3_call, 20)),
-            ("K4 cns_surface_viscous (fold_tail)", k4_ms, k4_plain_ms,
-             cuda_ms(k4_call, 20))):
-        print(f"[{card}] {name} tri N=3 k1d={CAV_K1D} f32: kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms ({pms / ms:.1f}x), device "
-              f"times; back to back from the host {host:.4f} ms")
     rest = cstage_ms - k3_ms - k4_ms - ex1_ms - ex2_ms
     print(f"[{card}] cavity stage split: K3 {k3_ms:.4f} + exchange 1 "
           f"(index_select, 6 rows) {ex1_ms:.4f} + K4 {k4_ms:.4f} + exchange "
@@ -639,8 +751,198 @@ def main():
     k3_bound = bound(nbytes(*k3args[:6], *k3outs),
                      ops_k3(cdisc.np_, cdisc.nq, cdisc.nh) * cne)
     k4_bound = bound(nbytes(*k4args, *k4tail, *k4out),
-                     ops_k4(cdisc.np_, cdisc.nq, cdisc.nfq) * cne)
+                     ops_k4(2, cdisc.np_, cdisc.nq, cdisc.nfq, True) * cne)
+    del ctwin, k4out
 
+    # ---- 9. 3D cavity kernels against their plain versions ----
+    hdisc, hq, hbc, hp = cavity_case("isothermal", CAV3_N, CAV3_K1D,
+                                     torch.float32, dev, dim=3)
+    herrs, hins, k1outs = cavity_kernels(
+        hdisc, hq, hbc, hp, f"hex N=3 k1d={CAV3_K1D} f32 isothermal (3D "
+        "cavity path)")
+    for case in CAVITY_BCS:
+        d4, q4, bc4, p4 = cavity_case(case, CAV3_N, 4, torch.float64, dev,
+                                      dim=3)
+        cavity_kernels(d4, q4, bc4, p4, f"hex N=3 k1d=4 f64 {case}")
+    d3, q3, bc3, p3 = cavity_case("isothermal", CAV3_N, 3, torch.float64,
+                                  dev, dim=3)
+    cavity_kernels(d3, q3, bc3, p3, "hex N=3 k1d=3 (K=27, ragged tile) f64 "
+                   "isothermal")
+    del d4, q4, bc4, d3, q3, bc3
+
+    # ---- 10. the 3D cavity path ----
+    hdisc, hq0, hbc, hp = lid_driven_cavity_3d(CAV3_N, CAV3_K1D,
+                                               dtype=torch.float32,
+                                               device=dev)
+    if not fv.detect_axis_aligned(hdisc):
+        raise AssertionError("the 3D cavity mesh must be detected "
+                             "axis-aligned")
+    hflags = dict(flags, mu=hp["mu"], pr=hp["pr"], re=hp["re"], bc=hbc)
+    hrhs = make_cns_rhs_affine(hdisc, volume_impl="fused_hex",
+                               surface_impl="auto", **hflags)
+    zero_counts()
+    hqf, _ = lsrk45(hrhs, hq0, CAV_DT, CAV_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    cav3_launches = {k: counts[k] for k in ("euler_volume",
+                                            "cns_surface_viscous")}
+    print(f"3D cavity path: {CAV_STEPS} LSRK45 steps ({stages} stages) at "
+          f"dt={CAV_DT:g}, launches {counts}")
+    if any(v != stages for v in cav3_launches.values()):
+        raise AssertionError(f"expected {stages} launches of K1 and K4")
+    if hqf.dtype != torch.float32 or not bool(torch.isfinite(hqf).all()):
+        raise AssertionError("3D cavity state not finite f32")
+    htwin = make_cns_rhs(hdisc, **hflags)
+    hqt, _ = lsrk45(htwin, hq0, CAV_DT, CAV_STEPS)
+    e_htwin, _ = rel_err(hqf, hqt)
+    print(f"3D cavity fused_hex vs twin make_cns_rhs after {CAV_STEPS} "
+          f"steps: rel {e_htwin:.3e} (tol {TWIN_TOL_F32:.0e})")
+    if not e_htwin <= TWIN_TOL_F32:
+        raise AssertionError("3D cavity path disagrees with the twin")
+    hdrift = abs(mass(hdisc, hqf) - mass(hdisc, hq0)) / mass(hdisc, hq0)
+    del hqt
+    d64, q64, bc64, p64 = lid_driven_cavity_3d(CAV3_N, CAV3_K1D,
+                                               dtype=torch.float64,
+                                               device=dev)
+    zero_counts()
+    q64f, _ = lsrk45(make_cns_rhs_affine(d64, volume_impl="fused_hex",
+                                         **dict(hflags, bc=bc64)),
+                     q64, CAV_DT, CAV_STEPS)
+    hdrift64 = abs(mass(d64, q64f) - mass(d64, q64)) / mass(d64, q64)
+    print(f"3D cavity mass |d sum(wJq rho)| / sum(wJq rho) after "
+          f"{CAV_STEPS} steps: f32 {hdrift:.2e} (printed), f64 kernel path "
+          f"(launches {read_counts()}) {hdrift64:.2e} (tol "
+          f"{CAV_MASS_TOL_F64:.0e})")
+    if not hdrift64 <= CAV_MASS_TOL_F64:
+        raise AssertionError("3D cavity mass not conserved")
+    del d64, q64, q64f
+
+    edisc, eq0, ebc, ep = lid_driven_cavity_3d(CAV3_N, 4, bctype="adiabatic",
+                                               dtype=torch.float64,
+                                               device=dev)
+    ebc.regions[0].u_wall = (0.0, 0.0, 0.0)       # the lid at rest
+    rng = np.random.default_rng(1)
+    eq = eq0 + 1e-3 * torch.as_tensor(
+        rng.standard_normal(tuple(eq0.shape)), device=dev) * torch.tensor(
+        [1.0, 0.1, 0.1, 0.1, 1.0], dtype=torch.float64,
+        device=dev)[:, None, None]
+    zero_counts()
+    _, eaux = make_cns_rhs_affine(
+        edisc, mu=ep["mu"], pr=ep["pr"], re=ep["re"], bc=ebc,
+        inviscid_dissipation=True, viscous_dissipation=True,
+        volume_impl="fused_hex", surface_impl="merged",
+        compute_rhstest=True)(eq)
+    rtv, rt = float(eaux["rhstest_visc"]), float(eaux["rhstest"])
+    print(f"f64 hex k1d=4 kernel path (K1 + K4 merged, launches "
+          f"{read_counts()}), adiabatic walls, lid at rest: rhstest_visc "
+          f"{rtv:.3e} (>= 0), rhstest {rt:.3e} (< {RHSTEST_TOL_F64:.0e})")
+    if not (rtv >= 0.0 and rt < RHSTEST_TOL_F64):
+        raise AssertionError("3D cavity entropy stability violated")
+    del edisc, eq0, eq
+
+    # ---- 11. 3D cavity timing ----
+    hdof = 5 * hdisc.np_ * hdisc.num_elements
+    hstage_ms, _ = path_timing(
+        "3D cavity path (K1+exchange+K4+exchange+LIFT, LSRK45)", hrhs, hq0,
+        hdof, htwin)
+    k1args, k1kw = hins["front"]
+    h4args, h4tail, h4kw = hins["k4"]
+    k1_call = lambda: fv.euler_volume(*k1args, **k1kw)
+    h4_call = lambda: sv.cns_surface_viscous(*h4args, *h4tail,
+                                             fold_tail=True, **h4kw)
+    htimes = kernel_times(f"hex N=3 k1d={CAV3_K1D} f32", [
+        ("K1 euler_volume (3D cavity)", k1_call,
+         lambda: fv.euler_volume_plain(*k1args, **k1kw)),
+        ("K4 cns_surface_viscous dim=3 (fold_tail)", h4_call,
+         lambda: sv.cns_surface_viscous_plain(*h4args, *h4tail,
+                                              fold_tail=True, **h4kw))])
+    h1_ms = htimes["K1 euler_volume (3D cavity)"][0]
+    h4_ms, h4_plain_ms = htimes["K4 cns_surface_viscous dim=3 (fold_tail)"]
+    h4out = h4_call()
+    hex1_ms = dev_ms(lambda: hdisc.gather_traces(k1outs[1]), 20)
+    hex2_ms = dev_ms(lambda: hdisc.gather_traces(h4out[1]), 20)
+    hrest = hstage_ms - h1_ms - h4_ms - hex1_ms - hex2_ms
+    print(f"[{card}] 3D cavity stage split: K1 {h1_ms:.4f} + exchange 1 "
+          f"(index_select, 7 rows) {hex1_ms:.4f} + K4 {h4_ms:.4f} + "
+          f"exchange 2 (index_select, 5 rows) {hex2_ms:.4f} + rest (v(U), "
+          f"traction BC, jump LIFT, 1/J, LSRK45 update, host gaps) "
+          f"{hrest:.4f} = {hstage_ms:.4f} ms")
+    hstage_dev_ms = dev_ms(lambda: lsrk45(hrhs, hq0, CAV_TIMED_DT, 10),
+                           1) / 50
+    print(f"[{card}] 3D cavity stage device time (queued ahead of the "
+          f"device): {hstage_dev_ms:.4f} ms of {hstage_ms:.4f} ms")
+    print_profile(card, "3D cavity path", device_profile(
+        lambda: lsrk45(hrhs, hq0, CAV_TIMED_DT, 4), 20))
+    hne = hdisc.num_elements
+    h4_bound = bound(nbytes(*h4args, *h4tail, *h4out),
+                     ops_k4(3, hdisc.np_, hdisc.nq, hdisc.nfq, False) * hne)
+    del htwin, h4out
+
+    # ---- 12. the split path (K8 then K7) on both cavities ----
+    split_rows = {}
+    for label, disc, q0, pflags, vol, ins, small in (
+            ("tri", cdisc, cq0, flags, "fused", cins,
+             cavity_case("isothermal", CAV_N, 8, torch.float64, dev)),
+            ("hex", hdisc, hq0, hflags, "fused_hex", hins,
+             cavity_case("isothermal", CAV3_N, 4, torch.float64, dev,
+                         dim=3))):
+        split = make_cns_rhs_affine(disc, volume_impl=vol,
+                                    surface_impl="fused", **pflags)
+        merged = make_cns_rhs_affine(disc, volume_impl=vol,
+                                     surface_impl="merged_tail", **pflags)
+        qm_ = cq if label == "tri" else hq
+        e32, _ = rel_err(split(qm_)[0], merged(qm_)[0])
+        sd, sq, sbc, sp = small
+        sflags = dict(pflags, mu=sp["mu"], pr=sp["pr"], re=sp["re"], bc=sbc)
+        e64, _ = rel_err(
+            make_cns_rhs_affine(sd, volume_impl=vol, surface_impl="fused",
+                                **sflags)(sq)[0],
+            make_cns_rhs_affine(sd, volume_impl=vol,
+                                surface_impl="merged_tail", **sflags)(sq)[0])
+        print(f"{label} split path (surface_impl='fused') vs merged_tail, "
+              f"one RHS on a moving state: f32 full width rel {e32:.3e} (tol "
+              f"{SPLIT_TOL['float32']:.0e}), f64 small rel {e64:.3e} (tol "
+              f"{SPLIT_TOL['float64']:.0e})")
+        if not (e32 <= SPLIT_TOL["float32"] and e64 <= SPLIT_TOL["float64"]):
+            raise AssertionError(f"{label} split path disagrees with K4")
+        zero_counts()
+        sqf, _ = lsrk45(split, q0, CAV_DT, CAV_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        print(f"{label} split path: {CAV_STEPS} LSRK45 steps ({stages} "
+              f"stages), launches {counts}")
+        front = "euler_modal_volume" if label == "tri" else "euler_volume"
+        if any(counts[k] != stages for k in (front, "cns_surface",
+                                             "cns_viscous")):
+            raise AssertionError(f"expected {stages} launches of the front, "
+                                 "K8 and K7")
+        if not bool(torch.isfinite(sqf).all()):
+            raise AssertionError(f"{label} split-path state not finite")
+        dof = (disc.dim + 2) * disc.np_ * disc.num_elements
+        path_timing(f"{label} split path (front+exchange+K8+K7+exchange+"
+                    "LIFTs, LSRK45)", split, q0, dof, None)
+        a8, kw8 = ins["k8"]
+        a7, kw7 = ins["k7"]
+        shape = (f"tri N=3 k1d={CAV_K1D} f32" if label == "tri"
+                 else f"hex N=3 k1d={CAV3_K1D} f32")
+        stimes = kernel_times(shape, [
+            ("K8 cns_surface", lambda: cs.cns_surface(*a8, **kw8),
+             lambda: cs.cns_surface_plain(*a8, **kw8)),
+            ("K7 cns_viscous", lambda: sv.cns_viscous(*a7, **kw7),
+             lambda: sv.cns_viscous_plain(*a7, **kw7))])
+        ne = disc.num_elements
+        o8, o7 = cs.cns_surface(*a8, **kw8), sv.cns_viscous(*a7, **kw7)
+        proj = disc.dim == 2
+        split_rows[label] = dict(
+            launches=counts, times=stimes,
+            k8_bound=bound(nbytes(*a8, *o8),
+                           ops_face(disc.dim, False) * disc.nfq * ne),
+            k7_bound=bound(nbytes(*a7, *(o7 if proj else o7[:3])),
+                           ops_visc(disc.dim, disc.np_, disc.nq, disc.nfq,
+                                    proj) * ne))
+        del split, merged, sqf, o8, o7
+
+    hex_split = split_rows["hex"]
     rows = [
         ("euler_volume", "hex_volume.cu", "pallas_volume.py:87",
          launches["euler_volume"], main_abs_v, k1_ms, k1_plain_ms, k1_bound),
@@ -648,15 +950,32 @@ def main():
          launches["euler_surface"], main_abs_s, k2_ms, k2_plain_ms, k2_bound),
         ("euler_modal_volume", "tri_modal_volume.cu",
          "pallas_modal_volume.py:45", cav_launches["euler_modal_volume"],
-         cav_abs3, k3_ms, k3_plain_ms, k3_bound),
+         cerrs["front"], k3_ms, k3_plain_ms, k3_bound),
         ("cns_surface_viscous", "cns_surface_viscous.cu",
          "pallas_viscous.py:152", cav_launches["cns_surface_viscous"],
-         cav_abs4, k4_ms, k4_plain_ms, k4_bound),
+         cerrs["k4"], k4_ms, k4_plain_ms, k4_bound),
+        ("cns_surface_viscous_3d", "cns_surface_viscous.cu",
+         "pallas_viscous.py:152", cav3_launches["cns_surface_viscous"],
+         herrs["k4"], h4_ms, h4_plain_ms, h4_bound),
+        ("cns_surface", "cns_surface.cu", "pallas_cns_surface.py:155",
+         hex_split["launches"]["cns_surface"], herrs["k8"],
+         *hex_split["times"]["K8 cns_surface"], hex_split["k8_bound"]),
+        ("cns_viscous", "cns_viscous.cu", "pallas_viscous.py:131",
+         hex_split["launches"]["cns_viscous"], herrs["k7"],
+         *hex_split["times"]["K7 cns_viscous"], hex_split["k7_bound"]),
     ]
     for name, *_, ms, _, (bms, by) in rows:
         print(f"[{card}] {name}: bound {bms:.4f} ms by {by}, kernel "
               f"{ms:.4f} ms ({bms / ms:.1%} of the bound)")
-    # no single PyTorch call computes any of the four: library_ms is null
+    for label in ("tri",):
+        sr = split_rows[label]
+        for key, bkey in (("K8 cns_surface", "k8_bound"),
+                          ("K7 cns_viscous", "k7_bound")):
+            bms, by = sr[bkey]
+            print(f"[{card}] {key} ({label} split path): bound {bms:.4f} ms "
+                  f"by {by}, kernel {sr['times'][key][0]:.4f} ms "
+                  f"({bms / sr['times'][key][0]:.1%} of the bound)")
+    # no single PyTorch call computes any of these: library_ms is null
     kernels_line = [
         {"name": name, "route": "cuda",
          "source": f"esdg_cns_tpu_torch/csrc/{src}",
@@ -670,7 +989,6 @@ def main():
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     t0 = time.perf_counter()

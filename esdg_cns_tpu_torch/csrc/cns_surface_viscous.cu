@@ -1,155 +1,49 @@
-// K4: merged post-exchange surface stage + viscous mid-section of the 2D
-// affine CNS RHS.
+// K4: merged post-exchange surface stage + viscous mid-section of the
+// affine CNS RHS, in 2D (tris, proj) and 3D (collocated hexes, no
+// projection block).
 //
 // Replaces the TPU kernel esdg_cns_tpu/ops/pallas_viscous.py::
 // _surface_viscous_kernel (wrapper cns_surface_viscous_pallas, body
 // _viscous_body; BC transport ops/pallas_cns_surface.py).  Per element:
-//   1. face stage, one thread per (element, face node): the conservative
-//      and entropy traces of both sides rebuilt from the flux-variable
-//      payload (no transcendentals), the wall-BC ghosts walked over the
-//      region table in region order, the EC face flux + LF, the entropy
-//      BC, the BR1 jump dv and the interface-penalty rows;
-//   2. quadrature stage, one thread per (element, quadrature node): the
-//      front product [Vq Pq; Vq D_r Pq] v(U), the gradients
-//      grad_x = (sum_r geo[r,x] vqd_r + (Vq L)(dv/2 nxj_x)) / J, the
-//      viscous flux sigma = K(v) grad (viscous_flux_nd's formulas) and
-//      the node's share of the entropy production wJq grad.sigma;
+//   1. face stage, per (element, face node): both sides' conservative and
+//      entropy traces rebuilt from the flux-variable payload, then
+//      surface_node (cns_stages.cuh): BC ghosts, EC flux + LF, entropy BC,
+//      BR1 jump dv, penalty rows;
+//   2. quadrature stage, per (element, quadrature node): visc_quad_node
+//      (front product, gradients, sigma, production share);
 //   3. the contracted traction t_f = sum_x (Ef sigma_x) nxj_x;
-//   4. at the Np nodes the divergence sum_r (D_r Pq)(sum_x geo[r,x]
-//      sigma_x), and with fold_tail the assembly
-//      dq = -(ph_qf + LIFT flux)/J + div/J + LIFT pen
-//      (the penalty is added after the 1/J scaling, as the reference
-//      does); the per-element production, summed over the quadrature
-//      nodes in a fixed order.
-// The small operators live in shared memory with the tile's per-element
-// arrays.  The BC reaches the kernel as the pool [L, Nfq, K] (normals,
-// masks, wall rows, per-call Dirichlet states) and a flat region table
-// (ops/cns_surface_bc.region_table): ints (R, nhat row, bmask row,
-// adiabatic row, then per region kind, mask row, u_wall rows, theta row,
-// Dirichlet rows) and floats (per region the u_wall and theta scalars).
+//   4. at the Np nodes the divergence, and with fold_tail the assembly
+//      dq = -(ph_qf + LIFT flux)/J + div/J + LIFT pen (the penalty is
+//      added after the 1/J scaling, as the reference does); the
+//      per-element production, summed over the quadrature nodes in a
+//      fixed order.
+// The BC reaches the kernel as the pool [L, Nfq, K] (normals, masks, wall
+// rows, per-call Dirichlet states) and the flat region table of
+// ops/cns_surface_bc.region_table.
 //
-// What bounds it on this card: at N=3 (Np=10, Nq=Nfq=12) each element
-// evaluates 12 face fluxes (two logarithmic means, two logs with a BC,
-// two square roots), 12 viscous matrices (one division) and about 7k
-// multiply-adds of small dense products, about 16k operations, while it
-// reads about 370 and writes about 140 values (2 KB in f32, 66 MB per
-// RHS at K=32768).  At the card's peaks the stream takes 2.5 times as
-// long as the arithmetic, so the bound is HBM; the dense products are
-// served from shared memory so that they add no HBM traffic.
+// What bounds it on an H100.  2D, tri N=3 (Np=10, Nq=Nfq=12): about 20k
+// operations per element against 2 KB in f32 (66 MB per RHS at K=32768):
+// HBM-bound, so the dense operators are served from shared memory and add
+// no HBM traffic.  3D, hex N=3 (Np=Nq=64, Nfq=96): the dense operators hold
+// 43k values (168 KB in f32), past what a block can keep beside its tile,
+// and each element needs about 0.8M operations of small dense products
+// against 16 KB of traffic: operation-bound (chip_smoke.py's ops_k4).  The
+// operators are read from global memory through the read-only path (L1/L2
+// resident, shared by every block) and only the per-element arrays sit in
+// shared memory; the line form of the collocated operators (D_r one 4x4
+// line operator per direction, Ef and LIFT one line per face node) would
+// cut the operations about 16-fold (ROADMAP Queue 2).
 //
-// Simple design: a block owns TE elements (threadIdx.x, coalesced K-last
-// loads and stores) and 256/TE workers (threadIdx.y) that take the nodes
-// of each stage in turn; __syncthreads() separates the stages.  No
-// atomics: every sum has one owner and a fixed order, so the result is
-// deterministic.  Lanes past K compute on a quiescent state and store
-// nothing.  dim = 2 only (the 3D cavity's dim=3 / proj=False form is
-// later work; the wrapper raises).
-#include "common.cuh"
+// Simple design: a block owns TE elements (threadIdx.x, K-last loads and
+// stores) and 256/TE workers (threadIdx.y) that take the nodes of each
+// stage in turn; __syncthreads() separates the stages.  No atomics: every
+// sum has one owner and a fixed order, so the result is deterministic.
+// Lanes past K compute on a quiescent state and store nothing.
+#include "cns_stages.cuh"
 
 namespace esdg {
 
-constexpr int kViscThreads = 256;
-enum WallKind { kAdiabatic = 0, kIsothermal = 1, kSlip = 2, kDirichlet = 3 };
-
-struct ViscSizes {
-  int np, nq, nfq;
-  // operators: front [3 Nq][Nq], vqlift [Nq][Nfq], ef [Nfq][Nq],
-  // drpq [2][Np][Nq], lift [Np][Nfq]
-  size_t fixed() const {
-    return size_t(3) * nq * nq + size_t(nq) * nfq + size_t(nfq) * nq +
-           size_t(2) * np * nq + size_t(np) * nfq;
-  }
-  // per element: vu [4][Nq], flux, pen, dv [4][Nfq] each, nxj [2][Nfq],
-  // sigma [2][4][Nq], prod [Nq]
-  size_t per_elem() const {
-    return size_t(4) * nq + size_t(12) * nfq + size_t(2) * nfq +
-           size_t(8) * nq + size_t(nq);
-  }
-};
-
-template <typename T>
-struct ViscParams {
-  T mu, lam, l2m, lpm, gmu, pr, re;
-};
-
-// (rho, u1, u2, beta) -> (rho, m1, m2, E), p = rho / (2 beta)
-template <typename T>
-__device__ __forceinline__ void flux_to_cons(const T* qv, T gm1, T u[4]) {
-  const T rho = qv[0];
-  u[0] = rho;
-  u[1] = rho * qv[1];
-  u[2] = rho * qv[2];
-  u[3] = rho / ((T(2) * qv[3]) * gm1) +
-         (T(0.5) * rho) * (qv[1] * qv[1] + qv[2] * qv[2]);
-}
-
-// entropy variables from the flux variables and their logs, with no
-// transcendentals (solvers/_shared.entropy_vars_from_flux): both face
-// sides evaluate this same formula on the same payload
-template <typename T>
-__device__ __forceinline__ void evars_from_flux(const T* qv, T lrho, T lbeta,
-                                                const Consts<T>& c, T v[4]) {
-  const T s = ((-c.gm1) * lrho - lbeta) - T(0.6931471805599453);
-  const T tb = (T(2) * c.gm1) * qv[3];
-  v[0] = (c.gamma - s) - (T(0.5) * tb) * (qv[1] * qv[1] + qv[2] * qv[2]);
-  v[1] = tb * qv[1];
-  v[2] = tb * qv[2];
-  v[3] = -tb;
-}
-
-// |u_n| + c with the normal momentum along the local scaled normal
-template <typename T>
-__device__ __forceinline__ T wavespeed_n(const T u[4], const T n[2], T isj,
-                                         const Consts<T>& c) {
-  const T un = ((u[1] * n[0] + u[2] * n[1]) * isj) / u[0];
-  const T p = c.gm1 * (u[3] - ((T(0.5) * u[0]) * un) * un);
-  return fabs(un) + sqrt((c.gamma * p) / u[0]);
-}
-
-// sigma_x, sigma_y = K(v) (grad_x, grad_y) in 2D (physics/viscous.py
-// viscous_flux_nd, loop order kept)
-template <typename T>
-__device__ __forceinline__ void viscous_flux_2d(const T v[4], const T g[2][4],
-                                                const ViscParams<T>& vp,
-                                                T sig[2][4]) {
-  const T ve = v[3];
-  const T inv3 = T(1) / ((ve * ve) * ve);
-  const T ve2i = (ve * ve) * inv3;
-  const T w[2] = {v[1], v[2]};
-  const T wvei[2] = {(w[0] * ve) * inv3, (w[1] * ve) * inv3};
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-    T smom[2] = {T(0), T(0)};
-    T se = T(0);
-#pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const T gw[2] = {g[b][1], g[b][2]};
-      const T gve = g[b][3];
-      if (a == b) {
-        T kee = T(0);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const T cc = i == a ? vp.l2m : vp.mu;
-          smom[i] = smom[i] - (cc * ve2i) * gw[i] + (cc * wvei[i]) * gve;
-          se = se + (cc * wvei[i]) * gw[i];
-          kee = kee + (cc * w[i]) * w[i];
-        }
-        se = se - ((kee - (vp.gmu * ve) / vp.pr) * inv3) * gve;
-      } else {
-        smom[a] = smom[a] - (vp.lam * ve2i) * gw[b] + (vp.lam * wvei[b]) * gve;
-        smom[b] = smom[b] - (vp.mu * ve2i) * gw[a] + (vp.mu * wvei[a]) * gve;
-        se = se + (vp.mu * wvei[b]) * gw[a] + (vp.lam * wvei[a]) * gw[b] -
-             (((vp.lpm * w[a]) * w[b]) * inv3) * gve;
-      }
-    }
-    sig[a][0] = T(0);
-    sig[a][1] = smom[0];
-    sig[a][2] = smom[1];
-    sig[a][3] = se;
-  }
-}
-
-template <typename T>
+template <typename T, int DIM>
 __global__ void __launch_bounds__(kViscThreads)
     cns_surface_viscous_kernel(
         const T* __restrict__ vu, const T* __restrict__ qmv,
@@ -167,6 +61,8 @@ __global__ void __launch_bounds__(kViscThreads)
         T* __restrict__ vuq_out, long long K, ViscSizes sz, double gamma,
         ViscParams<T> vp, int dissipation, int with_penalty, int fold_tail,
         int has_bc) {
+  constexpr int NF = DIM + 2;
+  constexpr bool PROJ = kProj<DIM>, OPS_SMEM = kOpsSmem<DIM>;
   const Consts<T> c(gamma);
   const int np = sz.np, nq = sz.nq, nfq = sz.nfq;
   const int TE = blockDim.x, NW = blockDim.y;
@@ -174,166 +70,84 @@ __global__ void __launch_bounds__(kViscThreads)
   const int tid = w * TE + e, nthreads = TE * NW;
   const long long k = (long long)blockIdx.x * TE + e;
   const bool live = k < K;
+  const TileRows<T> S{TE, e};
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_front = reinterpret_cast<T*>(smem_raw);
-  T* s_vqlift = s_front + 3 * nq * nq;
-  T* s_ef = s_vqlift + nq * nfq;
-  T* s_drpq = s_ef + nfq * nq;
-  T* s_lift = s_drpq + 2 * np * nq;
-  T* s_vu = s_lift + np * nfq;     // [4 Nq][TE]
-  T* s_flux = s_vu + 4 * nq * TE;  // [4 Nfq][TE]
-  T* s_pen = s_flux + 4 * nfq * TE;
-  T* s_dv = s_pen + 4 * nfq * TE;
-  T* s_nxj = s_dv + 4 * nfq * TE;  // [2 Nfq][TE]
-  T* s_sig = s_nxj + 2 * nfq * TE; // [2][4][Nq][TE]
-  T* s_prod = s_sig + 8 * nq * TE; // [Nq][TE]
-  auto S = [&](T* base, int row) -> T& { return base[row * TE + e]; };
+  T* s = reinterpret_cast<T*>(smem_raw);
+  ViscOps<T> op{front, vqlift, ef, drpq, lift};
+  if constexpr (OPS_SMEM) {
+    const int n_front = (int(PROJ) + DIM) * nq * nq;
+    T* s_front = s;
+    T* s_vqlift = s_front + n_front;
+    T* s_ef = s_vqlift + nq * nfq;
+    T* s_drpq = s_ef + nfq * nq;
+    T* s_lift = s_drpq + DIM * np * nq;
+    for (int i = tid; i < n_front; i += nthreads) s_front[i] = front[i];
+    for (int i = tid; i < nq * nfq; i += nthreads) s_vqlift[i] = vqlift[i];
+    for (int i = tid; i < nfq * nq; i += nthreads) s_ef[i] = ef[i];
+    for (int i = tid; i < DIM * np * nq; i += nthreads) s_drpq[i] = drpq[i];
+    if (fold_tail)
+      for (int i = tid; i < np * nfq; i += nthreads) s_lift[i] = lift[i];
+    op = ViscOps<T>{s_front, s_vqlift, s_ef, s_drpq, s_lift};
+    s = s_lift + np * nfq;
+  }
+  T* s_vu = s;                        // [NF Nq][TE]
+  T* s_flux = s_vu + NF * nq * TE;    // [NF Nfq][TE]
+  T* s_pen = s_flux + NF * nfq * TE;
+  T* s_dv = s_pen + NF * nfq * TE;
+  T* s_nxj = s_dv + NF * nfq * TE;    // [DIM Nfq][TE]
+  T* s_sig = s_nxj + DIM * nfq * TE;  // [DIM][NF][Nq][TE]
+  T* s_prod = s_sig + DIM * NF * nq * TE;  // [Nq][TE]
 
-  for (int i = tid; i < 3 * nq * nq; i += nthreads) s_front[i] = front[i];
-  for (int i = tid; i < nq * nfq; i += nthreads) s_vqlift[i] = vqlift[i];
-  for (int i = tid; i < nfq * nq; i += nthreads) s_ef[i] = ef[i];
-  for (int i = tid; i < 2 * np * nq; i += nthreads) s_drpq[i] = drpq[i];
-  if (fold_tail)
-    for (int i = tid; i < np * nfq; i += nthreads) s_lift[i] = lift[i];
-  for (int row = w; row < 4 * nq; row += NW) {
+  for (int row = w; row < NF * nq; row += NW) {
     // quiescent entropy state past K keeps 1/ve^3 finite
-    const T quiescent = row / nq == 3 ? T(-1) : T(0);
+    const T quiescent = row / nq == NF - 1 ? T(-1) : T(0);
     S(s_vu, row) = live ? vu[(long long)row * K + k] : quiescent;
   }
-  T g[4] = {T(0), T(0), T(0), T(0)};  // geo[r*2 + x], affine
+  T g[DIM * DIM];  // geo[r * DIM + x], affine
   T ij = T(0);
+#pragma unroll
+  for (int r = 0; r < DIM * DIM; ++r) g[r] = T(0);
   if (live) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) g[r] = geo[(long long)r * K + k];
+    for (int r = 0; r < DIM * DIM; ++r) g[r] = geo[(long long)r * K + k];
     ij = invj[k];
   }
 
   // ---- 1. face stage ----
-  const int nreg = has_bc ? itab[0] : 0;
+  const long long rs = (long long)nfq * K;  // row stride
   for (int fp = w; fp < nfq; fp += NW) {
     const long long o = (long long)fp * K + k;
-    const long long rs = (long long)nfq * K;  // row stride
-    T qm[4] = {T(1), T(0), T(0), T(1)}, qp[4] = {T(1), T(0), T(0), T(1)};
-    T lm[2] = {T(0), T(0)}, lp[2] = {T(0), T(0)};
-    T n[2] = {T(0), T(0)};
+    T qm[NF], qp[NF], lm[2] = {T(0), T(0)}, lp[2] = {T(0), T(0)}, n[DIM];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) qm[f] = qp[f] = (f == 0 || f == NF - 1) ? T(1) : T(0);
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) n[d] = T(0);
     T sjv = T(1), isjv = T(1);
     if (live) {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        qm[r] = qmv[r * rs + o];
-        qp[r] = nbr[r * rs + o];
+      for (int f = 0; f < NF; ++f) {
+        qm[f] = qmv[f * rs + o];
+        qp[f] = nbr[f * rs + o];
       }
       lm[0] = qml[o];
       lm[1] = qml[rs + o];
-      lp[0] = nbr[4 * rs + o];
-      lp[1] = nbr[5 * rs + o];
-      n[0] = nxj[o];
-      n[1] = nxj[rs + o];
+      lp[0] = nbr[NF * rs + o];
+      lp[1] = nbr[(NF + 1) * rs + o];
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) n[d] = nxj[d * rs + o];
       sjv = sj[o];
       isjv = isj[o];
     }
-    auto P = [&](int row) -> T { return live ? pool[row * rs + o] : T(0); };
-    T uf[4], vuf[4], vup[4], up[4];
-    flux_to_cons(qm, c.gm1, uf);
-    evars_from_flux(qm, lm[0], lm[1], c, vuf);
-    evars_from_flux(qp, lp[0], lp[1], c, vup);
-    flux_to_cons(qp, c.gm1, up);  // pre-BC neighbour state, as the hooks
-    T nhat[2] = {T(0), T(0)};
-    if (has_bc) {
-      nhat[0] = P(itab[1]);
-      nhat[1] = P(itab[1] + 1);
-      // inviscid ghosts (WallBC.inviscid), regions in order
-      for (int r = 0; r < nreg; ++r) {
-        const int* ri = itab + 4 + 8 * r;
-        if (!(P(ri[1]) > T(0.5))) continue;
-        if (ri[0] == kDirichlet) {
+    T uf[NF], vuf[NF];
+    flux_to_cons<T, DIM>(qm, c.gm1, uf);
+    evars_from_flux<T, DIM>(qm, lm[0], lm[1], c, vuf);
+    T flux[NF], dv[NF], pen[NF];
+    surface_node<T, DIM>(qm, lm, qp, lp, uf, vuf, n, sjv, isjv, pool, o, rs,
+                         live, itab, ftab, has_bc, dissipation, with_penalty,
+                         vp.re, c, flux, dv, pen);
 #pragma unroll
-          for (int f = 0; f < 4; ++f) qp[f] = P(ri[6] + f);
-          continue;
-        }
-        const T vn = qm[1] * nhat[0] + qm[2] * nhat[1];
-        qp[0] = qm[0];
-        qp[1] = qm[1] - (T(2) * vn) * nhat[0];
-        qp[2] = qm[2] - (T(2) * vn) * nhat[1];
-        qp[3] = qm[3];
-      }
-      // ghost states may change rho/beta: recompute the ghost logs
-      lp[0] = log(qp[0]);
-      lp[1] = log(qp[3]);
-    }
-    T qmv6[6] = {qm[0], qm[1], qm[2], qm[3], lm[0], lm[1]};
-    T qpv6[6] = {qp[0], qp[1], qp[2], qp[3], lp[0], lp[1]};
-    const EcPair2<T> pr = ec_pair2(qmv6, qpv6, c);
-    T f0[4], f1[4], flux[4];
-    ec_dir2(pr, 0, f0);
-    ec_dir2(pr, 1, f1);
-#pragma unroll
-    for (int f = 0; f < 4; ++f) flux[f] = f0[f] * n[0] + f1[f] * n[1];
-    if (dissipation) {
-      const T lfc = (T(0.25) * fmax(wavespeed_n(uf, n, isjv, c),
-                                    wavespeed_n(up, n, isjv, c))) * sjv;
-#pragma unroll
-      for (int f = 0; f < 4; ++f) flux[f] = flux[f] - lfc * (up[f] - uf[f]);
-    }
-    // entropy-variable ghosts (WallBC.entropy_vars), regions in order
-    for (int r = 0; r < nreg; ++r) {
-      const int* ri = itab + 4 + 8 * r;
-      const double* rf = ftab + 4 * r;
-      if (!(P(ri[1]) > T(0.5))) continue;
-      const int kind = ri[0];
-      if (kind == kDirichlet) {
-#pragma unroll
-        for (int f = 0; f < 4; ++f) vup[f] = P(ri[7] + f);
-      } else if (kind == kSlip) {
-        const T vn = vuf[1] * nhat[0] + vuf[2] * nhat[1];
-        vup[1] = vuf[1] - (T(2) * vn) * nhat[0];
-        vup[2] = vuf[2] - (T(2) * vn) * nhat[1];
-        vup[3] = vuf[3];
-      } else if (kind == kAdiabatic) {
-#pragma unroll
-        for (int d = 0; d < 2; ++d) {
-          const T uw = ri[2 + d] >= 0 ? P(ri[2 + d]) : T(rf[d]);
-          vup[1 + d] = T(2) * (uw * (-vuf[3])) - vuf[1 + d];
-        }
-        vup[3] = vuf[3];
-      } else {  // isothermal: v_mom = u_wall / theta, v4 = -1 / theta
-        const bool th_arr = ri[5] >= 0;
-        const T th = th_arr ? P(ri[5]) : T(rf[3]);
-#pragma unroll
-        for (int d = 0; d < 2; ++d) {
-          T two_uw_th;
-          if (ri[2 + d] < 0 && !th_arr) {
-            two_uw_th = T(2.0 * rf[d] / rf[3]);
-          } else {
-            const T num = ri[2 + d] >= 0 ? T(2) * P(ri[2 + d]) : T(2.0 * rf[d]);
-            two_uw_th = num / th;
-          }
-          vup[1 + d] = two_uw_th - vuf[1 + d];
-        }
-        vup[3] = (th_arr ? T(-2) / th : T(-2.0 / rf[3])) - vuf[3];
-      }
-    }
-    T dv[4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f) dv[f] = vup[f] - vuf[f];
-    T pen[4] = {T(0), T(0), T(0), T(0)};
-    if (with_penalty) {
-      const T tau = T(-1) / (T(vp.re) * vuf[3]);
-      pen[1] = tau * dv[1];
-      pen[2] = tau * dv[2];
-      pen[3] = tau * dv[3];
-      // boundary energy row (WallBC.penalty_energy_rows)
-      if (has_bc && itab[3] >= 0 && P(itab[2]) > T(0.5)) {
-        const T base = (T(0.5) * (vup[1] + vuf[1])) * dv[1] +
-                       (T(0.5) * (vup[2] + vuf[2])) * dv[2];
-        const T num = P(itab[3]) > T(0.5) ? base
-                                          : base + (T(0.5) * dv[3]) * dv[3];
-        pen[3] = ((-tau) * num) / vuf[3];
-      }
-    }
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
+    for (int f = 0; f < NF; ++f) {
       S(s_flux, f * nfq + fp) = flux[f];
       S(s_pen, f * nfq + fp) = pen[f];
       S(s_dv, f * nfq + fp) = dv[f];
@@ -342,152 +156,94 @@ __global__ void __launch_bounds__(kViscThreads)
         if (with_penalty) pen_out[f * rs + o] = pen[f];
       }
     }
-    S(s_nxj, fp) = n[0];
-    S(s_nxj, nfq + fp) = n[1];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) S(s_nxj, d * nfq + fp) = n[d];
   }
   __syncthreads();
 
   // ---- 2. quadrature stage: front product, gradients, sigma ----
   for (int i = w; i < nq; i += NW) {
-    T vq_[4] = {T(0), T(0), T(0), T(0)};
-    T vqd[2][4] = {{T(0), T(0), T(0), T(0)}, {T(0), T(0), T(0), T(0)}};
-    for (int j = 0; j < nq; ++j) {
-      const T a0 = s_front[i * nq + j];
-      const T a1 = s_front[(nq + i) * nq + j];
-      const T a2 = s_front[(2 * nq + i) * nq + j];
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const T vv = S(s_vu, f * nq + j);
-        vq_[f] += a0 * vv;
-        vqd[0][f] += a1 * vv;
-        vqd[1][f] += a2 * vv;
-      }
-    }
-    T surf[2][4] = {{T(0), T(0), T(0), T(0)}, {T(0), T(0), T(0), T(0)}};
-    for (int fp = 0; fp < nfq; ++fp) {
-      const T a = s_vqlift[i * nfq + fp];
-      const T nx0 = S(s_nxj, fp), nx1 = S(s_nxj, nfq + fp);
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        const T hdv = T(0.5) * S(s_dv, f * nfq + fp);
-        surf[0][f] += a * (hdv * nx0);
-        surf[1][f] += a * (hdv * nx1);
-      }
-    }
-    T grad[2][4];
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-#pragma unroll
-      for (int f = 0; f < 4; ++f)
-        grad[x][f] =
-            ((g[x] * vqd[0][f] + g[2 + x] * vqd[1][f]) + surf[x][f]) * ij;
-    T sig[2][4];
-    viscous_flux_2d(vq_, grad, vp, sig);
     const T wq = live ? wjq[(long long)i * K + k] : T(0);
-    T pr = T(0);
-#pragma unroll
-    for (int x = 0; x < 2; ++x)
-#pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        S(s_sig, (x * 4 + f) * nq + i) = sig[x][f];
-        pr += (wq * grad[x][f]) * sig[x][f];
-      }
-    S(s_prod, i) = pr;
-    if (live) {
-#pragma unroll
-      for (int f = 0; f < 4; ++f)
-        vuq_out[(long long)(f * nq + i) * K + k] = vq_[f];
-    }
+    visc_quad_node<T, DIM>(i, nq, nfq, S, s_vu, s_dv, s_nxj, s_sig, s_prod,
+                           op, g, ij, wq, vp, vuq_out, K, k, live);
   }
   __syncthreads();
   if (!live) return;  // no barrier below
 
-  // ---- 3. contracted traction t_f = sum_x (Ef sigma_x) nxj_x ----
+  // ---- 3. contracted traction ----
   for (int fp = w; fp < nfq; fp += NW) {
-    T s0[4] = {T(0), T(0), T(0), T(0)}, s1[4] = {T(0), T(0), T(0), T(0)};
-    for (int i = 0; i < nq; ++i) {
-      const T a = s_ef[fp * nq + i];
+    T t[NF];
+    visc_traction_node<T, DIM>(fp, nq, nfq, S, s_sig, s_nxj, op, t);
 #pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        s0[f] += a * S(s_sig, f * nq + i);
-        s1[f] += a * S(s_sig, (4 + f) * nq + i);
-      }
-    }
-    const T nx0 = S(s_nxj, fp), nx1 = S(s_nxj, nfq + fp);
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-      tf_out[(long long)(f * nfq + fp) * K + k] = s0[f] * nx0 + s1[f] * nx1;
+    for (int f = 0; f < NF; ++f)
+      tf_out[(long long)(f * nfq + fp) * K + k] = t[f];
   }
 
   // ---- 4. divergence, and with fold_tail the assembly ----
-  for (int n = w; n < np; n += NW) {
-    T dvg[4] = {T(0), T(0), T(0), T(0)};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      T t[4] = {T(0), T(0), T(0), T(0)};
-      for (int i = 0; i < nq; ++i) {
-        const T a = s_drpq[(r * np + n) * nq + i];
-#pragma unroll
-        for (int f = 0; f < 4; ++f)
-          t[f] += a * (g[r * 2] * S(s_sig, f * nq + i) +
-                       g[r * 2 + 1] * S(s_sig, (4 + f) * nq + i));
-      }
-#pragma unroll
-      for (int f = 0; f < 4; ++f) dvg[f] += t[f];
-    }
+  for (int nn = w; nn < np; nn += NW) {
+    T dvg[NF];
+    visc_div_node<T, DIM>(nn, np, nq, S, s_sig, op, g, dvg);
     if (!fold_tail) {
 #pragma unroll
-      for (int f = 0; f < 4; ++f)
-        div_out[(long long)(f * np + n) * K + k] = dvg[f];
+      for (int f = 0; f < NF; ++f)
+        div_out[(long long)(f * np + nn) * K + k] = dvg[f];
       continue;
     }
-    T lf[4] = {T(0), T(0), T(0), T(0)}, lp[4] = {T(0), T(0), T(0), T(0)};
-    for (int fp = 0; fp < nfq; ++fp) {
-      const T a = s_lift[n * nfq + fp];
+    T lf[NF], lpn[NF];
 #pragma unroll
-      for (int f = 0; f < 4; ++f) {
+    for (int f = 0; f < NF; ++f) lf[f] = lpn[f] = T(0);
+    for (int fp = 0; fp < nfq; ++fp) {
+      const T a = ldop<OPS_SMEM>(op.lift + nn * nfq + fp);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
         lf[f] += a * S(s_flux, f * nfq + fp);
-        lp[f] += a * S(s_pen, f * nfq + fp);
+        lpn[f] += a * S(s_pen, f * nfq + fp);
       }
     }
 #pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const long long o = (long long)(f * np + n) * K + k;
+    for (int f = 0; f < NF; ++f) {
+      const long long o = (long long)(f * np + nn) * K + k;
       T acc = -(phqf[o] + lf[f]) * ij + dvg[f] * ij;
-      if (with_penalty) acc = acc + lp[f];
+      if (with_penalty) acc = acc + lpn[f];
       div_out[o] = acc;
     }
   }
   if (w == 0) {
-    T s = T(0);
-    for (int i = 0; i < nq; ++i) s += S(s_prod, i);
-    prod_out[k] = s;
+    T sum = T(0);
+    for (int i = 0; i < nq; ++i) sum += S(s_prod, i);
+    prod_out[k] = sum;
   }
 }
 
-template <typename T>
+template <typename T, int DIM>
 int launch_surface_viscous(const void* const* in, void* const* out,
                            const int* itab, const double* ftab, long long K,
                            ViscSizes sz, double gamma, double mu, double lam,
                            double pr, double re, int dissipation,
                            int with_penalty, int fold_tail, int has_bc,
                            cudaStream_t stream) {
-  const int te = tile_elements<T>(sz.fixed(), sz.per_elem());
+  constexpr int NF = DIM + 2;
+  constexpr bool PROJ = kProj<DIM>, OPS_SMEM = kOpsSmem<DIM>;
+  const size_t nq = sz.nq, nfq = sz.nfq, np = sz.np;
+  // operators: front [(PROJ + DIM) Nq][Nq], vqlift [Nq][Nfq], ef [Nfq][Nq],
+  // drpq [DIM][Np][Nq], lift [Np][Nfq]
+  const size_t ops = (int(PROJ) + DIM) * nq * nq + nq * nfq + nfq * nq +
+                     DIM * np * nq + np * nfq;
+  // per element: vu [NF][Nq]; flux, pen, dv [NF][Nfq]; nxj [DIM][Nfq];
+  // sigma [DIM][NF][Nq]; prod [Nq]
+  const size_t per_elem = NF * nq + 3 * NF * nfq + DIM * nfq +
+                          DIM * NF * nq + nq;
+  const size_t fixed = OPS_SMEM ? ops : 0;
+  const int te = OPS_SMEM ? tile_elements<T>(fixed, per_elem)
+                          : tile_elements_capped<T>(0, per_elem,
+                                                    kTileBytesGlobalOps);
   if (te == 0) return -1;
-  const size_t smem = (sz.fixed() + sz.per_elem() * te) * sizeof(T);
-  auto kern = cns_surface_viscous_kernel<T>;
+  const size_t smem = (fixed + per_elem * te) * sizeof(T);
+  auto kern = cns_surface_viscous_kernel<T, DIM>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  // gamma- and mu-derived constants in double, rounded once to T
-  ViscParams<T> vp;
-  vp.mu = T(mu);
-  vp.lam = T(lam);
-  vp.l2m = T(2.0 * mu + lam);
-  vp.lpm = T(lam + mu);
-  vp.gmu = T(gamma * mu);
-  vp.pr = T(pr);
-  vp.re = T(re);
+  const ViscParams<T> vp = make_visc_params<T>(gamma, mu, lam, pr, re);
   auto I = [&](int i) { return static_cast<const T*>(in[i]); };
   auto O = [&](int i) { return static_cast<T*>(out[i]); };
   const dim3 block(te, kViscThreads / te);
@@ -500,32 +256,55 @@ int launch_surface_viscous(const void* const* in, void* const* out,
   return int(cudaGetLastError());
 }
 
+template <typename T>
+int dispatch_surface_viscous(int dim, const void* const* in,
+                             void* const* out, const int* itab,
+                             const double* ftab, long long K, ViscSizes sz,
+                             double gamma, double mu, double lam, double pr,
+                             double re, int dissipation, int with_penalty,
+                             int fold_tail, int has_bc, cudaStream_t st) {
+  // tris: the operators fit in shared memory beside the tile; collocated
+  // hexes: they stay in global memory (kOpsSmem)
+  if (dim == 2)
+    return launch_surface_viscous<T, 2>(
+        in, out, itab, ftab, K, sz, gamma, mu, lam, pr, re, dissipation,
+        with_penalty, fold_tail, has_bc, st);
+  if (dim == 3)
+    return launch_surface_viscous<T, 3>(
+        in, out, itab, ftab, K, sz, gamma, mu, lam, pr, re, dissipation,
+        with_penalty, fold_tail, has_bc, st);
+  return -3;
+}
+
 }  // namespace esdg
 
-// dtype: 0 = float32, 1 = float64.  in[17] = (vu_q, qm, qm_log, nbr, nxj,
-// sj, inv_sj, pool, geo, inv_j, wjq, front, vqlift, ef, drpq, ph_qf, lift);
-// pool may be any pointer when has_bc = 0, ph_qf and lift when
-// fold_tail = 0.  out[6] = (flux, pen, t_f, div or dq_part, prod, vuq);
-// flux and pen are not written with fold_tail, pen not without
-// with_penalty.  itab / ftab: the region table (device memory), read
-// only when has_bc.  Returns cudaGetLastError() after the launch, -1 when
-// the tile does not fit in shared memory, -2 for an unknown dtype.
+// dtype: 0 = float32, 1 = float64; dim 2 (proj, the tri form) or 3 (no
+// projection block, the collocated-hex form).  in[17] = (vu_q, qm, qm_log,
+// nbr, nxj, sj, inv_sj, pool, geo, inv_j, wjq, front, vqlift, ef, drpq,
+// ph_qf, lift); pool may be any pointer when has_bc = 0, ph_qf and lift
+// when fold_tail = 0.  out[6] = (flux, pen, t_f, div or dq_part, prod,
+// vuq); flux and pen are not written with fold_tail, pen not without
+// with_penalty, vuq not at dim 3.  itab / ftab: the region table (device
+// memory), read only when has_bc.  Returns cudaGetLastError() after the
+// launch, -1 when the tile does not fit in shared memory, -2 for an
+// unknown dtype, -3 for an unknown dim.
 extern "C" int esdg_cns_surface_viscous(
-    int dtype, const void* const* in, void* const* out, const void* itab,
-    const void* ftab, long long K, int np, int nq, int nfq, double gamma,
-    double mu, double lam, double pr, double re, int dissipation,
-    int with_penalty, int fold_tail, int has_bc, void* stream) {
+    int dtype, int dim, const void* const* in, void* const* out,
+    const void* itab, const void* ftab, long long K, int np, int nq, int nfq,
+    double gamma, double mu, double lam, double pr, double re,
+    int dissipation, int with_penalty, int fold_tail, int has_bc,
+    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const esdg::ViscSizes sz{np, nq, nfq};
   const int* it = static_cast<const int*>(itab);
   const double* ft = static_cast<const double*>(ftab);
   if (dtype == 0)
-    return esdg::launch_surface_viscous<float>(
-        in, out, it, ft, K, sz, gamma, mu, lam, pr, re, dissipation,
+    return esdg::dispatch_surface_viscous<float>(
+        dim, in, out, it, ft, K, sz, gamma, mu, lam, pr, re, dissipation,
         with_penalty, fold_tail, has_bc, st);
   if (dtype == 1)
-    return esdg::launch_surface_viscous<double>(
-        in, out, it, ft, K, sz, gamma, mu, lam, pr, re, dissipation,
+    return esdg::dispatch_surface_viscous<double>(
+        dim, in, out, it, ft, K, sz, gamma, mu, lam, pr, re, dissipation,
         with_penalty, fold_tail, has_bc, st);
   return -2;
 }

@@ -1,20 +1,26 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The kernels are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``:
+The kernels are compiled by ``nvcc`` for ``sm_90a``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o build/esdg_cns_tpu_torch/libesdg_kernels.so \
-         esdg_cns_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o build/esdg_cns_tpu_torch/<src>.o \
+         esdg_cns_tpu_torch/csrc/<src>.cu           # for each source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/esdg_cns_tpu_torch/libesdg_kernels.so build/esdg_cns_tpu_torch/*.o
 
 The build runs at first use, into ``build/esdg_cns_tpu_torch/`` at the
 repository root, and again whenever a source is newer than the library.
 ``--use_fast_math`` is deliberately absent: the entropy identities need
 IEEE log, exp, pow, division and sqrt.  Nothing here runs at import.
+``python -m esdg_cns_tpu_torch.kernels`` times the build with one nvcc at
+a time against all started together.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -29,8 +35,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "esdg_cns_tpu_torch"
 LIB_PATH = BUILD_DIR / "libesdg_kernels.so"
 LOG_PATH = BUILD_DIR / "build.log"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,25 +64,55 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _compile(lib: Path, jobs: int) -> BuildInfo:
+    """Compile csrc/*.cu, at most `jobs` nvcc processes at once, and link
+    the objects into `lib`; raises when nvcc fails."""
+    nvcc = _nvcc()
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    # per-process names: a concurrent build never sees half a file
+    objs = [lib.parent / f"{src.stem}.{os.getpid()}.o" for src in sources]
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.so")
+
+    def compile_one(src_obj):
+        src, obj = src_obj
+        return subprocess.run([nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(jobs) as pool:
+        results = list(pool.map(compile_one, zip(sources, objs)))
+    log = "\n".join(f"== {src.name}\n{res.stdout}"
+                    for src, res in zip(sources, results))
+    failed = [src.name for src, res in zip(sources, results)
+              if res.returncode != 0]
+    if not failed:
+        res = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        log += f"\n== link\n{res.stdout}{res.stderr}"
+        if res.returncode != 0:
+            failed.append("link")
+    seconds = time.perf_counter() - t0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           f"{log[-8000:]}")
+    os.replace(tmp, lib)   # atomic
+    return BuildInfo(lib, seconds, log)
+
+
 def build() -> BuildInfo:
-    """Compile csrc/*.cu into LIB_PATH unless it is newer than every source."""
+    """Compile csrc/*.cu into LIB_PATH unless it is newer than every
+    source: one nvcc per source, all started together, then one link."""
     newest = max(p.stat().st_mtime for p in _sources())
     if LIB_PATH.exists() and LIB_PATH.stat().st_mtime >= newest:
         log = LOG_PATH.read_text() if LOG_PATH.exists() else ""
         return BuildInfo(LIB_PATH, 0.0, log)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"libesdg_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log[-8000:]}")
-    LOG_PATH.write_text(log)
-    os.replace(tmp, LIB_PATH)   # atomic: a concurrent build never sees half a file
-    return BuildInfo(LIB_PATH, seconds, log)
+    info = _compile(LIB_PATH, len(list(CSRC_DIR.glob("*.cu"))))
+    LOG_PATH.write_text(info.log)
+    return info
 
 
 _P = ctypes.c_void_p
@@ -95,10 +132,17 @@ def library() -> ctypes.CDLL:
     lib.esdg_tri_modal_volume.argtypes = [_I] + [_P] * 9 + [
         ctypes.c_longlong, _I, _I, _I, ctypes.c_double, _P]
     lib.esdg_tri_modal_volume.restype = _I
-    lib.esdg_cns_surface_viscous.argtypes = [_I] + [_P] * 4 + [
+    lib.esdg_cns_surface_viscous.argtypes = [_I, _I] + [_P] * 4 + [
         ctypes.c_longlong, _I, _I, _I] + [ctypes.c_double] * 5 + [
         _I] * 4 + [_P]
     lib.esdg_cns_surface_viscous.restype = _I
+    lib.esdg_cns_viscous.argtypes = [_I, _I, _P, _P, ctypes.c_longlong, _I,
+                                     _I, _I] + [ctypes.c_double] * 4 + [_P]
+    lib.esdg_cns_viscous.restype = _I
+    lib.esdg_cns_surface.argtypes = [_I, _I] + [_P] * 4 + [
+        ctypes.c_longlong, _I, ctypes.c_double, ctypes.c_double] + [
+        _I] * 3 + [_P]
+    lib.esdg_cns_surface.restype = _I
     return lib
 
 
@@ -107,3 +151,21 @@ def pointer_array(tensors):
     None stands for an argument the kernel does not read."""
     return (_P * len(tensors))(*[None if t is None else t.data_ptr()
                                  for t in tensors])
+
+
+if __name__ == "__main__":
+    # python -m esdg_cns_tpu_torch.kernels: times fresh builds of csrc/ with
+    # one nvcc at a time (serial) and with all started together (the form
+    # build() uses), alternating, into a scratch folder under build/.
+    import json
+
+    out = BUILD_DIR / "build_timing"
+    out.mkdir(parents=True, exist_ok=True)
+    n_src = len(list(CSRC_DIR.glob("*.cu")))
+    try:
+        for jobs in (1, n_src, n_src, 1):
+            info = _compile(out / "libesdg_kernels.so", jobs)
+            print(json.dumps({"nvcc_at_once": jobs, "sources": n_src,
+                              "build_s": info.seconds}), flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)

@@ -116,6 +116,14 @@ def rebuild_surface_bc(pool, recipe, dim, nf):
     return bc, adiab
 
 
+def recipe_rows(recipe, nf):
+    """The pool rows a recipe reads: the static rows, then 2 Nf rows for
+    each Dirichlet region (its flux-variable and entropy-variable
+    states), which the caller concatenates after the static pool."""
+    n_dir = sum(spec[0] == "dirichlet" for spec in recipe[3])
+    return recipe[4] + 2 * nf * n_dir
+
+
 class DiscShim:
     """The BC hooks read only disc.dim."""
 

@@ -1,7 +1,8 @@
 """Canonical problem setups.
 
 Port of ``esdg_cns_tpu.presets``: ``euler_hex_3d`` (the periodic Euler
-main path) and ``lid_driven_cavity`` (the 2D CNS cavity).  States, masks
+main path), ``lid_driven_cavity`` (the 2D CNS cavity on tris) and
+``lid_driven_cavity_3d`` (the 3D CNS cavity on hexes).  States, masks
 and parameters are built with the same NumPy and IEEE operations as the
 JAX presets, so both packages start from identical bits in f64.
 """
@@ -85,6 +86,45 @@ def lid_driven_cavity(n: int = 3, k1d: int = 16, *,
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     q0 = primitive_to_conservative(
         f(np.ones(sh)), f(np.zeros((2, *sh))),
+        f(np.full(sh, 1.0 / (ma * ma * gamma))), gamma,
+    )
+    params = dict(mu=1.0 / re, pr=0.71, re=re, gamma=gamma, ma=ma)
+    return disc, q0, bc, params
+
+
+def lid_driven_cavity_3d(n: int = 2, k1d: int = 8, *,
+                         bctype: str = "isothermal", ma: float = 0.3,
+                         re: float = 100.0, gamma: float = 1.4,
+                         dtype: torch.dtype, device):
+    """3D CNS lid-driven cavity on [-1,1]^3 with Gauss-collocated hex
+    elements (no periodic axis, so the exchange is the map_p gather): the
+    lid z = 1 moves at u = (1, 0, 0), every other face is a wall at rest;
+    all walls of kind ``bctype``.
+
+    Returns (disc, q0, bc, params) with q0 [5, Np, K] the fluid at rest
+    (rho = 1, p = 1/(Ma^2 gamma)) and params {mu, pr, re, gamma, ma}.
+    """
+    vx, vy, vz, etov = uniform_hex_mesh(k1d)
+    disc = build_discretization(ref_hex(n), (vx, vy, vz), etov, dtype=dtype,
+                                device=device)
+
+    tol = 1e-10
+    theta = (1.0 / (ma * ma * gamma * (gamma - 1.0))
+             if bctype == "isothermal" else None)
+    lid = region_from_indicator(
+        disc, lambda x, y, z: np.abs(z - 1) < tol, bctype,
+        u_wall=(1.0, 0.0, 0.0), theta=theta,
+    )
+    walls = region_from_indicator(
+        disc, lambda x, y, z: np.abs(z - 1) >= tol, bctype,
+        u_wall=(0.0, 0.0, 0.0), theta=theta,
+    )
+    bc = make_wall_bc(disc, [lid, walls])
+
+    sh = (disc.np_, disc.num_elements)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    q0 = primitive_to_conservative(
+        f(np.ones(sh)), f(np.zeros((3, *sh))),
         f(np.full(sh, 1.0 / (ma * ma * gamma))), gamma,
     )
     params = dict(mu=1.0 / re, pr=0.71, re=re, gamma=gamma, ma=ma)

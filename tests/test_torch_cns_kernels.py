@@ -247,17 +247,29 @@ def test_fused_cavity_rhs_matches_jax_and_twin(case):
 
 
 def test_fused_rhs_refuses_what_it_does_not_port():
+    """Every path of make_cns_rhs_affine is ported; what it refuses is
+    what the JAX one refuses, with the same ValueErrors."""
+    from esdg_cns_tpu_torch.presets import euler_hex_3d
+
     td, _, tbc, p = lid_driven_cavity(n=2, k1d=2, dtype=F64, device="cpu")
     kw = dict(mu=p["mu"], bc=tbc)
+    bad = [dict(surface_impl="merged_tail", compute_rhstest=True),
+           dict(surface_impl="merged", viscous_impl="xla"),
+           dict(volume_impl="fused_hex"),                # tris
+           dict(volume_impl="xla", viscous_impl="fused"),
+           dict(volume_impl="xla", surface_impl="merged"),
+           dict(rhstest_mode="f64", viscous_impl="fused"),
+           dict(surface_impl="bogus"), dict(viscous_impl="bogus")]
+    for flags in bad:
+        with pytest.raises(ValueError):
+            make_cns_rhs_affine(td, **flags, **kw)
+    curved, _ = euler_hex_3d(n=2, k1d=2, curved=True, dtype=F64,
+                             device="cpu")
     with pytest.raises(ValueError):
-        make_cns_rhs_affine(td, surface_impl="merged_tail",
-                            compute_rhstest=True, **kw)
-    with pytest.raises(ValueError):
-        make_cns_rhs_affine(td, surface_impl="merged", viscous_impl="xla",
-                            **kw)
-    with pytest.raises(ValueError):
-        make_cns_rhs_affine(td, volume_impl="fused_hex", **kw)
-    for bad in (dict(volume_impl="xla"), dict(surface_impl="xla"),
-                dict(surface_impl="fused")):
-        with pytest.raises(NotImplementedError):
-            make_cns_rhs_affine(td, **bad, **kw)
+        make_cns_rhs_affine(curved, mu=0.01, volume_impl="fused_hex")
+    # the paths that once raised NotImplementedError now build and run
+    q = lid_driven_cavity(n=2, k1d=2, dtype=F64, device="cpu")[1] * 1.01
+    for flags in (dict(volume_impl="xla"), dict(surface_impl="xla"),
+                  dict(surface_impl="fused")):
+        dq, _ = make_cns_rhs_affine(td, **flags, **kw)(q)
+        assert bool(torch.isfinite(dq).all()), flags

@@ -15,12 +15,23 @@ import numpy as np
 import pytest
 import torch
 
-from esdg_cns_tpu_torch.cavity_cases import CAVITY_BCS, cavity_case, k4_inputs
+from esdg_cns_tpu_torch.cavity_cases import (
+    CAVITY_BCS,
+    cavity_case,
+    k4_inputs,
+    k7_inputs,
+    k8_inputs,
+)
+from esdg_cns_tpu_torch.ops import cns_surface as cs
 from esdg_cns_tpu_torch.ops import fused_volume as fv
 from esdg_cns_tpu_torch.ops import modal_volume as mv
 from esdg_cns_tpu_torch.ops import surface_viscous as sv
 from esdg_cns_tpu_torch.physics import primitive_to_conservative
-from esdg_cns_tpu_torch.presets import euler_hex_3d, lid_driven_cavity
+from esdg_cns_tpu_torch.presets import (
+    euler_hex_3d,
+    lid_driven_cavity,
+    lid_driven_cavity_3d,
+)
 from esdg_cns_tpu_torch.solvers import (
     make_cns_rhs,
     make_cns_rhs_affine,
@@ -225,6 +236,90 @@ def test_fused_cavity_rhs_matches_twin_and_is_entropy_stable(cuda):
     assert float(aux["rhstest"]) < 1e-10
 
 
+def _match(kern, plain, dtype, case):
+    assert len(kern) == len(plain)
+    for a, b in zip(kern, plain):
+        if b is None:
+            assert a is None
+        elif b.abs().max() > 0:
+            assert _rel(a, b) <= TOL[dtype], case
+        else:
+            assert a.abs().max() == 0
+
+
+# ---- the split CNS stages, K8 (surface) and K7 (viscous), in 2D and 3D,
+# and K4 at dim=3; k1d=3 gives K=27 on hexes, a ragged last tile ----
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", CAVITY_BCS)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_split_kernels_match_plain(cuda, dtype, case, dim):
+    disc, q, bc, p = cavity_case(case, 3, 5 if dim == 2 else 3, dtype, cuda,
+                                 dim=dim)
+    args, kw = k8_inputs(disc, q, bc, p)
+    before = cs.cns_surface.launches
+    plain = cs.cns_surface_plain(*args, **kw)
+    kern = cs.cns_surface(*args, **kw)
+    torch.cuda.synchronize()
+    assert cs.cns_surface.launches == before + 1
+    _match(kern, plain, dtype, case)
+    args, kw = k7_inputs(disc, q, bc, p)
+    before = sv.cns_viscous.launches
+    plain = sv.cns_viscous_plain(*args, **kw)
+    kern = sv.cns_viscous(*args, **kw)
+    torch.cuda.synchronize()
+    assert sv.cns_viscous.launches == before + 1
+    _match(kern, plain, dtype, case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", CAVITY_BCS)
+@pytest.mark.parametrize("fold_tail", [False, True])
+def test_surface_viscous_3d_kernel_matches_plain(cuda, dtype, case,
+                                                 fold_tail):
+    disc, q, bc, p = cavity_case(case, 3, 3, dtype, cuda, dim=3)
+    args, tail, kw = k4_inputs(disc, q, bc, p)
+    assert not kw["proj"]
+    tail = tail if fold_tail else ()
+    before = sv.cns_surface_viscous.launches
+    plain = sv.cns_surface_viscous_plain(*args, *tail, fold_tail=fold_tail,
+                                         **kw)
+    kern = sv.cns_surface_viscous(*args, *tail, fold_tail=fold_tail, **kw)
+    torch.cuda.synchronize()
+    assert sv.cns_surface_viscous.launches == before + 1
+    _match(kern, plain, dtype, case)
+
+
+@pytest.mark.gpu
+def test_fused_cavity_3d_rhs_matches_twin_and_is_entropy_stable(cuda):
+    disc, q, bc, p = cavity_case("isothermal", 3, 3, torch.float64, cuda,
+                                 dim=3)
+    flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
+                 inviscid_dissipation=True, viscous_dissipation=True)
+    a, _ = make_cns_rhs(disc, **flags)(q)
+    for surface in ("merged_tail", "fused"):
+        b, _ = make_cns_rhs_affine(disc, volume_impl="fused_hex",
+                                   surface_impl=surface,
+                                   compute_rhstest=False, **flags)(q)
+        assert _rel(b, a) <= 1e-11, surface
+    disc, q0, bc, p = lid_driven_cavity_3d(n=3, k1d=3, bctype="adiabatic",
+                                           dtype=torch.float64, device=cuda)
+    bc.regions[0].u_wall = (0.0, 0.0, 0.0)      # the lid at rest
+    rng = np.random.default_rng(1)
+    q = q0 + 1e-3 * torch.as_tensor(
+        rng.standard_normal(tuple(q0.shape)), device=cuda) * torch.tensor(
+        [1.0, 0.1, 0.1, 0.1, 1.0], dtype=torch.float64,
+        device=cuda)[:, None, None]
+    _, aux = make_cns_rhs_affine(disc, mu=p["mu"], pr=p["pr"], re=p["re"],
+                                 bc=bc, inviscid_dissipation=True,
+                                 viscous_dissipation=True,
+                                 volume_impl="fused_hex",
+                                 surface_impl="merged")(q)
+    assert float(aux["rhstest_visc"]) >= 0.0
+    assert float(aux["rhstest"]) < 1e-10
+
+
 @pytest.mark.gpu
 def test_cavity_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
     disc, q, bc, p = cavity_case("isothermal", 2, 3, torch.float32, cuda)
@@ -236,5 +331,18 @@ def test_cavity_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
                               disc.q_skew, disc.vq, disc.vhp, disc.ph, GAMMA,
                               nq=disc.nq)
     args, _, kw = k4_inputs(disc, q, bc, p)
+    # a pool short of the rows its recipe reads
     with pytest.raises(ValueError):
         sv.cns_surface_viscous(*args[:7], args[7][:-1], *args[8:], **kw)
+    # the tri form without the projection block is no path's
+    with pytest.raises(NotImplementedError):
+        sv.cns_surface_viscous(*args[:11], args[11][disc.nq:], *args[12:],
+                               **dict(kw, proj=False))
+    args7, kw7 = k7_inputs(disc, q, bc, p)
+    with pytest.raises(NotImplementedError):
+        sv.cns_viscous(*args7, **dict(kw7, contract=False))
+    with pytest.raises(TypeError):
+        sv.cns_viscous(args7[0].double(), *args7[1:], **kw7)
+    args8, kw8 = k8_inputs(disc, q, bc, p)
+    with pytest.raises(ValueError):
+        cs.cns_surface(*args8[:5], args8[5][:1], *args8[6:], **kw8)

@@ -41,6 +41,17 @@ a, _ = make_cns_rhs_affine(disc, **flags)(q0 * 1.01)
 b, _ = make_cns_rhs(disc, **flags)(q0 * 1.01)
 rel = float((a - b).abs().max() / b.abs().max())
 assert rel < 1e-11, rel
+c, _ = make_cns_rhs_affine(disc, surface_impl="fused", **flags)(q0 * 1.01)
+rel = float((c - b).abs().max() / b.abs().max())
+assert rel < 1e-11, rel
+from esdg_cns_tpu_torch.presets import lid_driven_cavity_3d
+disc, q0, bc, p = lid_driven_cavity_3d(n=2, k1d=2, dtype=torch.float64,
+                                       device="cpu")
+flags = dict(flags, mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc)
+a, _ = make_cns_rhs_affine(disc, volume_impl="fused_hex", **flags)(q0 * 1.01)
+b, _ = make_cns_rhs(disc, **flags)(q0 * 1.01)
+rel = float((a - b).abs().max() / b.abs().max())
+assert rel < 1e-11, rel
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "esdg_cns_tpu" or m.startswith("esdg_cns_tpu.")]
 assert loaded == ["jax"], loaded
@@ -56,7 +67,8 @@ def _env():
 
 
 def test_port_runs_with_jax_blocked():
-    """(g) importing every module, one Euler and one cavity RHS, with no
+    """(g) importing every module, one Euler RHS and the cavity RHS on
+    the 2D merged and split paths and on the 3D fused_hex path, with no
     JAX; no module of the JAX package is loaded."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        env=_env(), capture_output=True, text=True,
