@@ -7,8 +7,9 @@ Phases (each raises on failure; nothing is caught):
   1. device: the card's name and power limit (nvidia-smi) and the TF32
      switches, which stay off;
   2. build: nvcc builds esdg_cns_tpu_torch/csrc/*.cu for sm_90a; prints the
-     build time and ptxas' register/spill report of the N=3 hex kernels and
-     of the tri kernels;
+     build time and ptxas' register/spill report of the N=3 hex kernels
+     (K1 diag, general and curved; K2; row 10), of K1 and row 10 curved
+     at N=4 in f64, of the tri and CNS kernels and of K5;
   3. Euler kernels: K1 (euler_volume) and K2 (euler_surface) against their
      plain PyTorch versions on the card, at the main-path shapes (N=3,
      k1d=32, f32, axis-aligned) and at N=3, k1d=8 in f64 (axis-aligned and
@@ -25,7 +26,9 @@ Phases (each raises on failure; nothing is caught):
      rate in DOF*RK-stage/s (5 Np K stages / s, bench.py's definition) over
      1200 stages, the twin's rate over fewer stages, and per-kernel device
      times beside the plain versions; then torch.profiler over 20 stages:
-     device time by kernel and the device's busy share;
+     device time by kernel and the device's busy share; then the general
+     contraction on the same uniform mesh (axis_aligned=False) timed
+     beside the diag path, stage and kernels (the diag-vs-general delta);
   6. cavity kernels: K3 (euler_modal_volume) and K4 (cns_surface_viscous,
      both fold_tail forms) against their plain versions on seeded moving
      states (esdg_cns_tpu_torch.cavity_cases: velocity of standard
@@ -64,7 +67,32 @@ Phases (each raises on failure; nothing is caught):
      (K3 or K1, then K8, then K7) against merged_tail on one RHS (f32, and
      f64 at k1d=8 / k1d=4), 20 steps with every counter at 0 before (K8
      and K7 launched once per stage), the rate over 1200 stages, and K8
-     and K7 beside their plain versions.
+     and K7 beside their plain versions;
+ 13. curved Euler kernels: K1 on the curved metric (K1c) and K2 on curved
+     normals against their plain versions on presets.euler_hex_3d(3, 32,
+     curved=True) in f32 (the path's full width), at k1d=8 in f64 and at
+     k1d=3 (K=27, a ragged tile) in both types;
+ 14. curved Euler path: euler_hex_3d(3, 32, curved=True, f32) ->
+     make_euler_rhs_fused -> lsrk45 for 20 steps with every counter at 0
+     before; checks K1 and K2 launched once per stage, the state is finite,
+     agrees with the twin make_euler_rhs(flux_diff_impl='lines') and
+     conserves sum(wJq q); free stream on the warped mesh (f64 k1d=8, a
+     constant state); f64 k1d=4 rhstest with dissipation off; then the
+     twin with flux_diff_impl='lines_pallas' (row 10) for 20 steps with
+     the counters at 0 before: row 10 launched once per stage, the state
+     agrees with the 'lines' twin; its rate;
+ 15. curved Euler timing, as phase 5: the rate over 1200 stages, K1c and
+     K2 device times beside their plain versions, the profiler's split;
+ 16. flux-differencing kernels against their plain versions: row 10 on
+     the curved and the uniform hex (N=3, k1d=32 f32; k1d=8 and k1d=3
+     f64), K5 on the 2D cavity's shapes (tri N=3, k1d=128 f32), on a tri
+     mesh curved by presets.square_warp and on a curved hex N=3 at k1d=4
+     (f32, f64; tri k1d=5 and hex k1d=3 ragged), K3 on the curved tri mesh
+     (K3c: k1d=128 f32, k1d=8 f64, k1d=5 ragged); device times of row 10,
+     K5 and K3c at the full-width shapes;
+ 17. the cavity twin with flux_diff_impl='pallas' (K5; bench.py's flags)
+     for 20 steps with the counters at 0 before: K5 launched once per
+     stage, the state agrees with the 'xla' twin of phase 7; its rate.
 A kernel's time is its device time: the timed calls are queued behind a
 sleeping kernel, so the host's dispatch does not enter it.
 The line before the last is {"kernels": [...]} with each kernel's bound
@@ -75,6 +103,7 @@ result: there is no CPU path.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -102,6 +131,10 @@ TWIN_TOL_F32 = 1e-5
 CONSERVATION_TOL_F32 = 1e-8
 # f64 entropy balance with dissipation off (k1d=4)
 RHSTEST_TOL_F64 = 1e-10
+# free stream on the warped hex mesh, f64 k1d=8: max |dq| of a constant
+# state, every term of which cancels through the curl-form metric identity
+# (about 1e-13 at k1d=2 on the CPU; the residual grows like 1/h)
+FREESTREAM_TOL_F64 = 1e-10
 # the split path (K8 then K7) against the merged kernel (K4) on one RHS,
 # max |split - merged| / max |merged|: the same arithmetic in two kernels
 SPLIT_TOL = {"float32": 1e-5, "float64": 1e-12}
@@ -227,25 +260,65 @@ def bound(n_bytes, n_ops):
 # they are given: an FMA is two operations, a division, log, exp, pow or
 # sqrt one (so the bound is a floor); dense products as written; each
 # two-point flux pair counted ONCE (the triangular form, the least work).
-# Pair costs: the 3D EC pair with one metric direction (diag) 74, the 2D
-# EC pair with both directions, the metric contraction and both rows'
-# accumulation 85.
-def ops_k1(n1):
+# Pair costs: the 3D EC pair with one metric direction (diag) 74; the
+# general 3-term contraction adds the two other directional fluxes (12)
+# and two more metric terms per field (20): 106; a curved metric adds the
+# pairwise average of the three terms (6): 112.  The 2D EC pair with both
+# directions, the metric contraction and both rows' accumulation 85; a
+# curved metric adds the average of the four operator-metric terms (8).
+PAIR_3D = {"diag": 74, "general": 106, "curved": 112}
+
+
+def line_pairs(n1):
+    """Pairs of the line loop per element: the triangular vol-vol pairs of
+    each line and its two vol-face couplings, over 3 directions."""
+    return 3 * n1 * n1 * (n1 * (n1 - 1) // 2 + 2 * n1)
+
+
+def ops_k1(n1, form="diag"):
     nq, nfq = n1 ** 3, 6 * n1 * n1
-    pairs = 3 * n1 * n1 * (n1 * (n1 - 1) // 2 + 2 * n1)
-    return (27 * nq + 2 * nfq * nq * 5 + 40 * nfq + 74 * pairs + 5 * nfq
-            + 2 * nq * nfq * 5 + 15 * nq)
+    return (27 * nq + 2 * nfq * nq * 5 + 40 * nfq
+            + PAIR_3D[form] * line_pairs(n1) + 5 * nfq + 2 * nq * nfq * 5
+            + 15 * nq)
 
 
-def ops_k2(n1):
+def ops_k2(n1, diag=True):
+    """The general form adds the two other directional fluxes (12), two
+    more normal terms per field (20) and the 3-component normal velocity
+    of both sides (8) at every face node."""
     nq, nfq = n1 ** 3, 6 * n1 * n1
-    return 120 * nfq + 2 * nq * nfq * 5 + 15 * nq
+    return (120 if diag else 160) * nfq + 2 * nq * nfq * 5 + 15 * nq
 
 
-def ops_k3(np_, nq, nh):
-    pairs = nq * (nq - 1) // 2 + nq * (nh - nq)
+def ops_lines(n1, curved):
+    """Row 10: the line loop alone (general contraction) on given flux
+    variables, and the doubling of 2 QF."""
+    nh = n1 ** 3 + 6 * n1 * n1
+    return (PAIR_3D["curved" if curved else "general"] * line_pairs(n1)
+            + 5 * nh)
+
+
+def tri_pairs(nq, nh):
+    return nq * (nq - 1) // 2 + nq * (nh - nq)
+
+
+def ops_k3(np_, nq, nh, curved=False):
     return (2 * nq * np_ * 4 + 20 * nq + 2 * nh * nq * 4 + 40 * nh
-            + 85 * pairs + 2 * np_ * nh * 4 + 4 * np_)
+            + (93 if curved else 85) * tri_pairs(nq, nh)
+            + 2 * np_ * nh * 4 + 4 * np_)
+
+
+def ops_dense_2d(nq, nh, curved):
+    """K5 in 2D: K3's pair cost on the triangular pair count, and the
+    doubling of 2 QF."""
+    return (93 if curved else 85) * tri_pairs(nq, nh) + 4 * nh
+
+
+def line_metric_bytes(n1, k, itemsize):
+    """The curved metric values the line loop needs: rows 3d..3d+2 at the
+    N+1 volume points and the two face points of each line (864 of the
+    1440 per element at N=3)."""
+    return 3 * n1 * n1 * 3 * (n1 + 2) * k * itemsize
 
 
 def ops_face(dim, rebuild_local):
@@ -288,6 +361,56 @@ def ops_k4(dim, np_, nq, nfq, proj):
             + fold)
 
 
+def ptxas_report(log):
+    """ptxas' register/spill lines of the kernels worth watching, from the
+    build log: the N=3 hex kernels (K1 diag, general and curved; K2; row
+    10), K1 and row 10 curved at N=4 in f64 (the most registers), the tri
+    and CNS kernels and K5."""
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+            continue
+        if not entry or not ("registers" in line or "spill" in line):
+            continue
+        report = line.split("ptxas info    :")[-1].strip()
+        name = entry.split("'")[1] if "'" in entry else entry
+        kind = next((k for k in ("hex_volume", "hex_surface", "hex_lines",
+                                 "tri_modal_volume", "dense_fd",
+                                 "cns_surface_viscous", "cns_surface",
+                                 "cns_viscous") if k + "_kernel" in name),
+                    None)
+        if kind is None:
+            continue
+        form = name.split("kernel", 1)[1]
+        prec = "f64" if form.startswith("Id") else "f32"
+        flags = [b == "1" for b in re.findall(r"Lb([01])E", form)]
+        if kind.startswith("hex_"):
+            if kind == "hex_volume":
+                variant = ("diag" if flags[0] else
+                           "curved" if flags[1] else "general")
+            elif kind == "hex_surface":
+                variant = "diag" if flags[0] else "general"
+            else:
+                variant = "curved" if flags[0] else "affine"
+            if "Li4E" in form:
+                out.append(f"ptxas N=3 {kind} {prec} {variant}: {report}")
+            elif "Li5E" in form and prec == "f64" and variant == "curved":
+                out.append(f"ptxas N=4 {kind} {prec} {variant}: {report}")
+        elif kind == "dense_fd":
+            dim = re.search(r"Li([123])E", form).group(1)
+            out.append(f"ptxas dense_fd {dim}D {prec} "
+                       f"{'curved' if flags[0] else 'affine'}, operators in "
+                       f"{'global' if flags[1] else 'shared'} memory: "
+                       f"{report}")
+        else:
+            dim = "" if kind == "tri_modal_volume" else (
+                " 3D" if "Li3E" in form else " 2D")
+            variant = " curved" if flags and flags[0] else ""
+            out.append(f"ptxas {kind}{dim} {prec}{variant}: {report}")
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -300,27 +423,34 @@ def main():
 
     from esdg_cns_tpu_torch import kernels
     from esdg_cns_tpu_torch.ops import cns_surface as cs
+    from esdg_cns_tpu_torch.ops import dense_fd as df
     from esdg_cns_tpu_torch.ops import fused_volume as fv
     from esdg_cns_tpu_torch.ops import modal_volume as mv
     from esdg_cns_tpu_torch.ops import surface_viscous as sv
+    from esdg_cns_tpu_torch.ops import tensor_product_fd as tp
     from esdg_cns_tpu_torch.presets import (euler_hex_3d, lid_driven_cavity,
                                             lid_driven_cavity_3d)
     from esdg_cns_tpu_torch.solvers import (make_cns_rhs, make_cns_rhs_affine,
                                             make_euler_rhs,
                                             make_euler_rhs_fused)
+    from esdg_cns_tpu_torch.physics import primitive_to_conservative
     from esdg_cns_tpu_torch.timestepping import lsrk45
     # the cavity BC shapes, moving states and the kernels' arguments,
     # shared with tests/test_torch_gpu.py
     from esdg_cns_tpu_torch.cavity_cases import (CAVITY_BCS, VELOCITY,
-                                                 cavity_case, k4_inputs,
-                                                 k7_inputs, k8_inputs)
+                                                 cavity_case, fd_inputs,
+                                                 k4_inputs, k7_inputs,
+                                                 k8_inputs, warped_tri_case)
 
     wrappers = {"euler_volume": fv.euler_volume,
                 "euler_surface": fv.euler_surface,
                 "euler_modal_volume": mv.euler_modal_volume,
                 "cns_surface_viscous": sv.cns_surface_viscous,
                 "cns_surface": cs.cns_surface,
-                "cns_viscous": sv.cns_viscous}
+                "cns_viscous": sv.cns_viscous,
+                "flux_differencing_lines_fused":
+                    tp.flux_differencing_lines_fused,
+                "flux_differencing_dense": df.flux_differencing_dense}
 
     def zero_counts():
         for w in wrappers.values():
@@ -344,30 +474,8 @@ def main():
     info = kernels.build()
     kernels.library()
     print(f"build: {info.seconds:.1f} s -> {info.path.name}")
-    entry = None
-    for line in info.log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line
-            continue
-        if not entry or not ("registers" in line or "spill" in line):
-            continue
-        report = line.split("ptxas info    :")[-1].strip()
-        name = entry.split("'")[1] if "'" in entry else entry
-        if "Li4E" in name:
-            kind = "volume" if "volume" in name else "surface"
-            variant = ("f64" if "Id" in name.split("kernel")[1][:3]
-                       else "f32") + (" diag" if "Lb1E" in name
-                                      else " general")
-            print(f"ptxas N=3 {kind} {variant}: {report}")
-        elif "tri_modal_volume" in name or "cns_" in name:
-            kind = next(k for k in ("tri_modal_volume", "cns_surface_viscous",
-                                    "cns_surface", "cns_viscous")
-                        if k in name)
-            form = name.split("kernel")[1]
-            prec = "f64" if form.startswith("Id") else "f32"
-            dim = "" if kind == "tri_modal_volume" else (
-                " 3D" if "Li3E" in form else " 2D")
-            print(f"ptxas {kind}{dim} {prec}: {report}")
+    for line in ptxas_report(info.log):
+        print(line)
 
     gamma = 1.4
 
@@ -384,6 +492,27 @@ def main():
         inv_jac = rng.uniform(0.5, 2.0, (disc.nq, k))
         t = lambda a: torch.as_tensor(a, dtype=disc.wq.dtype, device=dev)
         return t(geo), t(nxj), t(sj), t(1.0 / sj), t(inv_jac)
+
+    def random_state(disc, seed):
+        """Seeded moving state: density and pressure 2 + 0.1 U(0, 1), all
+        three velocity components 0.3 N(0, 1), so no velocity term of the
+        kernels multiplies zeros (the preset's field moves along y only)."""
+        rng = np.random.default_rng(seed)
+        sh = (disc.np_, disc.num_elements)
+        t = lambda a: torch.as_tensor(a, dtype=disc.wq.dtype, device=dev)
+        return primitive_to_conservative(
+            t(2 + 0.1 * rng.random(sh)),
+            t(0.3 * rng.standard_normal((3, *sh))),
+            t(2 + 0.1 * rng.random(sh)))
+
+    def curved_geom(disc):
+        """The general kernels' geometry of a curved mesh: the metric at
+        every hybridized point, per-point normals, sj, 1/sj and 1/J."""
+        return (disc.geo, torch.stack(disc.nxj), disc.sj, disc.inv_sj,
+                disc.inv_jac)
+
+    def dtype_name(t):
+        return str(t.dtype).replace("torch.", "")
 
     def check_kernels(disc, q, diag, tag, geom=None):
         dtype = str(q.dtype).replace("torch.", "")
@@ -463,16 +592,19 @@ def main():
         raise AssertionError("fused path disagrees with the plain twin")
     del qt
 
-    w = disc.wjq.double()[None]
-    before = (w * q0.double()).sum(dim=(1, 2))
-    after = (w * qf.double()).sum(dim=(1, 2))
-    mass = float(before[0])
-    drift = [abs(float(a - b)) / mass for a, b in zip(after, before)]
-    print("conservation |d sum(wJq q_f)| / sum(wJq rho): "
-          + ", ".join(f"{d:.2e}" for d in drift)
-          + f" (tol {CONSERVATION_TOL_F32:.0e})")
-    if not max(drift) <= CONSERVATION_TOL_F32:
-        raise AssertionError("conservation violated")
+    def check_conservation(disc, q0, qf, tag):
+        w = disc.wjq.double()[None]
+        before = (w * q0.double()).sum(dim=(1, 2))
+        after = (w * qf.double()).sum(dim=(1, 2))
+        mass = float(before[0])
+        drift = [abs(float(a - b)) / mass for a, b in zip(after, before)]
+        print(f"{tag}conservation |d sum(wJq q_f)| / sum(wJq rho): "
+              + ", ".join(f"{d:.2e}" for d in drift)
+              + f" (tol {CONSERVATION_TOL_F32:.0e})")
+        if not max(drift) <= CONSERVATION_TOL_F32:
+            raise AssertionError("conservation violated")
+
+    check_conservation(disc, q0, qf, "")
 
     disc4, q4 = euler_hex_3d(n=N, k1d=4, dtype=torch.float64, device=dev)
     _, aux = make_euler_rhs_fused(disc4, dissipation=False,
@@ -513,6 +645,29 @@ def main():
           f"{stage_ms:.4f} ms")
     print_profile(card, "Euler path", device_profile(
         lambda: lsrk45(rhs, q0, DT, 4), 20))
+    # the diag-vs-general delta: the general contraction on the same
+    # uniform mesh, whose off-axis metric terms are exact zeros
+    grhs = make_euler_rhs_fused(disc, dissipation=True, axis_aligned=False)
+    e_g, _ = rel_err(grhs(q0)[0], rhs(q0)[0])
+    gstep_ms = cuda_ms(lambda: lsrk45(grhs, q0, DT, TIMED_STEPS), 1)
+    gstage_ms = gstep_ms / (5 * TIMED_STEPS)
+    gvkw = dict(vkw, diag=False)
+    gsargs = (*sargs[:2], torch.stack(disc.nxj), disc.sj, disc.inv_sj,
+              disc.inv_jac, *sargs[6:])
+    gskw = dict(skw, diag=False)
+    k1g_ms = dev_ms(lambda: fv.euler_volume(*vargs, **gvkw), 20)
+    k2g_ms = dev_ms(lambda: fv.euler_surface(*gsargs, **gskw), 20)
+    print(f"[{card}] diag vs general on the uniform k1d={K1D} mesh "
+          f"(axis_aligned=False; one RHS agrees rel {e_g:.3e}): general "
+          f"{dof * 5 * TIMED_STEPS / (gstep_ms / 1e3):.4e} DOF*RK-stage/s, "
+          f"{gstage_ms:.4f} ms/stage against diag {stage_ms:.4f} "
+          f"({gstage_ms / stage_ms - 1:+.1%}); K1 general {k1g_ms:.4f} ms "
+          f"against diag {k1_ms:.4f} ({k1g_ms / k1_ms - 1:+.1%}); K2 general "
+          f"{k2g_ms:.4f} ms against diag {k2_ms:.4f} "
+          f"({k2g_ms / k2_ms - 1:+.1%}), device times")
+    if not e_g <= TOL["float32"]:
+        raise AssertionError("the general contraction disagrees with diag")
+    del grhs, gsargs
     k_out, k_tr, k_s = kouts
     ne = disc.num_elements
     # bytes the diag variants read and write: q, geo, Ef, LIFT -> ph_qf,
@@ -521,6 +676,7 @@ def main():
                      ops_k1(N + 1) * ne)
     k2_bound = bound(nbytes(*sargs[:3], sargs[5], disc.lift, sargs[7], k_s),
                      ops_k2(N + 1) * ne)
+    udisc = disc      # the uniform mesh, for row 10 (phase 16)
     del rhs, twin, qf, vargs, sargs, kouts, k_out, k_tr, k_s, disc, q0
     torch.cuda.empty_cache()
 
@@ -644,7 +800,6 @@ def main():
 
     cdrift = abs(mass(cdisc, cqf) - mass(cdisc, cq0)) / mass(cdisc, cq0)
     cdrift_twin = abs(mass(cdisc, cqt) - mass(cdisc, cq0)) / mass(cdisc, cq0)
-    del cqt
     d64, q64, bc64, p64 = lid_driven_cavity(CAV_N, CAV_K1D,
                                             dtype=torch.float64, device=dev)
     zero_counts()
@@ -942,6 +1097,265 @@ def main():
                                     proj) * ne))
         del split, merged, sqf, o8, o7
 
+
+    # ---- 13. curved Euler kernels against their plain versions ----
+    vdisc, vq0 = euler_hex_3d(n=N, k1d=K1D, curved=True,
+                              dtype=torch.float32, device=dev)
+    if vdisc.geo.shape[1] != vdisc.nh or fv.detect_axis_aligned(vdisc):
+        raise AssertionError("the curved mesh must carry a per-point metric")
+    vq = random_state(vdisc, 5)
+    cv_abs_v, cv_abs_s, cvargs, cvkw, csargs, cskw, ckouts = check_kernels(
+        vdisc, vq, False, f"curved N=3 k1d={K1D} f32 (curved path)",
+        curved_geom(vdisc))
+    for k1d, dt in ((8, torch.float64), (3, torch.float32),
+                    (3, torch.float64)):
+        d_, _ = euler_hex_3d(n=N, k1d=k1d, curved=True, dtype=dt, device=dev)
+        check_kernels(d_, random_state(d_, 5), False,
+                      f"curved N=3 k1d={k1d} {str(dt)[6:]}"
+                      + (" (K=27, ragged tile)" if k1d == 3 else ""),
+                      curved_geom(d_))
+    del d_
+
+    # ---- 14. the curved Euler path ----
+    vrhs = make_euler_rhs_fused(vdisc, dissipation=True)
+    zero_counts()
+    vqf, _ = lsrk45(vrhs, vq0, DT, STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    curved_launches = {k: counts[k] for k in ("euler_volume",
+                                              "euler_surface")}
+    print(f"curved path: {STEPS} LSRK45 steps ({5 * STEPS} stages), "
+          f"launches {curved_launches}")
+    if any(v != 5 * STEPS for v in curved_launches.values()):
+        raise AssertionError(f"expected {5 * STEPS} launches of K1 and K2")
+    if vqf.dtype != torch.float32 or not bool(torch.isfinite(vqf).all()):
+        raise AssertionError("curved-path state not finite f32")
+    vtwin = make_euler_rhs(vdisc, dissipation=True, flux_diff_impl="lines",
+                           compute_rhstest=False)
+    vqt, _ = lsrk45(vtwin, vq0, DT, STEPS)
+    e_vtwin, _ = rel_err(vqf, vqt)
+    print(f"curved fused vs plain twin after {STEPS} steps: rel "
+          f"{e_vtwin:.3e} (tol {TWIN_TOL_F32:.0e})")
+    if not e_vtwin <= TWIN_TOL_F32:
+        raise AssertionError("curved path disagrees with the plain twin")
+    check_conservation(vdisc, vq0, vqf, "curved path ")
+
+    def constant_state(disc):
+        sh = (disc.np_, disc.num_elements)
+        full = lambda v: torch.full(sh, v, dtype=disc.wq.dtype, device=dev)
+        return primitive_to_conservative(
+            full(1.3), torch.stack([full(0.2), full(-0.1), full(0.4)]),
+            full(0.9))
+
+    fs32 = float(vrhs(constant_state(vdisc))[0].abs().max())
+    d8, _ = euler_hex_3d(n=N, k1d=8, curved=True, dtype=torch.float64,
+                         device=dev)
+    fs64 = float(make_euler_rhs_fused(d8, dissipation=True)(
+        constant_state(d8))[0].abs().max())
+    print(f"free stream on the warped mesh, max |dq| of a constant state: "
+          f"f64 k1d=8 {fs64:.3e} (tol {FREESTREAM_TOL_F64:.0e}); f32 "
+          f"k1d={K1D} {fs32:.3e} (printed)")
+    if not fs64 <= FREESTREAM_TOL_F64:
+        raise AssertionError("free stream not preserved on the curved mesh")
+    d4, _ = euler_hex_3d(n=N, k1d=4, curved=True, dtype=torch.float64,
+                         device=dev)
+    zero_counts()
+    _, aux = make_euler_rhs_fused(d4, dissipation=False,
+                                  compute_rhstest=True)(random_state(d4, 7))
+    rt = float(aux["rhstest"])
+    print(f"f64 curved k1d=4 kernel path (launches {read_counts()}), "
+          f"dissipation off: rhstest {rt:.3e} (tol {RHSTEST_TOL_F64:.0e})")
+    if not abs(rt) <= RHSTEST_TOL_F64:
+        raise AssertionError("entropy conservation violated (curved)")
+    del d8, d4
+
+    # the twin with the line kernel (row 10): flux_diff_impl='lines_pallas'
+    ltwin = make_euler_rhs(vdisc, dissipation=True,
+                           flux_diff_impl="lines_pallas",
+                           compute_rhstest=False)
+    zero_counts()
+    vql, _ = lsrk45(ltwin, vq0, DT, STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    lines_launches = counts["flux_differencing_lines_fused"]
+    e_lines, _ = rel_err(vql, vqt)
+    print(f"curved twin flux_diff_impl='lines_pallas': {STEPS} steps, "
+          f"launches {counts}; vs 'lines' rel {e_lines:.3e} (tol "
+          f"{TWIN_TOL_F32:.0e})")
+    if lines_launches != 5 * STEPS:
+        raise AssertionError(f"expected {5 * STEPS} launches of row 10")
+    if not e_lines <= TWIN_TOL_F32:
+        raise AssertionError("the 'lines_pallas' twin disagrees")
+    vdof = 5 * vdisc.np_ * vdisc.num_elements
+    for label, r in (("'lines_pallas' (row 10)", ltwin), ("'lines'", vtwin)):
+        ms = cuda_ms(lambda: lsrk45(r, vq0, DT, TWIN_TIMED_STEPS), 1)
+        print(f"[{card}] curved twin {label}: "
+              f"{vdof * 5 * TWIN_TIMED_STEPS / (ms / 1e3):.4e} "
+              f"DOF*RK-stage/s, {ms / (5 * TWIN_TIMED_STEPS):.4f} ms/stage "
+              f"over {5 * TWIN_TIMED_STEPS} stages, median of {REPEATS}")
+    del vqt, vql, vtwin, ltwin
+
+    # ---- 15. curved Euler timing ----
+    vstep_ms = cuda_ms(lambda: lsrk45(vrhs, vq0, DT, TIMED_STEPS), 1)
+    vstage_ms = vstep_ms / (5 * TIMED_STEPS)
+    print(f"[{card}] curved path (K1c+exchange+K2, LSRK45): "
+          f"{vdof * 5 * TIMED_STEPS / (vstep_ms / 1e3):.4e} DOF*RK-stage/s, "
+          f"{vstage_ms:.4f} ms/stage over {5 * TIMED_STEPS} stages, median "
+          f"of {REPEATS}")
+    k1c_ms = dev_ms(lambda: fv.euler_volume(*cvargs, **cvkw), 20)
+    k1c_plain_ms = dev_ms(lambda: fv.euler_volume_plain(*cvargs, **cvkw), 2)
+    k2c_ms = dev_ms(lambda: fv.euler_surface(*csargs, **cskw), 20)
+    k2c_plain_ms = dev_ms(lambda: fv.euler_surface_plain(*csargs, **cskw),
+                          2)
+    vgather_ms = dev_ms(lambda: vdisc.gather_traces(csargs[0]), 20)
+    for name, ms, pms in (("K1c euler_volume (curved)", k1c_ms,
+                           k1c_plain_ms),
+                          ("K2 euler_surface (curved normals)", k2c_ms,
+                           k2c_plain_ms)):
+        print(f"[{card}] {name} N=3 k1d={K1D} f32: kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms ({pms / ms:.1f}x), device times")
+    print(f"[{card}] curved stage: K1c {k1c_ms:.4f} + exchange "
+          f"{vgather_ms:.4f} + K2 {k2c_ms:.4f} = "
+          f"{k1c_ms + vgather_ms + k2c_ms:.4f} ms of {vstage_ms:.4f} ms")
+    print_profile(card, "curved Euler path", device_profile(
+        lambda: lsrk45(vrhs, vq0, DT, 4), 20))
+    vne = vdisc.num_elements
+    k1c_bound = bound(nbytes(cvargs[0], cvargs[2], cvargs[3], *ckouts[:2])
+                      + line_metric_bytes(N + 1, vne, 4),
+                      ops_k1(N + 1, "curved") * vne)
+    k2c_bound = bound(nbytes(*csargs[:8], ckouts[2]),
+                      ops_k2(N + 1, diag=False) * vne)
+    del vrhs, ckouts, csargs
+
+    # ---- 16. the flux-differencing kernels against their plain versions --
+    def fd_case(kind, disc, q, tag):
+        """Row 10 ('lines'), K5 ('dense') or K3c ('modal') on (disc, q)
+        against the plain version; returns (max abs error, the call, the
+        plain call, inputs, output)."""
+        tol = TOL[dtype_name(q)]
+        if kind == "modal":
+            args = (q, disc.geo, torch.stack(disc.q_skew), disc.vq,
+                    disc.vhp, disc.ph, gamma)
+            call = lambda: mv.euler_modal_volume(*args, nq=disc.nq)
+            plain = lambda: mv.euler_modal_volume_plain(*args, nq=disc.nq)
+            name, names = "K3c euler_modal_volume", ("ph_qf", "traces",
+                                                     "vu_q")
+        else:
+            qh, qlog = fd_inputs(disc, q)
+            if kind == "lines":
+                args = (qh, qlog, disc.geo, gamma)
+                kw = dict(elem_type="hex", line_ops=disc.line_ops,
+                          nq=disc.nq)
+                call = lambda: (tp.flux_differencing_lines_fused(*args,
+                                                                 **kw),)
+                plain = lambda: (tp.flux_differencing_lines(*args, **kw),)
+                name = "row 10 flux_differencing_lines_fused"
+            else:
+                args = (qh, qlog, torch.stack(disc.q_skew), disc.geo, gamma)
+                call = lambda: (df.flux_differencing_dense(*args,
+                                                           nq=disc.nq),)
+                plain = lambda: (df.flux_differencing_dense_plain(
+                    *args, nq=disc.nq),)
+                name = "K5 flux_differencing_dense"
+            names = ("2QF",)
+        out = call()
+        err = held(name, tag, out, plain(), tol, names)
+        return err, call, plain, args, out
+
+    fd_rows = {}
+    # row 10 at the curved path's full width, then the uniform mesh
+    fd_rows["lines"] = fd_case("lines", vdisc, vq, f"curved N=3 k1d={K1D} "
+                               "f32 (the 'lines_pallas' twin's shapes)")
+    fd_case("lines", udisc, random_state(udisc, 6),
+            f"uniform N=3 k1d={K1D} f32")
+    for curved, k1d in ((True, 8), (False, 8), (True, 3), (False, 3)):
+        d_, _ = euler_hex_3d(n=N, k1d=k1d, curved=curved,
+                             dtype=torch.float64, device=dev)
+        fd_case("lines", d_, random_state(d_, 6),
+                f"{'curved' if curved else 'uniform'} N=3 k1d={k1d} f64"
+                + (" (K=27, ragged)" if k1d == 3 else ""))
+    del udisc
+    # K5 at the cavity twin's shapes, on the curved tri and hex meshes
+    fd_rows["dense"] = fd_case("dense", cdisc, cq, f"tri N=3 k1d={CAV_K1D} "
+                               "f32 affine (the 'pallas' cavity twin's "
+                               "shapes)")
+    wdisc, wq = warped_tri_case(CAV_N, CAV_K1D, torch.float32, dev)
+    if wdisc.geo.shape[1] != wdisc.nh:
+        raise AssertionError("the warped tri mesh must be curved")
+    fd_case("dense", wdisc, wq, f"curved tri N=3 k1d={CAV_K1D} f32")
+    for dt in (torch.float32, torch.float64):
+        d_, _ = euler_hex_3d(n=N, k1d=4, curved=True, dtype=dt, device=dev)
+        fd_case("dense", d_, random_state(d_, 8),
+                f"curved hex N=3 k1d=4 {str(dt)[6:]} (Nh=160, operators "
+                "from global memory)")
+    d_, q_, _, _ = cavity_case("isothermal", CAV_N, 8, torch.float64, dev)
+    fd_case("dense", d_, q_, "tri N=3 k1d=8 f64 affine")
+    for k1d in (8, 5):
+        d_, q_ = warped_tri_case(CAV_N, k1d, torch.float64, dev)
+        fd_case("dense", d_, q_, f"curved tri N=3 k1d={k1d} f64"
+                + (" (K=50, ragged)" if k1d == 5 else ""))
+    d_, _ = euler_hex_3d(n=N, k1d=3, curved=True, dtype=torch.float64,
+                         device=dev)
+    fd_case("dense", d_, random_state(d_, 8), "curved hex N=3 k1d=3 f64 "
+            "(K=27, ragged)")
+    # K3c on the curved tri mesh
+    fd_rows["modal"] = fd_case("modal", wdisc, wq,
+                               f"curved tri N=3 k1d={CAV_K1D} f32")
+    for k1d in (8, 5):
+        d_, q_ = warped_tri_case(CAV_N, k1d, torch.float64, dev)
+        fd_case("modal", d_, q_, f"curved tri N=3 k1d={k1d} f64"
+                + (" (K=50, ragged)" if k1d == 5 else ""))
+    del d_, q_
+    fd_times = kernel_times("at the shapes above (full width, f32)", [
+        (f"{label}", fd_rows[kind][1], fd_rows[kind][2])
+        for kind, label in (("lines", "row 10 flux_differencing_lines_fused"
+                                      f" (curved N=3 k1d={K1D})"),
+                            ("dense", "K5 flux_differencing_dense (tri N=3 "
+                                      f"k1d={CAV_K1D})"),
+                            ("modal", "K3c euler_modal_volume (curved tri "
+                                      f"N=3 k1d={CAV_K1D})"))])
+    r10_ms, r10_plain_ms = fd_times[next(k for k in fd_times
+                                         if k.startswith("row 10"))]
+    k5_ms, k5_plain_ms = fd_times[next(k for k in fd_times
+                                       if k.startswith("K5"))]
+    k3c_ms, k3c_plain_ms = fd_times[next(k for k in fd_times
+                                         if k.startswith("K3c"))]
+    _, _, _, largs, lout = fd_rows["lines"]
+    r10_bound = bound(nbytes(*largs[:2], *lout)
+                      + line_metric_bytes(N + 1, vne, 4),
+                      ops_lines(N + 1, True) * vne)
+    _, _, _, dargs, dout = fd_rows["dense"]
+    k5_bound = bound(nbytes(*dargs[:4], *dout),
+                     ops_dense_2d(cdisc.nq, cdisc.nh, False) * cne)
+    _, _, _, margs, mout = fd_rows["modal"]
+    k3c_bound = bound(nbytes(*margs[:6], *mout),
+                      ops_k3(wdisc.np_, wdisc.nq, wdisc.nh, True)
+                      * wdisc.num_elements)
+    del vdisc, vq0, vq, vqf, wdisc, wq
+
+    # ---- 17. the cavity twin with the dense kernel (K5) ----
+    ptwin = make_cns_rhs(cdisc, flux_diff_impl="pallas", **flags)
+    zero_counts()
+    cqp, _ = lsrk45(ptwin, cq0, CAV_DT, CAV_STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    dense_launches = counts["flux_differencing_dense"]
+    e_dense, _ = rel_err(cqp, cqt)
+    print(f"cavity twin flux_diff_impl='pallas': {CAV_STEPS} steps at "
+          f"dt={CAV_DT:g}, launches {counts}; vs 'xla' rel {e_dense:.3e} "
+          f"(tol {TWIN_TOL_F32:.0e})")
+    if dense_launches != 5 * CAV_STEPS:
+        raise AssertionError(f"expected {5 * CAV_STEPS} launches of K5")
+    if not e_dense <= TWIN_TOL_F32:
+        raise AssertionError("the 'pallas' cavity twin disagrees")
+    ms = cuda_ms(lambda: lsrk45(ptwin, cq0, CAV_TIMED_DT, TWIN_TIMED_STEPS),
+                 1)
+    print(f"[{card}] cavity twin 'pallas' (K5): "
+          f"{cdof * 5 * TWIN_TIMED_STEPS / (ms / 1e3):.4e} DOF*RK-stage/s, "
+          f"{ms / (5 * TWIN_TIMED_STEPS):.4f} ms/stage over "
+          f"{5 * TWIN_TIMED_STEPS} stages, median of {REPEATS}")
+    del ptwin, cqp, cqt
+
     hex_split = split_rows["hex"]
     rows = [
         ("euler_volume", "hex_volume.cu", "pallas_volume.py:87",
@@ -963,6 +1377,23 @@ def main():
         ("cns_viscous", "cns_viscous.cu", "pallas_viscous.py:131",
          hex_split["launches"]["cns_viscous"], herrs["k7"],
          *hex_split["times"]["K7 cns_viscous"], hex_split["k7_bound"]),
+        ("euler_volume_curved", "hex_volume.cu", "pallas_volume.py:87",
+         curved_launches["euler_volume"], cv_abs_v, k1c_ms, k1c_plain_ms,
+         k1c_bound),
+        ("euler_surface_curved", "hex_surface.cu", "pallas_volume.py:1146",
+         curved_launches["euler_surface"], cv_abs_s, k2c_ms, k2c_plain_ms,
+         k2c_bound),
+        # K3c: no path of either package reaches the curved modal volume
+        # (make_cns_rhs_affine needs an affine mesh), so no path launches
+        # it; it is held against its plain version in phase 16
+        ("euler_modal_volume_curved", "tri_modal_volume.cu",
+         "pallas_modal_volume.py:45", 0, fd_rows["modal"][0], k3c_ms,
+         k3c_plain_ms, k3c_bound),
+        ("flux_differencing_dense", "dense_fd.cu", "pallas_fd.py:250",
+         dense_launches, fd_rows["dense"][0], k5_ms, k5_plain_ms, k5_bound),
+        ("flux_differencing_lines_fused", "hex_lines.cu",
+         "tensor_product_fd.py:506", lines_launches, fd_rows["lines"][0],
+         r10_ms, r10_plain_ms, r10_bound),
     ]
     for name, *_, ms, _, (bms, by) in rows:
         print(f"[{card}] {name}: bound {bms:.4f} ms by {by}, kernel "

@@ -3,17 +3,20 @@
 The same entropy-stable DG semi-discretization as the JAX package
 (``esdg_cns_tpu``, which stays the reference), written with PyTorch on
 tensors and with hand-written CUDA kernels for NVIDIA Hopper (sm_90a) in
-place of the Pallas TPU kernels.  Two paths are ported:
+place of the Pallas TPU kernels.  The ported paths:
 
-  * 3D periodic compressible Euler on a Gauss-collocated hex mesh
-    (``presets.euler_hex_3d`` -> ``solvers.make_euler_rhs_fused`` over the
-    CUDA kernels K1/K2 -> ``timestepping.lsrk45``), with the plain
-    PyTorch twin ``solvers.make_euler_rhs``;
-  * the 2D compressible Navier-Stokes lid-driven cavity on triangles
-    (``presets.lid_driven_cavity`` -> ``solvers.make_cns_rhs_affine`` over
-    the CUDA kernels K3/K4 -> ``timestepping.lsrk45``), with the plain
-    twin ``solvers.make_cns_rhs`` and entropy-stable wall BCs
-    (``solvers.boundary``).
+  * 3D periodic compressible Euler on a Gauss-collocated hex mesh, affine
+    or curved (``presets.euler_hex_3d(curved=...)`` ->
+    ``solvers.make_euler_rhs_fused`` over the CUDA kernels K1/K2 ->
+    ``timestepping.lsrk45``), with the plain PyTorch twin
+    ``solvers.make_euler_rhs``, whose ``flux_diff_impl`` 'pallas' and
+    'lines_pallas' run the flux-differencing kernels K5 and row 10;
+  * the compressible Navier-Stokes lid-driven cavity on triangles (2D)
+    and on Gauss-collocated hexes (3D) (``presets.lid_driven_cavity``,
+    ``lid_driven_cavity_3d`` -> ``solvers.make_cns_rhs_affine`` over the
+    CUDA kernels K3 or K1, then K4 or K8 + K7 -> ``timestepping.lsrk45``),
+    with the plain twin ``solvers.make_cns_rhs`` and entropy-stable wall
+    BCs (``solvers.boundary``).
 
 Host-side setup (``basis``, ``mesh``, ``core.ref_elem``) is the port's own
 NumPy copy of the JAX package's; nothing here imports ``jax`` or any

@@ -10,6 +10,10 @@ cases, in 2D (the tri cavity) and in 3D (the hex cavity).  Every state is
 a moving fluid (``moving_state``): the cavity presets start at rest,
 where every velocity-dependent term of the kernels multiplies zeros and
 a kernel wrong in those terms would still agree.
+
+``warped_tri_case`` and ``fd_inputs`` build the inputs of the
+flux-differencing kernels (K3 and K5 on a curved tri mesh, K5 and row 10
+on hexes) the same way for both.
 """
 
 from __future__ import annotations
@@ -23,7 +27,10 @@ from .ops.cns_surface_bc import prepare_surface_bc
 from .ops.fused_volume import detect_axis_aligned, euler_volume_plain
 from .ops.modal_volume import euler_modal_volume_plain
 from .physics import pfun, primitive_to_conservative, v_ufun
-from .presets import lid_driven_cavity, lid_driven_cavity_3d
+from .core import build_discretization, ref_tri
+from .mesh.generators import uniform_tri_mesh
+from .presets import lid_driven_cavity, lid_driven_cavity_3d, square_warp
+from .solvers.euler import entropy_projection, flux_variables
 from .solvers._shared import (adiabatic_mask, entropy_vars_from_flux,
                               flux_to_conservative)
 from .solvers.boundary import Region, make_wall_bc
@@ -53,6 +60,28 @@ def moving_state(q0, rng, *, velocity=VELOCITY, gamma=GAMMA):
     vel = q0[1:nf - 1] / q0[0] + velocity * n[1:nf - 1]
     p = pfun(q0, gamma) * (1.0 + 0.01 * n[nf - 1])
     return primitive_to_conservative(rho, vel, p, gamma)
+
+
+def warped_tri_case(n, k1d, dtype, device, seed=3):
+    """(disc, q): the cavity's tri mesh of [-1, 1]^2 (2 k1d^2 elements,
+    no BC) curved by ``presets.square_warp`` (geo [4, Nh, K]), and the
+    cavity's rest state made a moving fluid."""
+    vx, vy, etov = uniform_tri_mesh(k1d)
+    disc = build_discretization(ref_tri(n), (vx, vy), etov,
+                                curved_map=square_warp, dtype=dtype,
+                                device=device)
+    sh = (disc.np_, disc.num_elements)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    q0 = primitive_to_conservative(f(np.ones(sh)), f(np.zeros((2, *sh))),
+                                   f(np.full(sh, 1.0 / (0.3 * 0.3 * GAMMA))))
+    return disc, moving_state(q0, np.random.default_rng(seed))
+
+
+def fd_inputs(disc, q, gamma=GAMMA):
+    """(qh [Nf, Nh, K], qlog [2, Nh, K]) of the state q: the entropy-
+    projected flux variables and their logs, as the plain RHS hands them
+    to the volume flux differencing."""
+    return flux_variables(entropy_projection(disc, q, gamma)[1], gamma)
 
 
 def cavity_case(case, n, k1d, dtype, device, seed=3, dim=2):

@@ -132,48 +132,6 @@ __device__ __forceinline__ T wavespeed_n(const T* u, const T* n, T isj,
   return fabs(un) + sqrt((c.gamma * p) / u[0]);
 }
 
-// The EC flux pair in DIM dimensions; one point is held as
-// T v[DIM + 4] = (rho, u_1..DIM, beta, log rho, log beta).
-template <typename T, int DIM>
-struct EcPairN {
-  T rholog, pa, e_plus_p, velavg[DIM];
-};
-
-template <typename T, int DIM>
-__device__ __forceinline__ EcPairN<T, DIM> ec_pair_n(const T* L, const T* R,
-                                                     const Consts<T>& c) {
-  EcPairN<T, DIM> p;
-  T num, den;
-  logmean_parts(L[0], R[0], L[DIM + 2], R[DIM + 2], c.cutoff, num, den);
-  p.rholog = num / den;
-  // beta's logarithmic mean enters only through its reciprocal
-  logmean_parts(L[DIM + 1], R[DIM + 1], L[DIM + 3], R[DIM + 3], c.cutoff,
-                num, den);
-  const T inv_betalog = den / num;
-  const T rhoavg = T(0.5) * (L[0] + R[0]);
-#pragma unroll
-  for (int j = 0; j < DIM; ++j) p.velavg[j] = T(0.5) * (L[1 + j] + R[1 + j]);
-  T vel_dot = L[1] * R[1];
-#pragma unroll
-  for (int j = 1; j < DIM; ++j) vel_dot = vel_dot + L[1 + j] * R[1 + j];
-  p.pa = rhoavg / (L[DIM + 1] + R[DIM + 1]);
-  p.e_plus_p = (p.rholog * inv_betalog) * c.half_over_gm1 + p.pa +
-               T(0.5) * p.rholog * vel_dot;
-  return p;
-}
-
-// EC flux along direction d: f = (f_rho, f_m1..DIM, f_E)
-template <typename T, int DIM>
-__device__ __forceinline__ void ec_dir_n(const EcPairN<T, DIM>& p, int d,
-                                         T* f) {
-  const T f1 = p.rholog * p.velavg[d];
-  f[0] = f1;
-#pragma unroll
-  for (int j = 0; j < DIM; ++j)
-    f[1 + j] = (j == d) ? f1 * p.velavg[j] + p.pa : f1 * p.velavg[j];
-  f[DIM + 1] = p.e_plus_p * p.velavg[d];
-}
-
 // The face stage at one face node of one element.  qm, lm: local flux
 // variables and logs; qp, lp: the exchanged neighbour's (overwritten by
 // the ghosts); uf, vuf: the local conservative and entropy traces; n: the

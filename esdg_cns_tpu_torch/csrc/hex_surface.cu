@@ -95,18 +95,18 @@ __global__ void __launch_bounds__(kSurfaceTE * kSurfaceNW)
       sjv = fabs(n[0]);  // = sqrt(nxj_d^2), exact
       isjv = T(1) / sjv;
     }
-    const EcPair<T> p = ec_pair(qm, qp, c);
+    const EcPairN<T, 3> p = ec_pair_n<T, 3>(qm, qp, c);
     T flux[5];
     if (DIAG) {
       T f[5];
-      ec_dir(p, d, f);
+      ec_dir_n<T, 3>(p, d, f);
 #pragma unroll
       for (int i = 0; i < 5; ++i) flux[i] = f[i] * n[0];
     } else {
       T f0[5], f1[5], f2[5];
-      ec_dir(p, 0, f0);
-      ec_dir(p, 1, f1);
-      ec_dir(p, 2, f2);
+      ec_dir_n<T, 3>(p, 0, f0);
+      ec_dir_n<T, 3>(p, 1, f1);
+      ec_dir_n<T, 3>(p, 2, f2);
 #pragma unroll
       for (int i = 0; i < 5; ++i)
         flux[i] = f0[i] * n[0] + f1[i] * n[1] + f2[i] * n[2];

@@ -10,9 +10,11 @@
 //   4. flux variables (rho, u, beta) and (log rho, log beta) at all
 //      Nh = Nq + Nfq points, staged in shared memory;
 //   5. skew line-sparse EC flux differencing along the three directions
-//      with the cvol/cface tables of ops/tensor_product_fd._hex_line_coeffs:
-//      one metric term per direction on axis-aligned meshes (DIAG), the
-//      3-term affine contraction otherwise;
+//      (line_fd.cuh) with the cvol/cface tables of
+//      ops/tensor_product_fd._hex_line_coeffs: one metric term per
+//      direction on axis-aligned meshes (DIAG), the 3-term affine
+//      contraction otherwise, and on curved meshes (CURVED, geo [9, Nh, K])
+//      the 3-term contraction with pairwise-averaged metrics;
 //   6. the face-row reduction (skew negatives of the vol-face couplings);
 //   7. out = 2 (1/wq) acc_vol + 2 LIFT ((1/wf) face_rows), LIFT in-kernel.
 // Outputs: ph_qf [5, Nq, K] and traces [7, Nfq, K] =
@@ -24,61 +26,29 @@
 // vol-face) pairs), each with five IEEE divisions and a select-guarded
 // logarithmic mean, plus 2 x 30720 multiply-adds of the dense Ef and
 // LIFT products.  The HBM stream is only q, the metric and the two
-// outputs (in f32: 42 MB in, 42 MB + 88 MB out, about 0.17 GB per RHS),
-// so the kernel is bound by arithmetic and division/transcendental
-// throughput, and by shared-memory bandwidth in the two dense products
-// — not by HBM.
+// outputs (in f32: 42 MB in, 42 MB + 88 MB out, about 0.17 GB per RHS;
+// the curved metric is 189 MB, of which the kernel reads 113 MB), so the
+// kernel is bound by arithmetic and division/transcendental throughput,
+// and by shared-memory bandwidth in the two dense products — not by HBM.
 //
 // Simple design: a block owns TE elements (16, or 8 where the f64 tile
 // would not fit) and 256 threads; threadIdx.x runs over the elements, so
 // every load and store of the K-last [., ., K] arrays coalesces.  The
 // element's Nh-point flux variables (7 x Nh values) and a [5 x Nq]
-// accumulator live in shared memory (184 KB per block in f64 at N=3).
-// In the flux differencing one thread owns one node line of one
-// direction: it loads the line's N+1 volume points and its two face
-// points, evaluates every vol-vol pair ONCE (a < a', the triangular form
-// of the reference: node a' receives the negated contribution, exact
-// because S1 is skew and the flux symmetric) and every vol-face pair,
-// keeps the line's sums in registers and adds them to the shared
-// accumulator; a face point belongs to exactly one line, so its face row
-// is written without atomics, over the face values it was computed from.
-// The three directions are separated by barriers.  Lanes past K compute
-// on the quiescent state (rho=1, m=0, E=1) and store nothing.
-// Summation order differs from the reference (FMA contraction, sums in
-// another order): f32 agrees with the plain version to ~1e-6 of max|out|,
-// f64 to ~1e-14.
+// accumulator live in shared memory (184 KB per block in f64 at N=3); the
+// line loop (line_fd.cuh) keeps each line in registers, the curved metric
+// too.  Lanes past K compute on the quiescent state (rho=1, m=0, E=1) and
+// store nothing.  Summation order differs from the reference (FMA
+// contraction, sums in another order): f32 agrees with the plain version
+// to ~1e-6 of max|out|, f64 to ~1e-14.
 //
 // Making it fast (register tiling of the lines, the sparse Ef, fewer
 // divisions, wider occupancy) is later work.
-#include "common.cuh"
+#include "line_fd.cuh"
 
 namespace esdg {
 
-constexpr int kVolumeThreads = 256;
-constexpr size_t kMaxSmem = 232448;  // 227 KB usable per block on sm_90
-
-// shared memory of a tile of te elements: 7 x Nh flux variables and a
-// 5 x Nq accumulator per element
-template <typename T, int N1>
-constexpr size_t volume_smem_bytes(int te) {
-  return size_t(7 * (N1 * N1 * N1 + 6 * N1 * N1) + 5 * N1 * N1 * N1) * te *
-         sizeof(T);
-}
-
-template <typename T, int N1>
-struct VolumeTile {
-  static constexpr int NQ = N1 * N1 * N1;
-  static constexpr int NFP = N1 * N1;
-  static constexpr int NFQ = 6 * NFP;
-  static constexpr int NH = NQ + NFQ;
-  static constexpr int TE =
-      volume_smem_bytes<T, N1>(16) <= kMaxSmem ? 16 : 8;
-  static constexpr int NW = kVolumeThreads / TE;
-  static constexpr size_t SMEM = volume_smem_bytes<T, N1>(TE);
-  static_assert(SMEM <= kMaxSmem, "volume tile exceeds shared memory");
-};
-
-template <typename T, int N1, bool DIAG>
+template <typename T, int N1, bool DIAG, bool CURVED>
 __global__ void __launch_bounds__(kVolumeThreads)
     hex_volume_kernel(const T* __restrict__ q, const T* __restrict__ geo,
                       const T* __restrict__ cvol, const T* __restrict__ cface,
@@ -161,83 +131,7 @@ __global__ void __launch_bounds__(kVolumeThreads)
   __syncthreads();
 
   // ---- 4.-6. line-sparse skew EC flux differencing ----
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    T g[3] = {T(1), T(0), T(0)};
-    if (live) {
-      if (DIAG) {
-        g[0] = geo[(long long)(d * 3 + d) * K + k];
-      } else {
-#pragma unroll
-        for (int x = 0; x < 3; ++x) g[x] = geo[(long long)(d * 3 + x) * K + k];
-      }
-    }
-    const int stride = d == 0 ? 1 : (d == 1 ? N1 : N1 * N1);
-    for (int L = w; L < NFP; L += NW) {
-      // line L of direction d: volume nodes base + a*stride, a = 0..N1-1;
-      // it pierces face node L of faces 2d and 2d+1
-      const int base =
-          d == 0 ? N1 * L : (d == 1 ? (L % N1) + N1 * N1 * (L / N1) : L);
-      T qv[N1][7];
-      T al[N1][5];
-#pragma unroll
-      for (int a = 0; a < N1; ++a) {
-#pragma unroll
-        for (int r = 0; r < 7; ++r) qv[a][r] = SH(r, base + a * stride);
-#pragma unroll
-        for (int f = 0; f < 5; ++f) al[a][f] = T(0);
-      }
-      // vol-vol pairs, each once: node a gets cvol*F, node ap its negative
-#pragma unroll
-      for (int ap = 1; ap < N1; ++ap) {
-#pragma unroll
-        for (int a = 0; a < ap; ++a) {
-          T fr[5];
-          contracted_flux<T, DIAG>(qv[a], qv[ap], d, g, c, fr);
-          const T cf = __ldg(cvol + (d * N1 + ap) * NQ + base + a * stride);
-#pragma unroll
-          for (int f = 0; f < 5; ++f) {
-            const T wv = cf * fr[f];
-            al[a][f] += wv;
-            al[ap][f] -= wv;
-          }
-        }
-      }
-      // vol-face pairs of the two faces the line pierces
-#pragma unroll
-      for (int side = 0; side < 2; ++side) {
-        const int fid = 2 * d + side;
-        const int frow = NQ + fid * NFP + L;
-        T qf[7];
-#pragma unroll
-        for (int r = 0; r < 7; ++r) qf[r] = SH(r, frow);
-        T fs[5] = {T(0), T(0), T(0), T(0), T(0)};
-#pragma unroll
-        for (int a = 0; a < N1; ++a) {
-          T fr[5];
-          contracted_flux<T, DIAG>(qv[a], qf, d, g, c, fr);
-          const T cf = __ldg(cface + fid * NQ + base + a * stride);
-#pragma unroll
-          for (int f = 0; f < 5; ++f) {
-            const T wv = cf * fr[f];
-            al[a][f] += wv;
-            fs[f] -= wv;
-          }
-        }
-        // (1/wf)-scaled face row over this point's face values: no other
-        // thread reads face point (fid, L)
-        const T iwf_l = iwf[L];
-#pragma unroll
-        for (int f = 0; f < 5; ++f) SH(f, frow) = iwf_l * fs[f];
-      }
-#pragma unroll
-      for (int a = 0; a < N1; ++a) {
-#pragma unroll
-        for (int f = 0; f < 5; ++f) ACC(f, base + a * stride) += al[a][f];
-      }
-    }
-    __syncthreads();  // the next direction's lines cross these nodes
-  }
+  line_fd<T, N1, DIAG, CURVED>(sh, acc, geo, cvol, cface, iwf, K, k, live, c);
 
   // ---- 7. Ph QF = 2 (1/wq) QF_vol + 2 LIFT ((1/wf) QF_face) ----
   if (!live) return;  // no barrier below
@@ -256,13 +150,13 @@ __global__ void __launch_bounds__(kVolumeThreads)
   }
 }
 
-template <typename T, int N1, bool DIAG>
+template <typename T, int N1, bool DIAG, bool CURVED>
 int launch_volume(const void* q, const void* geo, const void* cvol,
                   const void* cface, const void* iw, const void* iwf,
                   const void* ef, const void* lift, void* out, void* traces,
                   long long K, double gamma, cudaStream_t stream) {
   using Tile = VolumeTile<T, N1>;
-  auto kern = hex_volume_kernel<T, N1, DIAG>;
+  auto kern = hex_volume_kernel<T, N1, DIAG, CURVED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tile::SMEM));
   if (err != cudaSuccess) return int(err);
@@ -277,16 +171,17 @@ int launch_volume(const void* q, const void* geo, const void* cvol,
   return int(cudaGetLastError());
 }
 
-template <typename T, bool DIAG>
+template <typename T, bool DIAG, bool CURVED>
 int dispatch_volume(int n1, const void* q, const void* geo, const void* cvol,
                     const void* cface, const void* iw, const void* iwf,
                     const void* ef, const void* lift, void* out,
                     void* traces, long long K, double gamma,
                     cudaStream_t stream) {
-#define ESDG_VOLUME_CASE(N)                                                  \
-  case N:                                                                    \
-    return launch_volume<T, N, DIAG>(q, geo, cvol, cface, iw, iwf, ef, lift, \
-                                     out, traces, K, gamma, stream);
+#define ESDG_VOLUME_CASE(N)                                              \
+  case N:                                                                \
+    return launch_volume<T, N, DIAG, CURVED>(q, geo, cvol, cface, iw, iwf, \
+                                             ef, lift, out, traces, K,    \
+                                             gamma, stream);
   switch (n1) {
     ESDG_VOLUME_CASE(2)
     ESDG_VOLUME_CASE(3)
@@ -298,32 +193,47 @@ int dispatch_volume(int n1, const void* q, const void* geo, const void* cvol,
 #undef ESDG_VOLUME_CASE
 }
 
+template <typename T>
+int dispatch_form(int n1, int diag, int curved, const void* q,
+                  const void* geo, const void* cvol, const void* cface,
+                  const void* iw, const void* iwf, const void* ef,
+                  const void* lift, void* out, void* traces, long long K,
+                  double gamma, cudaStream_t stream) {
+  if (diag && curved) return -3;
+  if (diag)
+    return dispatch_volume<T, true, false>(n1, q, geo, cvol, cface, iw, iwf,
+                                           ef, lift, out, traces, K, gamma,
+                                           stream);
+  if (curved)
+    return dispatch_volume<T, false, true>(n1, q, geo, cvol, cface, iw, iwf,
+                                           ef, lift, out, traces, K, gamma,
+                                           stream);
+  return dispatch_volume<T, false, false>(n1, q, geo, cvol, cface, iw, iwf,
+                                          ef, lift, out, traces, K, gamma,
+                                          stream);
+}
+
 }  // namespace esdg
 
-// dtype: 0 = float32, 1 = float64.  Returns cudaGetLastError() after the
-// launch, -1 for an unsupported line length n1, -2 for an unknown dtype.
-extern "C" int esdg_hex_volume(int dtype, int n1, int diag, const void* q,
-                               const void* geo, const void* cvol,
-                               const void* cface, const void* iw,
-                               const void* iwf, const void* ef,
-                               const void* lift, void* out, void* traces,
-                               long long K, double gamma, void* stream) {
+// dtype: 0 = float32, 1 = float64.  geo [9, 1, K] (affine) or [9, Nh, K]
+// (curved = 1).  Returns cudaGetLastError() after the launch, -1 for an
+// unsupported line length n1, -2 for an unknown dtype, -3 for diag on a
+// curved metric.
+extern "C" int esdg_hex_volume(int dtype, int n1, int diag, int curved,
+                               const void* q, const void* geo,
+                               const void* cvol, const void* cface,
+                               const void* iw, const void* iwf,
+                               const void* ef, const void* lift, void* out,
+                               void* traces, long long K, double gamma,
+                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return diag ? esdg::dispatch_volume<float, true>(
-                      n1, q, geo, cvol, cface, iw, iwf, ef, lift, out,
-                      traces, K, gamma, st)
-                : esdg::dispatch_volume<float, false>(
-                      n1, q, geo, cvol, cface, iw, iwf, ef, lift, out,
-                      traces, K, gamma, st);
-  }
-  if (dtype == 1) {
-    return diag ? esdg::dispatch_volume<double, true>(
-                      n1, q, geo, cvol, cface, iw, iwf, ef, lift, out,
-                      traces, K, gamma, st)
-                : esdg::dispatch_volume<double, false>(
-                      n1, q, geo, cvol, cface, iw, iwf, ef, lift, out,
-                      traces, K, gamma, st);
-  }
+  if (dtype == 0)
+    return esdg::dispatch_form<float>(n1, diag, curved, q, geo, cvol, cface,
+                                      iw, iwf, ef, lift, out, traces, K,
+                                      gamma, st);
+  if (dtype == 1)
+    return esdg::dispatch_form<double>(n1, diag, curved, q, geo, cvol, cface,
+                                       iw, iwf, ef, lift, out, traces, K,
+                                       gamma, st);
   return -2;
 }

@@ -1,0 +1,194 @@
+// The line-sparse skew EC flux differencing of collocated hex elements,
+// shared by K1 (hex_volume.cu) and the standalone line kernel
+// (hex_lines.cu).  It replaces the two copies of one loop in the TPU
+// package: the fd mid-section of
+// esdg_cns_tpu/ops/pallas_volume.py::_volume_kernel and
+// esdg_cns_tpu/ops/tensor_product_fd.py::_hex_lines_kernel, whose pair
+// bookkeeping must agree.
+//
+// A block owns TE elements (threadIdx.x, so the K-last loads and stores
+// coalesce) and NW = 256 / TE workers (threadIdx.y).  The element's flux
+// variables at its Nh = Nq + Nfq points, T v[7] = (rho, u1, u2, u3, beta,
+// log rho, log beta), and a [5 x Nq] accumulator live in shared memory.
+// One thread owns one node line of one direction: it loads the line's N+1
+// volume points and its two face points, evaluates every vol-vol pair
+// ONCE (a < a', the triangular form: node a' receives the negated
+// contribution, exact because S1 is skew and the flux symmetric) and every
+// vol-face pair, keeps the line's sums in registers and adds them to the
+// accumulator.  A face point belongs to exactly one line, so its face row
+// (the skew negatives of the vol-face couplings) is written over the face
+// values it was computed from, without atomics.  The three directions are
+// separated by barriers.
+//
+// Metric forms: DIAG (axis-aligned affine mesh) one metric term per
+// direction; otherwise the 3-term contraction sum_x g_x F_x, with g the
+// element's affine metric (geo [9, 1, K]) or, when CURVED (geo [9, Nh, K]),
+// the pairwise average 0.5 (g_a + g_b) of the two points' metrics
+// (pallas_volume.py:210-211 and :232-233).  On curved meshes the thread of
+// line L of direction d loads rows 3d..3d+2 of geo at its N+1 volume points
+// and its two face points straight from global memory into registers: each
+// metric value the function needs is read once, by one thread.
+#pragma once
+
+#include "common.cuh"
+
+namespace esdg {
+
+constexpr int kVolumeThreads = 256;
+constexpr size_t kMaxSmem = 232448;  // 227 KB usable per block on sm_90
+
+// shared memory of a tile of te elements: 7 x Nh flux variables and a
+// 5 x Nq accumulator per element
+template <typename T, int N1>
+constexpr size_t volume_smem_bytes(int te) {
+  return size_t(7 * (N1 * N1 * N1 + 6 * N1 * N1) + 5 * N1 * N1 * N1) * te *
+         sizeof(T);
+}
+
+template <typename T, int N1>
+struct VolumeTile {
+  static constexpr int NQ = N1 * N1 * N1;
+  static constexpr int NFP = N1 * N1;
+  static constexpr int NFQ = 6 * NFP;
+  static constexpr int NH = NQ + NFQ;
+  static constexpr int TE =
+      volume_smem_bytes<T, N1>(16) <= kMaxSmem ? 16 : 8;
+  static constexpr int NW = kVolumeThreads / TE;
+  static constexpr size_t SMEM = volume_smem_bytes<T, N1>(TE);
+  static_assert(SMEM <= kMaxSmem, "volume tile exceeds shared memory");
+};
+
+// sh [7][NH][TE]: the tile's flux variables; acc [5][NQ][TE], zeroed by
+// the caller, receives the volume rows.  On return (after a barrier) rows
+// 0..4 of each face point of sh hold its face row, scaled by iwf[L] (the
+// 1/wf of face node L) unless iwf is null.  cvol [3 N1][NQ] and
+// cface [6][NQ] are ops/tensor_product_fd._hex_line_coeffs.  Every thread
+// of the block calls it.
+template <typename T, int N1, bool DIAG, bool CURVED>
+__device__ __forceinline__ void line_fd(T* sh, T* acc,
+                                        const T* __restrict__ geo,
+                                        const T* __restrict__ cvol,
+                                        const T* __restrict__ cface,
+                                        const T* __restrict__ iwf,
+                                        long long K, long long k, bool live,
+                                        const Consts<T>& c) {
+  static_assert(!(DIAG && CURVED), "the diag form is for affine meshes");
+  using Tile = VolumeTile<T, N1>;
+  constexpr int NQ = Tile::NQ, NFP = Tile::NFP, NH = Tile::NH;
+  constexpr int TE = Tile::TE, NW = Tile::NW;
+  const int e = threadIdx.x;
+  const int w = threadIdx.y;
+  auto SH = [&](int r, int node) -> T& { return sh[(r * NH + node) * TE + e]; };
+  auto ACC = [&](int f, int node) -> T& { return acc[(f * NQ + node) * TE + e]; };
+  // row `row` of the curved metric at hybridized point `node`
+  auto G = [&](int row, int node) -> T {
+    return live ? geo[((long long)row * NH + node) * K + k]
+                : (row % 4 == 0 ? T(1) : T(0));
+  };
+
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    T g[3] = {T(1), T(0), T(0)};  // the affine metric (lanes past K: any)
+    if (!CURVED && live) {
+      if (DIAG) {
+        g[0] = geo[(long long)(d * 3 + d) * K + k];
+      } else {
+#pragma unroll
+        for (int x = 0; x < 3; ++x) g[x] = geo[(long long)(d * 3 + x) * K + k];
+      }
+    }
+    const int stride = d == 0 ? 1 : (d == 1 ? N1 : N1 * N1);
+    for (int L = w; L < NFP; L += NW) {
+      // line L of direction d: volume nodes base + a*stride, a = 0..N1-1;
+      // it pierces face node L of faces 2d and 2d+1
+      const int base =
+          d == 0 ? N1 * L : (d == 1 ? (L % N1) + N1 * N1 * (L / N1) : L);
+      T qv[N1][7];
+      T al[N1][5];
+      T gv[CURVED ? N1 : 1][3];  // the line's volume metrics (curved)
+#pragma unroll
+      for (int a = 0; a < N1; ++a) {
+#pragma unroll
+        for (int r = 0; r < 7; ++r) qv[a][r] = SH(r, base + a * stride);
+#pragma unroll
+        for (int f = 0; f < 5; ++f) al[a][f] = T(0);
+        if constexpr (CURVED) {
+#pragma unroll
+          for (int x = 0; x < 3; ++x) gv[a][x] = G(d * 3 + x, base + a * stride);
+        }
+      }
+      // vol-vol pairs, each once: node a gets cvol*F, node ap its negative
+#pragma unroll
+      for (int ap = 1; ap < N1; ++ap) {
+#pragma unroll
+        for (int a = 0; a < ap; ++a) {
+          T fr[5];
+          if constexpr (CURVED) {
+            T gp[3];
+#pragma unroll
+            for (int x = 0; x < 3; ++x)
+              gp[x] = T(0.5) * (gv[a][x] + gv[ap][x]);
+            contracted_flux<T, false>(qv[a], qv[ap], d, gp, c, fr);
+          } else {
+            contracted_flux<T, DIAG>(qv[a], qv[ap], d, g, c, fr);
+          }
+          const T cf = __ldg(cvol + (d * N1 + ap) * NQ + base + a * stride);
+#pragma unroll
+          for (int f = 0; f < 5; ++f) {
+            const T wv = cf * fr[f];
+            al[a][f] += wv;
+            al[ap][f] -= wv;
+          }
+        }
+      }
+      // vol-face pairs of the two faces the line pierces
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const int fid = 2 * d + side;
+        const int frow = NQ + fid * NFP + L;
+        T qf[7];
+#pragma unroll
+        for (int r = 0; r < 7; ++r) qf[r] = SH(r, frow);
+        T gf[3];
+        if constexpr (CURVED) {
+#pragma unroll
+          for (int x = 0; x < 3; ++x) gf[x] = G(d * 3 + x, frow);
+        }
+        T fs[5] = {T(0), T(0), T(0), T(0), T(0)};
+#pragma unroll
+        for (int a = 0; a < N1; ++a) {
+          T fr[5];
+          if constexpr (CURVED) {
+            T gp[3];
+#pragma unroll
+            for (int x = 0; x < 3; ++x)
+              gp[x] = T(0.5) * (gv[a][x] + gf[x]);
+            contracted_flux<T, false>(qv[a], qf, d, gp, c, fr);
+          } else {
+            contracted_flux<T, DIAG>(qv[a], qf, d, g, c, fr);
+          }
+          const T cf = __ldg(cface + fid * NQ + base + a * stride);
+#pragma unroll
+          for (int f = 0; f < 5; ++f) {
+            const T wv = cf * fr[f];
+            al[a][f] += wv;
+            fs[f] -= wv;
+          }
+        }
+        // the face row over this point's face values: no other thread
+        // reads face point (fid, L)
+        const T scale = iwf != nullptr ? iwf[L] : T(1);
+#pragma unroll
+        for (int f = 0; f < 5; ++f) SH(f, frow) = scale * fs[f];
+      }
+#pragma unroll
+      for (int a = 0; a < N1; ++a) {
+#pragma unroll
+        for (int f = 0; f < 5; ++f) ACC(f, base + a * stride) += al[a][f];
+      }
+    }
+    __syncthreads();  // the next direction's lines cross these nodes
+  }
+}
+
+}  // namespace esdg

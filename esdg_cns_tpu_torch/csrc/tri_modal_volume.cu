@@ -11,12 +11,16 @@
 //      points, then the flux variables (rho, u1, u2, beta) and their logs,
 //      staged in shared memory; the face rows are written out as
 //      traces [6, Nfq, K] = (rho, u1, u2, beta, log rho, log beta);
-//   3. the dense skew EC flux differencing
-//      acc_i = sum_j sum_x (sum_r Q_r[i,j] geo[r,x]) F_x(q_i, q_j),
-//      skipping the zero face-face block and the zero diagonal;
+//   3. the dense skew EC flux differencing (dense_fd.cuh, the body K5
+//      shares)
+//      acc_i = sum_j sum_x (sum_r Q_r[i,j] g_rx) F_x(q_i, q_j),
+//      skipping the zero face-face block and the zero diagonal, g the
+//      element's affine metric (geo [4, 1, K]) or, on curved meshes
+//      (CURVED, geo [4, Nh, K]), the pairwise average 0.5 (g_i + g_j);
 //   4. ph_qf = 2 Ph acc  [4, Np, K].
 // The operators Vq, VhP, Ph and Q_r live in shared memory with the
-// tile's per-element arrays.
+// tile's per-element arrays (and, when curved, the element's [4, Nh]
+// metric).
 //
 // What bounds it on this card: at N=3 (Np=10, Nq=12, Nh=24) each element
 // evaluates 420 two-point fluxes here (every ordered vol-vol pair and
@@ -34,11 +38,10 @@
 // from each side, but needs no cross-thread reduction and no atomics,
 // so the result is deterministic.  Halving the pair work (the TPU's
 // triangular form: row j takes the negated column sum) is later work.
-// Lanes past K compute on a quiescent state (rho=1, m=0, E=1) and store
-// nothing.  Sizes (Np, Nq, Nh) are runtime values, so every N whose
-// tile fits in shared memory runs; curved meshes (geo [4, Nh, K]) are
-// not covered and the wrapper raises.
-#include "common.cuh"
+// Lanes past K compute on a quiescent state (rho=1, m=0, E=1) with the
+// identity metric and store nothing.  Sizes (Np, Nq, Nh) are runtime
+// values, so every N whose tile fits in shared memory runs.
+#include "dense_fd.cuh"
 
 namespace esdg {
 
@@ -47,17 +50,19 @@ constexpr int kModalThreads = 256;
 template <typename T>
 struct ModalSmem {
   // operators: vq [Nq][Np], vhp [Nh][Nq], ph [Np][Nh], qs [2][Nh][Nh];
-  // per element: q [4][Np], v [4][Nq], h [6][Nh], acc [4][Nh]
+  // per element: q [4][Np], v [4][Nq], h [6][Nh], acc [4][Nh] and,
+  // curved, g [4][Nh]
   static size_t fixed(int np, int nq, int nh) {
     return size_t(nq) * np + size_t(nh) * nq + size_t(np) * nh +
            size_t(2) * nh * nh;
   }
-  static size_t per_elem(int np, int nq, int nh) {
-    return size_t(4) * np + size_t(4) * nq + size_t(6) * nh + size_t(4) * nh;
+  static size_t per_elem(int np, int nq, int nh, bool curved) {
+    return size_t(4) * np + size_t(4) * nq + size_t(6) * nh +
+           size_t(curved ? 8 : 4) * nh;
   }
 };
 
-template <typename T>
+template <typename T, bool CURVED>
 __global__ void __launch_bounds__(kModalThreads)
     tri_modal_volume_kernel(const T* __restrict__ q, const T* __restrict__ geo,
                             const T* __restrict__ qs,
@@ -84,6 +89,7 @@ __global__ void __launch_bounds__(kModalThreads)
   T* s_v = s_q + 4 * np * TE;    // [4 Nq][TE]
   T* s_h = s_v + 4 * nq * TE;    // [6 Nh][TE]
   T* s_acc = s_h + 6 * nh * TE;  // [4 Nh][TE]
+  T* s_g = s_acc + 4 * nh * TE;  // [4 Nh][TE], curved only
 
   for (int i = tid; i < nq * np; i += nthreads) s_vq[i] = vq[i];
   for (int i = tid; i < nh * nq; i += nthreads) s_vhp[i] = vhp[i];
@@ -93,6 +99,13 @@ __global__ void __launch_bounds__(kModalThreads)
     const int f = row / np;
     const T quiescent = (f == 0 || f == 3) ? T(1) : T(0);
     s_q[row * TE + e] = live ? q[(long long)row * K + k] : quiescent;
+  }
+  if (CURVED) {
+    for (int row = w; row < 4 * nh; row += NW) {
+      const int rx = row / nh;
+      const T ident = (rx == 0 || rx == 3) ? T(1) : T(0);
+      s_g[row * TE + e] = live ? geo[(long long)row * K + k] : ident;
+    }
   }
   __syncthreads();
 
@@ -148,32 +161,15 @@ __global__ void __launch_bounds__(kModalThreads)
   __syncthreads();
 
   // ---- 3. dense skew EC flux differencing, one row per thread ----
-  T g[4] = {T(0), T(0), T(0), T(0)};  // geo[r*2 + x], affine
-  if (live) {
+  T ga[4] = {T(1), T(0), T(0), T(1)};  // geo[r*2 + x], affine
+  if (!CURVED && live) {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) g[r] = geo[(long long)r * K + k];
+    for (int r = 0; r < 4; ++r) ga[r] = geo[(long long)r * K + k];
   }
   for (int i = w; i < nh; i += NW) {
-    T L[6];
-#pragma unroll
-    for (int r = 0; r < 6; ++r) L[r] = s_h[(r * nh + i) * TE + e];
-    T acc[4] = {T(0), T(0), T(0), T(0)};
-    const int jend = i < nq ? nh : nq;  // the face-face block is zero
-    for (int j = 0; j < jend; ++j) {
-      if (j == i) continue;
-      T R[6];
-#pragma unroll
-      for (int r = 0; r < 6; ++r) R[r] = s_h[(r * nh + j) * TE + e];
-      const T a0 = s_qs[i * nh + j], a1 = s_qs[nh * nh + i * nh + j];
-      const T b0 = a0 * g[0] + a1 * g[2];  // sum_r Q_r[i,j] geo[r, x=0]
-      const T b1 = a0 * g[1] + a1 * g[3];  // x = 1
-      const EcPair2<T> pr = ec_pair2(L, R, c);
-      T f0[4], f1[4];
-      ec_dir2(pr, 0, f0);
-      ec_dir2(pr, 1, f1);
-#pragma unroll
-      for (int f = 0; f < 4; ++f) acc[f] += b0 * f0[f] + b1 * f1[f];
-    }
+    T acc[4];
+    dense_fd_row<T, 2, CURVED, false>(i, s_h + e, s_g + e, ga, s_qs, nq, nh,
+                                      TE, c, acc);
 #pragma unroll
     for (int f = 0; f < 4; ++f) s_acc[(f * nh + i) * TE + e] = acc[f];
   }
@@ -194,18 +190,18 @@ __global__ void __launch_bounds__(kModalThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool CURVED>
 int launch_modal_volume(const void* q, const void* geo, const void* qs,
                         const void* vq, const void* vhp, const void* ph,
                         void* out, void* traces, void* vuq, long long K,
                         int np, int nq, int nh, double gamma,
                         cudaStream_t stream) {
   const size_t fixed = ModalSmem<T>::fixed(np, nq, nh);
-  const size_t per = ModalSmem<T>::per_elem(np, nq, nh);
+  const size_t per = ModalSmem<T>::per_elem(np, nq, nh, CURVED);
   const int te = tile_elements<T>(fixed, per);
   if (te == 0) return -1;
   const size_t smem = (fixed + per * te) * sizeof(T);
-  auto kern = tri_modal_volume_kernel<T>;
+  auto kern = tri_modal_volume_kernel<T, CURVED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -220,14 +216,28 @@ int launch_modal_volume(const void* q, const void* geo, const void* qs,
   return int(cudaGetLastError());
 }
 
+template <typename T>
+int launch_modal_form(int curved, const void* q, const void* geo,
+                      const void* qs, const void* vq, const void* vhp,
+                      const void* ph, void* out, void* traces, void* vuq,
+                      long long K, int np, int nq, int nh, double gamma,
+                      cudaStream_t stream) {
+  return curved ? launch_modal_volume<T, true>(q, geo, qs, vq, vhp, ph, out,
+                                               traces, vuq, K, np, nq, nh,
+                                               gamma, stream)
+                : launch_modal_volume<T, false>(q, geo, qs, vq, vhp, ph, out,
+                                                traces, vuq, K, np, nq, nh,
+                                                gamma, stream);
+}
+
 }  // namespace esdg
 
-// dtype: 0 = float32, 1 = float64.  q [4, np, K], geo [4, 1, K],
-// qs [2, nh, nh], vq [nq, np], vhp [nh, nq], ph [np, nh]; out [4, np, K],
-// traces [6, nh - nq, K], vuq [4, nq, K].  Returns cudaGetLastError()
-// after the launch, -1 when the tile does not fit in shared memory, -2
-// for an unknown dtype.
-extern "C" int esdg_tri_modal_volume(int dtype, const void* q,
+// dtype: 0 = float32, 1 = float64.  q [4, np, K], geo [4, 1, K] or
+// (curved = 1) [4, nh, K], qs [2, nh, nh], vq [nq, np], vhp [nh, nq],
+// ph [np, nh]; out [4, np, K], traces [6, nh - nq, K], vuq [4, nq, K].
+// Returns cudaGetLastError() after the launch, -1 when the tile does not
+// fit in shared memory, -2 for an unknown dtype.
+extern "C" int esdg_tri_modal_volume(int dtype, int curved, const void* q,
                                      const void* geo, const void* qs,
                                      const void* vq, const void* vhp,
                                      const void* ph, void* out, void* traces,
@@ -235,12 +245,12 @@ extern "C" int esdg_tri_modal_volume(int dtype, const void* q,
                                      int nh, double gamma, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return esdg::launch_modal_volume<float>(q, geo, qs, vq, vhp, ph, out,
-                                            traces, vuq, K, np, nq, nh,
-                                            gamma, st);
+    return esdg::launch_modal_form<float>(curved, q, geo, qs, vq, vhp, ph,
+                                          out, traces, vuq, K, np, nq, nh,
+                                          gamma, st);
   if (dtype == 1)
-    return esdg::launch_modal_volume<double>(q, geo, qs, vq, vhp, ph, out,
-                                             traces, vuq, K, np, nq, nh,
-                                             gamma, st);
+    return esdg::launch_modal_form<double>(curved, q, geo, qs, vq, vhp, ph,
+                                           out, traces, vuq, K, np, nq, nh,
+                                           gamma, st);
   return -2;
 }

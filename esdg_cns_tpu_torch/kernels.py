@@ -123,15 +123,21 @@ _I = ctypes.c_int
 def library() -> ctypes.CDLL:
     """The kernel library, built at first use."""
     lib = ctypes.CDLL(str(build().path))
-    lib.esdg_hex_volume.argtypes = [_I, _I, _I] + [_P] * 10 + [
+    lib.esdg_hex_volume.argtypes = [_I] * 4 + [_P] * 10 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_volume.restype = _I
     lib.esdg_hex_surface.argtypes = [_I, _I, _I, _I] + [_P] * 9 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_surface.restype = _I
-    lib.esdg_tri_modal_volume.argtypes = [_I] + [_P] * 9 + [
+    lib.esdg_tri_modal_volume.argtypes = [_I, _I] + [_P] * 9 + [
         ctypes.c_longlong, _I, _I, _I, ctypes.c_double, _P]
     lib.esdg_tri_modal_volume.restype = _I
+    lib.esdg_hex_lines.argtypes = [_I] * 3 + [_P] * 6 + [
+        ctypes.c_longlong, ctypes.c_double, _P]
+    lib.esdg_hex_lines.restype = _I
+    lib.esdg_dense_fd.argtypes = [_I] * 3 + [_P] * 5 + [
+        ctypes.c_longlong, _I, _I, ctypes.c_double, _P]
+    lib.esdg_dense_fd.restype = _I
     lib.esdg_cns_surface_viscous.argtypes = [_I, _I] + [_P] * 4 + [
         ctypes.c_longlong, _I, _I, _I] + [ctypes.c_double] * 5 + [
         _I] * 4 + [_P]

@@ -1,1 +1,2 @@
-"""Flux differencing and the fused hex kernels (K1 volume, K2 surface)."""
+"""Flux differencing and the kernels' wrappers with their plain versions
+(K1-K5, K7, K8, row 10)."""

@@ -15,8 +15,10 @@ kernel is launched.
 
 The TPU kernels' lane blocking, sublane padding and packed folds are
 layouts, not math: the port keeps the math.  The CUDA kernels cover
-affine meshes (diagonal and general metric); on curved geometry the
-wrapper raises and the plain version (CPU) covers it.
+affine meshes (diagonal and general metric) and curved ones: K1 with the
+metric at every hybridized point (geo [9, Nh, K], pairwise-averaged in
+the line loop, ``csrc/line_fd.cuh``), K2 with per-point normals, sj and
+1/J (its general form).
 """
 
 from __future__ import annotations
@@ -187,9 +189,10 @@ def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
     with traces = (rho, u1, u2, u3, beta, log rho, log beta) at the face
     points.
 
-    q [5, Nq, K] conservative state; geo [9, 1, K] affine metric (curved
-    [9, Nh, K] only on the CPU); ef [Nfq, Nq] face extrapolation;
-    lift [Nq, Nfq].  diag: axis-aligned mesh (``detect_axis_aligned``).
+    q [5, Nq, K] conservative state; geo [9, 1, K] affine metric or
+    [9, Nh, K] curved; ef [Nfq, Nq] face extrapolation; lift [Nq, Nfq].
+    diag: axis-aligned mesh (``detect_axis_aligned``); ignored on curved
+    geometry, as in the TPU kernel.
     """
     if q.device.type == "cpu":
         return euler_volume_plain(q, geo, ef, lift, gamma,
@@ -200,13 +203,12 @@ def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
     nf, nq, k = q.shape
     n1 = line_ops.n1d
     nfq = 6 * n1 * n1
-    if geo.shape[1] != 1:
-        raise NotImplementedError(
-            "euler_volume: the CUDA kernel covers affine meshes only; "
-            "curved geometry runs the plain version on the CPU")
+    curved = geo.shape[1] != 1
+    diag = diag and not curved
     _check_cuda(name, {"q": q, "geo": geo, "ef": ef, "lift": lift},
                 q.dtype, q.device)
-    for key, t, shape in (("q", q, (5, n1 ** 3, k)), ("geo", geo, (9, 1, k)),
+    for key, t, shape in (("q", q, (5, n1 ** 3, k)),
+                          ("geo", geo, (9, n1 ** 3 + nfq if curved else 1, k)),
                           ("ef", ef, (nfq, nq)), ("lift", lift, (nq, nfq))):
         _check_shape(name, key, t, shape)
     out = torch.empty((nf, nq, k), dtype=q.dtype, device=q.device)
@@ -220,7 +222,7 @@ def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.esdg_hex_volume(
-            _DTYPE_CODE[q.dtype], n1, int(diag),
+            _DTYPE_CODE[q.dtype], n1, int(diag), int(curved),
             q.data_ptr(), geo.data_ptr(), cvol.data_ptr(), cface.data_ptr(),
             iw.data_ptr(), iwf.data_ptr(), ef.data_ptr(), lift.data_ptr(),
             out.data_ptr(), traces.data_ptr(), k, float(gamma), stream)

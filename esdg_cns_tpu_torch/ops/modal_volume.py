@@ -6,12 +6,14 @@ Port of ``esdg_cns_tpu/ops/pallas_modal_volume.py``:
 Uq = Vq U, v(Uq), the hybridized projection and U(v_h) at the Nh points,
 flux variables and logs, skew EC flux differencing, Ph QF.
 
-``euler_modal_volume_plain`` is the same function in plain PyTorch, with
-the dense all-pairs flux differencing (``ops.flux_differencing``).  The
-wrapper takes it only for CPU tensors; for CUDA tensors it launches the
-kernel or raises.  ``euler_modal_volume.launches`` counts the launches.
-The TPU ``fd_mode`` variants ('tri', 'tri8', 'full') are layouts of one
-sum: the port computes that sum once.
+The flux differencing is the dense body K5 shares (``csrc/dense_fd.cuh``),
+on affine and curved metrics.  ``euler_modal_volume_plain`` is the same
+function in plain PyTorch, with the dense all-pairs flux differencing
+(``ops.flux_differencing``).  The wrapper takes it only for CPU tensors;
+for CUDA tensors it launches the kernel or raises.
+``euler_modal_volume.launches`` counts the launches.  The TPU ``fd_mode``
+variants ('tri', 'tri8', 'full') are layouts of one sum: the port
+computes that sum once.
 """
 
 from __future__ import annotations
@@ -62,11 +64,12 @@ def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
     """Fused modal volume stage.
 
     q [Nf, Np, K] conservative state; geo [dim*dim, 1, K] affine metric
-    (curved [dim*dim, Nh, K] only on the CPU); q_skew a [dim, Nh, Nh]
-    tensor or a tuple of dim [Nh, Nh]; vq [Nq, Np]; vhp [Nh, Nq];
-    ph [Np, Nh].  Returns (ph_qf [Nf, Np, K], traces [Nf + 2, Nfq, K] =
-    (rho, u_1..d, beta, log rho, log beta) at the face points,
-    vu_q [Nf, Nq, K] = v(Vq U)).  The CUDA kernel covers dim = 2.
+    or [dim*dim, Nh, K] curved (pairwise-averaged in the sum); q_skew a
+    [dim, Nh, Nh] tensor or a tuple of dim [Nh, Nh]; vq [Nq, Np];
+    vhp [Nh, Nq]; ph [Np, Nh].  Returns (ph_qf [Nf, Np, K],
+    traces [Nf + 2, Nfq, K] = (rho, u_1..d, beta, log rho, log beta) at
+    the face points, vu_q [Nf, Nq, K] = v(Vq U)).  The CUDA kernel covers
+    dim = 2.
     """
     if q.device.type == "cpu":
         return euler_modal_volume_plain(q, geo, q_skew, vq, vhp, ph, gamma,
@@ -80,14 +83,12 @@ def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
     if nf != 4:
         raise NotImplementedError(f"{name}: the CUDA kernel covers 2D "
                                   "(4 fields) only")
-    if geo.shape[1] != 1:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel covers affine meshes only; curved "
-            "geometry runs the plain version on the CPU")
+    curved = geo.shape[1] != 1
     tensors = {"q": q, "geo": geo, "q_skew": qs, "vq": vq, "vhp": vhp,
                "ph": ph}
     _check_cuda(name, tensors, q.dtype, q.device)
-    for key, shape in (("geo", (4, 1, k)), ("q_skew", (2, nh, nh)),
+    for key, shape in (("geo", (4, nh if curved else 1, k)),
+                       ("q_skew", (2, nh, nh)),
                        ("vq", (nq, np_)), ("vhp", (nh, nq)),
                        ("ph", (np_, nh))):
         _check_shape(name, key, tensors[key], shape)
@@ -102,10 +103,10 @@ def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.esdg_tri_modal_volume(
-            _DTYPE_CODE[q.dtype], q.data_ptr(), geo.data_ptr(), qs.data_ptr(),
-            vq.data_ptr(), vhp.data_ptr(), ph.data_ptr(), out.data_ptr(),
-            traces.data_ptr(), vu_q.data_ptr(), k, np_, nq, nh, float(gamma),
-            stream)
+            _DTYPE_CODE[q.dtype], int(curved), q.data_ptr(), geo.data_ptr(),
+            qs.data_ptr(), vq.data_ptr(), vhp.data_ptr(), ph.data_ptr(),
+            out.data_ptr(), traces.data_ptr(), vu_q.data_ptr(), k, np_, nq,
+            nh, float(gamma), stream)
     _raise_on(name, rc, "the element tile does not fit in shared memory")
     euler_modal_volume.launches += 1
     return out, traces, vu_q

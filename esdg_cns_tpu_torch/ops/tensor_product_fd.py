@@ -1,8 +1,9 @@
 """Line-sparse flux differencing for tensor-product (collocated) elements.
 
 Port of ``esdg_cns_tpu/ops/tensor_product_fd.py`` (``LineOps``, the
-direction layouts and ``flux_differencing_lines``, the volume term of
-the plain RHS).
+direction layouts, ``flux_differencing_lines``, the volume term of the
+plain RHS, and ``flux_differencing_lines_fused``, the CUDA counterpart of
+``flux_differencing_lines_pallas``).
 
 For Gauss-collocated quad/hex elements the hybridized skew operators are
 Kronecker-sparse:
@@ -254,3 +255,62 @@ def flux_differencing_lines(qh, qlog, geo, gamma, *, elem_type: str,
         ]
         out_rows.append(torch.cat([acc_vol[f], *face_rows], dim=0))
     return 2.0 * torch.stack(out_rows, dim=0)
+
+
+def flux_differencing_lines_fused(qh, qlog, geo, gamma, *, elem_type: str,
+                                  line_ops: LineOps, nq: int):
+    """Line-sparse flux differencing in one kernel per element tile (row 10,
+    CUDA ``csrc/hex_lines.cu``); same contract as
+    ``flux_differencing_lines``.
+
+    Port of ``flux_differencing_lines_pallas`` / ``_hex_lines_kernel``: the
+    line loop K1 runs (``csrc/line_fd.cuh``) on given flux variables at
+    all Nh points, with the general 3-term contraction on affine
+    (geo [9, 1, K]) and curved (geo [9, Nh, K]) hexes; it writes 2 QF with
+    the raw face rows (no 1/wf, no LIFT).  The plain version is
+    ``flux_differencing_lines``: the wrapper takes it for CPU tensors and,
+    on every device, for quads, where the TPU package has no kernel
+    either (it calls the same plain form there).  For CUDA hex tensors it
+    launches the kernel or raises.  ``flux_differencing_lines_fused.
+    launches`` counts the launches.
+    """
+    if elem_type != "hex" or qh.device.type == "cpu":
+        return flux_differencing_lines(qh, qlog, geo, gamma,
+                                       elem_type=elem_type,
+                                       line_ops=line_ops, nq=nq)
+    name = "flux_differencing_lines_fused"
+    if qh.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {qh.device}")
+    from .fused_volume import (_DTYPE_CODE, _check_cuda, _check_shape,
+                               _raise_on, _volume_consts)
+
+    n1 = line_ops.n1d
+    nh, k = qh.shape[1], qh.shape[2]
+    curved = geo.shape[1] != 1
+    tensors = {"qh": qh, "qlog": qlog, "geo": geo}
+    _check_cuda(name, tensors, qh.dtype, qh.device)
+    for key, shape in (("qh", (5, n1 ** 3 + 6 * n1 * n1, k)),
+                       ("qlog", (2, nh, k)),
+                       ("geo", (9, nh if curved else 1, k))):
+        _check_shape(name, key, tensors[key], shape)
+    if nq != n1 ** 3:
+        raise ValueError(f"{name}: nq {nq}, expected {n1 ** 3}")
+    out = torch.empty_like(qh)
+    if k == 0:
+        return out
+    cvol, cface, _, _ = _volume_consts(line_ops, qh.dtype, qh.device)
+    from ..kernels import library
+
+    lib = library()
+    with torch.cuda.device(qh.device):
+        stream = torch.cuda.current_stream(qh.device).cuda_stream
+        rc = lib.esdg_hex_lines(
+            _DTYPE_CODE[qh.dtype], n1, int(curved), qh.data_ptr(),
+            qlog.data_ptr(), geo.data_ptr(), cvol.data_ptr(),
+            cface.data_ptr(), out.data_ptr(), k, float(gamma), stream)
+    _raise_on(name, rc)
+    flux_differencing_lines_fused.launches += 1
+    return out
+
+
+flux_differencing_lines_fused.launches = 0

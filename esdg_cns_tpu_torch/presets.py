@@ -1,10 +1,12 @@
 """Canonical problem setups.
 
 Port of ``esdg_cns_tpu.presets``: ``euler_hex_3d`` (the periodic Euler
-main path), ``lid_driven_cavity`` (the 2D CNS cavity on tris) and
-``lid_driven_cavity_3d`` (the 3D CNS cavity on hexes).  States, masks
-and parameters are built with the same NumPy and IEEE operations as the
-JAX presets, so both packages start from identical bits in f64.
+main path, affine or curved), ``lid_driven_cavity`` (the 2D CNS cavity
+on tris) and ``lid_driven_cavity_3d`` (the 3D CNS cavity on hexes);
+``square_warp`` curves a mesh of [-1, 1]^2 the way ``euler_hex_3d``
+curves the cube.  States, masks and parameters are built with the same
+NumPy and IEEE operations as the JAX presets, so both packages start from
+identical bits in f64.
 """
 
 from __future__ import annotations
@@ -44,6 +46,17 @@ def euler_hex_3d(n: int = 3, k1d: int = 8, *, curved: bool = False,
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     q0 = primitive_to_conservative(f(rho), f(vel), f(p))
     return disc, q0
+
+
+def square_warp(x, y, alpha: float = 0.1):
+    """``euler_hex_3d``'s warp in 2D, a ``curved_map`` for
+    ``core.build_discretization``: (x, y) + d with
+    d = alpha (x-1)(x+1)(y-1)(y+1).  d vanishes on the boundary of
+    [-1, 1]^2, so the square and its faces stay where they are while every
+    interior element is curved (metric at every hybridized point).
+    NumPy in, NumPy out."""
+    d = alpha * (x - 1) * (x + 1) * (y - 1) * (y + 1)
+    return x + d, y + d
 
 
 def lid_driven_cavity(n: int = 3, k1d: int = 16, *,

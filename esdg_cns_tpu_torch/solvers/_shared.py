@@ -18,24 +18,35 @@ from ..physics import euler as phys
 def resolve_flux_diff(disc, flux_diff_impl: str):
     """Select the volume flux-differencing implementation.
 
-    Returns fd(qh, qlog, geo, gamma) -> 2*QF [Nf, Nh, K].  Impls:
-    'auto' ('lines' on collocated quad/hex, else 'xla'), 'lines'
-    (line-sparse, collocated quad/hex) and 'xla' (dense all-pairs, any
-    element).
+    Returns fd(qh, qlog, geo, gamma) -> 2*QF [Nf, Nh, K].  Impls, under
+    the TPU package's names:
+      'auto'          'lines' on collocated quad/hex, else 'xla';
+      'xla'           dense all-pairs tensor code, any element;
+      'pallas'        the dense sum in one kernel (K5,
+                      ``ops.dense_fd.flux_differencing_dense``), any
+                      element;
+      'lines'         line-sparse tensor code, collocated quad/hex;
+      'lines_pallas'  the line-sparse sum in one kernel (row 10,
+                      ``ops.tensor_product_fd.flux_differencing_lines_fused``;
+                      quads take 'lines', as in the TPU package).
+    The kernel forms run their plain versions on CPU tensors.  The TPU
+    package's 'lines_perm' and 'lines_rot' (XLA layout studies) are not
+    ported.
     """
     if flux_diff_impl == "auto":
         flux_diff_impl = "lines" if disc.line_ops is not None else "xla"
-    if flux_diff_impl == "lines":
-        from ..ops.tensor_product_fd import flux_differencing_lines
+    if flux_diff_impl in ("lines", "lines_pallas"):
+        from ..ops.tensor_product_fd import (flux_differencing_lines,
+                                             flux_differencing_lines_fused)
 
         if disc.line_ops is None:
             raise ValueError("'lines' requires a collocated quad/hex mesh")
+        impl = (flux_differencing_lines if flux_diff_impl == "lines"
+                else flux_differencing_lines_fused)
 
         def fd(qh, qlog, geo, gamma):
-            return flux_differencing_lines(
-                qh, qlog, geo, gamma,
-                elem_type=disc.elem_type, line_ops=disc.line_ops, nq=disc.nq,
-            )
+            return impl(qh, qlog, geo, gamma, elem_type=disc.elem_type,
+                        line_ops=disc.line_ops, nq=disc.nq)
 
         return fd
     if flux_diff_impl == "xla":
@@ -45,8 +56,19 @@ def resolve_flux_diff(disc, flux_diff_impl: str):
             return flux_differencing_xla(qh, qlog, disc.q_skew, geo, gamma)
 
         return fd
-    raise ValueError(f"unknown flux_diff_impl: {flux_diff_impl!r} "
-                     "(the port has 'auto', 'lines' and 'xla')")
+    if flux_diff_impl == "pallas":
+        from ..ops.dense_fd import flux_differencing_dense
+
+        qs = torch.stack(disc.q_skew)      # [dim, Nh, Nh], stacked once
+
+        def fd(qh, qlog, geo, gamma):
+            return flux_differencing_dense(qh, qlog, qs, geo, gamma,
+                                           nq=disc.nq)
+
+        return fd
+    raise ValueError(f"unknown flux_diff_impl: {flux_diff_impl!r} (the port "
+                     "has 'auto', 'xla', 'pallas', 'lines' and "
+                     "'lines_pallas')")
 
 
 def adiabatic_mask(disc, bc):

@@ -79,14 +79,17 @@ def make_cns_rhs(disc, *, mu: float, lam: Optional[float] = None,
                  pr: float = 0.71, gamma: float = phys.GAMMA, bc=None,
                  inviscid_dissipation: bool = False,
                  viscous_dissipation: bool = False,
-                 re: Optional[float] = None, compute_rhstest: bool = True,
+                 re: Optional[float] = None, flux_diff_impl: str = "auto",
+                 compute_rhstest: bool = True,
                  rhstest_mode: str = "native"):
     """Full CNS RHS = inviscid ES-DG + BR1 viscous parts, integrated.
 
     One entropy evaluation v(U) feeds both the inviscid entropy
     projection and the viscous modal coefficients; the inviscid traces
     and the viscous entropy-variable traces ride ONE merged neighbour
-    exchange; the contracted traction rides a second.
+    exchange; the contracted traction rides a second.  flux_diff_impl
+    selects the volume flux differencing ('auto', 'xla', 'pallas',
+    'lines', 'lines_pallas'; ``_shared.resolve_flux_diff``).
 
     Returns rhs(q, t) -> (dq, aux{'rhstest_visc'[, 'rhstest',
     'rhstest_visc_total']}).
@@ -95,12 +98,12 @@ def make_cns_rhs(disc, *, mu: float, lam: Optional[float] = None,
     from ._shared import (adiabatic_mask, inviscid_surface,
                           neighbor_traction, resolve_flux_diff,
                           viscous_penalty_rows)
-    from .euler import entropy_projection
+    from .euler import entropy_projection, flux_variables
 
     dim = disc.dim
     nq = disc.nq
     re = (1.0 / mu) if re is None else re
-    fd = resolve_flux_diff(disc, "auto")
+    fd = resolve_flux_diff(disc, flux_diff_impl)
     adiab = adiabatic_mask(disc, bc)
     gather = disc.gather_traces
 
@@ -110,9 +113,7 @@ def make_cns_rhs(disc, *, mu: float, lam: Optional[float] = None,
         vu = _apply(disc.pq, vu_q)                      # modal coefficients
         vuf = _apply(disc.vf, vu)                       # viscous traces
 
-        beta = phys.betafun(uh, gamma)
-        qh = torch.cat([uh[0][None], uh[1:-1] / uh[0], beta[None]], dim=0)
-        qlog = torch.stack([torch.log(qh[0]), torch.log(qh[-1])])
+        qh, qlog = flux_variables(uh, gamma)
 
         # ---- ONE merged neighbour exchange: inviscid + entropy traces ----
         flux, vup = inviscid_surface(

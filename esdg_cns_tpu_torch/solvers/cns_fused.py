@@ -84,7 +84,8 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
     volume_impl: 'fused' (K3, tris), 'fused_hex' (K1, collocated hexes;
       ``axis_aligned`` None detects the diagonal metric with
       ``detect_axis_aligned``) or 'xla' (plain tensor code with
-      ``flux_diff_impl``: 'auto', 'lines' or 'xla').  The fused volume
+      ``flux_diff_impl``: 'auto', 'xla', 'pallas', 'lines' or
+      'lines_pallas', ``_shared.resolve_flux_diff``).  The fused volume
       kernels hold their own flux differencing.
     viscous_impl: 'fused' (K7, or inside K4; needs a fused volume and
       rhstest_mode='native', since the kernels sum the per-element
@@ -113,6 +114,7 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
                           flux_to_conservative, inviscid_surface,
                           neighbor_traction, resolve_flux_diff,
                           viscous_penalty_rows)
+    from .euler import flux_variables
 
     dim = disc.dim
     nf = dim + 2
@@ -198,9 +200,7 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
                for r in range(dim)]
         uh = phys.u_vfun(vuh, gamma)
         vuf = vuh[:, nq:]                            # = (Vf Pq) v: traces
-        beta = phys.betafun(uh, gamma)
-        qh = torch.cat([uh[0][None], uh[1:-1] / uh[0], beta[None]], dim=0)
-        qlog = torch.stack([torch.log(qh[0]), torch.log(qh[-1])])
+        qh, qlog = flux_variables(uh, gamma)
         ph_qf = _apply(disc.ph, fd(qh, qlog, geo, gamma))
         tr = torch.cat([qh[:, nq:], qlog[:, nq:]])
         return tr, uh[:, nq:], vuf, vuq, vqd, ph_qf

@@ -41,12 +41,21 @@ def entropy_projection(disc, q, gamma: float):
     return vu, uh
 
 
+def flux_variables(uh, gamma: float):
+    """Conservative values at the hybridized points -> the flux variables
+    qh = (rho, u_1..d, beta) and their logs qlog = (log rho, log beta),
+    the input of the volume flux differencing."""
+    beta = phys.betafun(uh, gamma)
+    qh = torch.cat([uh[0][None], uh[1:-1] / uh[0], beta[None]], dim=0)
+    return qh, torch.stack([torch.log(qh[0]), torch.log(qh[-1])])
+
+
 def make_euler_rhs(
     disc,
     *,
     gamma: float = phys.GAMMA,
     dissipation: bool = True,
-    flux_diff_impl: str = "auto",
+    flux_diff_impl: str = "xla",
     compute_rhstest: bool = True,
     rhstest_mode: str = "native",
 ):
@@ -56,8 +65,11 @@ def make_euler_rhs(
       disc: ``core.Discretization``.
       dissipation: add local Lax-Friedrichs interface dissipation
         (entropy-stable); without it the scheme is entropy-conservative.
-      flux_diff_impl: 'auto' ('lines' on collocated quad/hex, 'xla'
-        otherwise), 'lines' (tensor-product sparse) or 'xla' (dense).
+      flux_diff_impl: 'xla' (dense, the default, as in the TPU
+        package), 'pallas' (dense, kernel K5), 'lines' (tensor-product
+        sparse, collocated quad/hex), 'lines_pallas' (line-sparse, kernel
+        row 10) or 'auto' ('lines' on collocated quad/hex, else 'xla');
+        ``_shared.resolve_flux_diff``.
       rhstest_mode: 'native' or 'f64' (utils.compensated).
 
     Returns rhs(q, t) -> (dq/dt [Nf, Np, K], aux dict with 'rhstest').
@@ -70,11 +82,7 @@ def make_euler_rhs(
     def rhs(q, t: float = 0.0):
         del t
         vu, uh = entropy_projection(disc, q, gamma)
-        beta = phys.betafun(uh, gamma)
-        qh = torch.cat(
-            [uh[0][None], uh[1:-1] / uh[0], beta[None]], dim=0
-        )
-        qlog = torch.stack([torch.log(qh[0]), torch.log(qh[-1])])
+        qh, qlog = flux_variables(uh, gamma)
 
         # --- face traces + one batched neighbor exchange ---
         flux, _ = inviscid_surface(

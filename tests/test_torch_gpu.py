@@ -18,14 +18,20 @@ import torch
 from esdg_cns_tpu_torch.cavity_cases import (
     CAVITY_BCS,
     cavity_case,
+    fd_inputs,
     k4_inputs,
     k7_inputs,
     k8_inputs,
+    warped_tri_case,
 )
+from esdg_cns_tpu_torch.core import build_discretization, ref_hex
+from esdg_cns_tpu_torch.mesh.generators import uniform_hex_mesh
 from esdg_cns_tpu_torch.ops import cns_surface as cs
+from esdg_cns_tpu_torch.ops import dense_fd as df
 from esdg_cns_tpu_torch.ops import fused_volume as fv
 from esdg_cns_tpu_torch.ops import modal_volume as mv
 from esdg_cns_tpu_torch.ops import surface_viscous as sv
+from esdg_cns_tpu_torch.ops import tensor_product_fd as tp
 from esdg_cns_tpu_torch.physics import primitive_to_conservative
 from esdg_cns_tpu_torch.presets import (
     euler_hex_3d,
@@ -148,7 +154,8 @@ def test_general_kernels_on_random_affine_metric(cuda, dtype, n, k1d):
 def test_fused_rhs_matches_twin_and_conserves_entropy(cuda):
     disc, _ = euler_hex_3d(n=3, k1d=3, dtype=torch.float64, device=cuda)
     q = _random_state(disc, torch.float64, cuda, seed=1)
-    a, _ = make_euler_rhs(disc, dissipation=True, compute_rhstest=False)(q)
+    a, _ = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
+                          compute_rhstest=False)(q)
     b, _ = make_euler_rhs_fused(disc, dissipation=True)(q)
     assert _rel(b, a) <= 1e-11
     _, aux = make_euler_rhs_fused(disc, dissipation=False,
@@ -158,19 +165,176 @@ def test_fused_rhs_matches_twin_and_conserves_entropy(cuda):
 
 @pytest.mark.gpu
 def test_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
-    disc, q = euler_hex_3d(n=2, k1d=2, curved=True, dtype=torch.float32,
-                           device=cuda)
-    ef = disc.vhp[disc.nq:]
-    with pytest.raises(NotImplementedError):
-        fv.euler_volume(q, disc.geo, ef, disc.lift, GAMMA,
-                        line_ops=disc.line_ops)
     disc, q = euler_hex_3d(n=2, k1d=2, dtype=torch.float32, device=cuda)
+    ef = disc.vhp[disc.nq:]
     with pytest.raises(TypeError):
         fv.euler_volume(q, disc.geo.double(), ef, disc.lift, GAMMA,
                         line_ops=disc.line_ops)
     with pytest.raises(ValueError):
         fv.euler_volume(q[:, :, ::2], disc.geo[:, :, ::2], ef, disc.lift,
                         GAMMA, line_ops=disc.line_ops)
+    # a curved metric must hold every hybridized point
+    with pytest.raises(ValueError):
+        fv.euler_volume(q, disc.geo.expand(9, 2, -1).contiguous(), ef,
+                        disc.lift, GAMMA, line_ops=disc.line_ops)
+    qh, qlog = fd_inputs(disc, q)
+    with pytest.raises(ValueError):
+        tp.flux_differencing_lines_fused(
+            qh, qlog[:, :-1].contiguous(), disc.geo, GAMMA, elem_type="hex",
+            line_ops=disc.line_ops, nq=disc.nq)
+    with pytest.raises(TypeError):
+        df.flux_differencing_dense(qh, qlog.double(), disc.q_skew, disc.geo,
+                                   GAMMA, nq=disc.nq)
+    with pytest.raises(ValueError):
+        df.flux_differencing_dense(qh, qlog, disc.q_skew, disc.geo, GAMMA,
+                                   nq=disc.nq, fd_mode="packed")
+    # the remaining refusals of the cavity kernels: K3 on 3D fields, K7's
+    # contract=False
+    cdisc, cq, bc, p = cavity_case("isothermal", 2, 3, torch.float32, cuda)
+    with pytest.raises(NotImplementedError):
+        mv.euler_modal_volume(torch.cat([cq, cq[:1]]), cdisc.geo,
+                              cdisc.q_skew, cdisc.vq, cdisc.vhp, cdisc.ph,
+                              GAMMA, nq=cdisc.nq)
+    args7, kw7 = k7_inputs(cdisc, cq, bc, p)
+    with pytest.raises(NotImplementedError):
+        sv.cns_viscous(*args7, **dict(kw7, contract=False))
+
+
+# ---- the curved Euler kernels (K1 on curved metrics, K2 on curved
+# normals) and the flux-differencing kernels K5 and row 10 ----
+
+# k1d=3 gives K=27: a ragged last tile
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k1d", [(2, 2), (3, 3), (4, 2)])
+def test_curved_kernels_match_plain(cuda, dtype, n, k1d):
+    disc, _ = euler_hex_3d(n=n, k1d=k1d, curved=True, dtype=dtype,
+                           device=cuda)
+    assert disc.geo.shape[1] == disc.nh
+    q = _random_state(disc, dtype, cuda)
+    vargs = (q, disc.geo, disc.vhp[disc.nq:], disc.lift, GAMMA)
+    before = fv.euler_volume.launches
+    p_out, p_tr = fv.euler_volume_plain(*vargs, line_ops=disc.line_ops)
+    # diag is ignored on a curved metric
+    k_out, k_tr = fv.euler_volume(*vargs, line_ops=disc.line_ops, diag=True)
+    torch.cuda.synchronize()
+    assert fv.euler_volume.launches == before + 1
+    assert _rel(k_out, p_out) <= TOL[dtype]
+    assert _rel(k_tr, p_tr) <= TOL[dtype]
+    nbr = disc.gather_traces(p_tr)
+    for dissipation in (True, False):
+        sargs = (p_tr, nbr, torch.stack(disc.nxj), disc.sj, disc.inv_sj,
+                 disc.inv_jac, disc.lift, p_out, GAMMA)
+        p_s = fv.euler_surface_plain(*sargs, dissipation=dissipation)
+        k_s = fv.euler_surface(*sargs, dissipation=dissipation)
+        torch.cuda.synchronize()
+        assert _rel(k_s, p_s) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k1d", [(2, 3), (3, 5)])
+def test_modal_volume_kernel_on_warped_tris(cuda, dtype, n, k1d):
+    disc, q = warped_tri_case(n, k1d, dtype, cuda)
+    assert disc.geo.shape[1] == disc.nh
+    args = (q, disc.geo, disc.q_skew, disc.vq, disc.vhp, disc.ph, GAMMA)
+    before = mv.euler_modal_volume.launches
+    plain = mv.euler_modal_volume_plain(*args, nq=disc.nq)
+    kern = mv.euler_modal_volume(*args, nq=disc.nq)
+    torch.cuda.synchronize()
+    assert mv.euler_modal_volume.launches == before + 1
+    for a, b in zip(kern, plain):
+        assert _rel(a, b) <= TOL[dtype]
+
+
+def _curved_hex_n1(dtype, device):
+    """Hex N=1 (Nh=32) on a warped, non-periodic 3^3 mesh."""
+    vx, vy, vz, etov = uniform_hex_mesh(3)
+    warp = lambda x, y, z: (x + 0.08 * (x - 1) * (x + 1) * (y - 1) * (y + 1),
+                            y, z)
+    return build_discretization(ref_hex(1), (vx, vy, vz), etov,
+                                curved_map=warp, dtype=dtype, device=device)
+
+
+_FD_CASES = ("tri3", "tri3_warped", "hex1", "hex1_curved", "hex3_curved")
+
+
+def _fd_case(case, dtype, device):
+    """(disc, q) of a flux-differencing case; K = 50 or 27 (ragged)."""
+    if case == "tri3":
+        disc, q, _, _ = cavity_case("isothermal", 3, 5, dtype, device)
+        return disc, q
+    if case == "tri3_warped":
+        return warped_tri_case(3, 5, dtype, device)
+    if case == "hex1_curved":
+        disc = _curved_hex_n1(dtype, device)
+    else:
+        disc, _ = euler_hex_3d(n=int(case[3]), k1d=3,
+                               curved=case.endswith("curved"), dtype=dtype,
+                               device=device)
+    return disc, _random_state(disc, dtype, device, seed=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", _FD_CASES)
+def test_dense_fd_kernel_matches_plain(cuda, dtype, case):
+    disc, q = _fd_case(case, dtype, cuda)
+    qh, qlog = fd_inputs(disc, q)
+    args = (qh, qlog, disc.q_skew, disc.geo, GAMMA)
+    before = df.flux_differencing_dense.launches
+    plain = df.flux_differencing_dense_plain(*args, nq=disc.nq)
+    kern = df.flux_differencing_dense(*args, nq=disc.nq)
+    torch.cuda.synchronize()
+    assert df.flux_differencing_dense.launches == before + 1
+    assert _rel(kern, plain) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k1d", [(2, 3), (3, 3), (4, 2)])
+@pytest.mark.parametrize("curved", [False, True])
+def test_hex_lines_kernel_matches_plain(cuda, dtype, n, k1d, curved):
+    disc, _ = euler_hex_3d(n=n, k1d=k1d, curved=curved, dtype=dtype,
+                           device=cuda)
+    qh, qlog = fd_inputs(disc, _random_state(disc, dtype, cuda, seed=2))
+    kw = dict(elem_type="hex", line_ops=disc.line_ops, nq=disc.nq)
+    before = tp.flux_differencing_lines_fused.launches
+    plain = tp.flux_differencing_lines(qh, qlog, disc.geo, GAMMA, **kw)
+    kern = tp.flux_differencing_lines_fused(qh, qlog, disc.geo, GAMMA, **kw)
+    torch.cuda.synchronize()
+    assert tp.flux_differencing_lines_fused.launches == before + 1
+    assert _rel(kern, plain) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_curved_fused_rhs_matches_twins_and_conserves_entropy(cuda):
+    disc, _ = euler_hex_3d(n=3, k1d=3, curved=True, dtype=torch.float64,
+                           device=cuda)
+    q = _random_state(disc, torch.float64, cuda, seed=1)
+    a, _ = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
+                          compute_rhstest=False)(q)
+    b, _ = make_euler_rhs_fused(disc, dissipation=True)(q)
+    assert _rel(b, a) <= 1e-11
+    for impl in ("pallas", "lines_pallas"):
+        c, _ = make_euler_rhs(disc, dissipation=True, flux_diff_impl=impl,
+                              compute_rhstest=False)(q)
+        assert _rel(c, a) <= 1e-11, impl
+    _, aux = make_euler_rhs_fused(disc, dissipation=False,
+                                  compute_rhstest=True)(q)
+    assert abs(float(aux["rhstest"])) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_cns_rhs_with_the_dense_kernel_matches_xla(cuda):
+    disc, q, bc, p = cavity_case("isothermal", 3, 5, torch.float64, cuda)
+    flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
+                 inviscid_dissipation=True, viscous_dissipation=True)
+    before = df.flux_differencing_dense.launches
+    a, _ = make_cns_rhs(disc, flux_diff_impl="xla", **flags)(q)
+    b, _ = make_cns_rhs(disc, flux_diff_impl="pallas", **flags)(q)
+    assert df.flux_differencing_dense.launches == before + 1
+    assert _rel(b, a) <= 1e-11
 
 
 # ---- the 2D CNS cavity kernels: K3 (modal volume) and K4 (merged
@@ -326,8 +490,9 @@ def test_cavity_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
     with pytest.raises(TypeError):
         mv.euler_modal_volume(q, disc.geo.double(), disc.q_skew, disc.vq,
                               disc.vhp, disc.ph, GAMMA, nq=disc.nq)
-    with pytest.raises(NotImplementedError):
-        mv.euler_modal_volume(q, disc.geo.expand(4, disc.nh, -1).contiguous(),
+    # a curved metric must hold every hybridized point
+    with pytest.raises(ValueError):
+        mv.euler_modal_volume(q, disc.geo.expand(4, 2, -1).contiguous(),
                               disc.q_skew, disc.vq, disc.vhp, disc.ph, GAMMA,
                               nq=disc.nq)
     args, _, kw = k4_inputs(disc, q, bc, p)

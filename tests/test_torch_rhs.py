@@ -60,7 +60,7 @@ def test_fused_and_twin_match_jax():
                                    compute_rhstest=False)(jq)
     j_fused, _ = jax_make_euler_rhs_fused(jd, dissipation=True,
                                           interpret=True)(jq)
-    t_twin, _ = make_euler_rhs(td, dissipation=True,
+    t_twin, _ = make_euler_rhs(td, flux_diff_impl="lines", dissipation=True,
                                compute_rhstest=False)(tq)
     t_fused, _ = make_euler_rhs_fused(td, dissipation=True)(tq)
     assert _rel(t_twin.numpy(), j_twin) <= 1e-11
@@ -79,7 +79,8 @@ def test_golden_hex_step_without_jax():
     disc, q0 = euler_hex_3d(n=2, k1d=2, dtype=F64, device="cpu")
     np.testing.assert_allclose(q0.numpy(), stored["hex_euler_q0"],
                                rtol=1e-12, atol=1e-12)
-    rhs = make_euler_rhs(disc, dissipation=True, compute_rhstest=True)
+    rhs = make_euler_rhs(disc, flux_diff_impl="lines", dissipation=True,
+                         compute_rhstest=True)
     qf, aux = lsrk45(rhs, q0, 1e-3, 1)
     np.testing.assert_allclose(qf.numpy(), stored["hex_euler_qf"],
                                rtol=1e-12, atol=1e-12)
@@ -93,7 +94,7 @@ def test_entropy_conservation_without_dissipation(n, k1d):
     """(f) f64 rhstest <= 1e-12 with dissipation off, twin and fused."""
     disc, _ = euler_hex_3d(n=n, k1d=k1d, dtype=F64, device="cpu")
     q = _random_state(disc, seed=3)
-    _, aux = make_euler_rhs(disc, dissipation=False)(q)
+    _, aux = make_euler_rhs(disc, flux_diff_impl="lines", dissipation=False)(q)
     assert abs(float(aux["rhstest"])) <= 1e-12
     for mode in ("native", "f64"):
         _, aux = make_euler_rhs_fused(disc, dissipation=False,
@@ -101,7 +102,7 @@ def test_entropy_conservation_without_dissipation(n, k1d):
                                       rhstest_mode=mode)(q)
         assert abs(float(aux["rhstest"])) <= 1e-12
     # with dissipation the balance is a strict entropy decrease
-    _, aux = make_euler_rhs(disc, dissipation=True)(q)
+    _, aux = make_euler_rhs(disc, flux_diff_impl="lines", dissipation=True)(q)
     assert float(aux["rhstest"]) < 0
 
 
@@ -115,7 +116,8 @@ def test_free_stream_preserved_on_curved_hex():
     full = lambda v: torch.full(sh, v, dtype=F64)
     q = primitive_to_conservative(
         full(1.3), torch.stack([full(0.2), full(-0.1), full(0.4)]), full(0.9))
-    for rhs in (make_euler_rhs(disc, compute_rhstest=False),
+    for rhs in (make_euler_rhs(disc, flux_diff_impl="lines",
+                               compute_rhstest=False),
                 make_euler_rhs_fused(disc)):
         dq, _ = rhs(q)
         assert float(dq.abs().max()) < 1e-11
@@ -136,7 +138,7 @@ def test_curved_twin_and_fused_match_jax():
                                    compute_rhstest=False)(jq)
     j_fused, _ = jax_make_euler_rhs_fused(jd, dissipation=True,
                                           interpret=True)(jq)
-    t_twin, _ = make_euler_rhs(td, dissipation=True,
+    t_twin, _ = make_euler_rhs(td, flux_diff_impl="lines", dissipation=True,
                                compute_rhstest=False)(tq)
     t_fused, _ = make_euler_rhs_fused(td, dissipation=True)(tq)
     assert _rel(t_twin.numpy(), j_twin) <= 1e-11
@@ -148,7 +150,8 @@ def test_ssprk33_matches_jax():
     td, tq = euler_hex_3d(n=2, k1d=2, dtype=F64, device="cpu")
     jrhs = jax_make_euler_rhs(jd, dissipation=True, flux_diff_impl="lines")
     jqf, jaux = jax.jit(lambda q: jax_ssprk33(jrhs, q, 1e-3, 2))(jq)
-    tqf, taux = ssprk33(make_euler_rhs(td, dissipation=True), tq, 1e-3, 2)
+    tqf, taux = ssprk33(make_euler_rhs(td, flux_diff_impl="lines",
+                                       dissipation=True), tq, 1e-3, 2)
     assert _rel(tqf.numpy(), jqf) <= 1e-12
     assert taux["rhstest"].shape == (2,)
     np.testing.assert_allclose(taux["rhstest"].numpy(),
@@ -158,7 +161,8 @@ def test_ssprk33_matches_jax():
 
 def test_f32_state_stays_f32():
     disc, q0 = euler_hex_3d(n=2, k1d=2, dtype=torch.float32, device="cpu")
-    for rhs in (make_euler_rhs(disc, compute_rhstest=False),
+    for rhs in (make_euler_rhs(disc, flux_diff_impl="lines",
+                               compute_rhstest=False),
                 make_euler_rhs_fused(disc)):
         dq, _ = rhs(q0)
         assert dq.dtype == torch.float32

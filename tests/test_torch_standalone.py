@@ -20,16 +20,21 @@ import torch
 import esdg_cns_tpu_torch
 for m in pkgutil.walk_packages(esdg_cns_tpu_torch.__path__, "esdg_cns_tpu_torch."):
     importlib.import_module(m.name)
+assert "esdg_cns_tpu_torch.ops.dense_fd" in sys.modules
 from esdg_cns_tpu_torch.presets import euler_hex_3d
 from esdg_cns_tpu_torch.solvers import make_euler_rhs, make_euler_rhs_fused
 from esdg_cns_tpu_torch.timestepping import lsrk45
 disc, q0 = euler_hex_3d(n=2, k1d=2, dtype=torch.float64, device="cpu")
 a, _ = make_euler_rhs_fused(disc)(q0)
-b, _ = make_euler_rhs(disc, compute_rhstest=False)(q0)
+b, _ = make_euler_rhs(disc, flux_diff_impl="lines", compute_rhstest=False)(q0)
 qf, _ = lsrk45(make_euler_rhs_fused(disc), q0, 1e-3, 1)
 assert bool(torch.isfinite(qf).all())
 rel = float((a - b).abs().max() / b.abs().max())
 assert rel < 1e-11, rel
+for impl in ("pallas", "lines_pallas"):
+    c, _ = make_euler_rhs(disc, flux_diff_impl=impl, compute_rhstest=False)(q0)
+    rel = float((c - b).abs().max() / b.abs().max())
+    assert rel < 1e-11, (impl, rel)
 from esdg_cns_tpu_torch.presets import lid_driven_cavity
 from esdg_cns_tpu_torch.solvers import make_cns_rhs, make_cns_rhs_affine
 disc, q0, bc, p = lid_driven_cavity(n=2, k1d=2, dtype=torch.float64,
@@ -67,9 +72,11 @@ def _env():
 
 
 def test_port_runs_with_jax_blocked():
-    """(g) importing every module, one Euler RHS and the cavity RHS on
-    the 2D merged and split paths and on the 3D fused_hex path, with no
-    JAX; no module of the JAX package is loaded."""
+    """(g) importing every module (``ops.dense_fd`` among them), one
+    Euler RHS (with the 'lines', 'pallas' and 'lines_pallas' flux
+    differencing) and the cavity RHS on the 2D merged and split paths and
+    on the 3D fused_hex path, with no JAX; no module of the JAX package is
+    loaded."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        env=_env(), capture_output=True, text=True,
                        timeout=300)
