@@ -92,13 +92,38 @@ Phases (each raises on failure; nothing is caught):
      K5 and K3c at the full-width shapes;
  17. the cavity twin with flux_diff_impl='pallas' (K5; bench.py's flags)
      for 20 steps with the counters at 0 before: K5 launched once per
-     stage, the state agrees with the 'xla' twin of phase 7; its rate.
+     stage, the state agrees with the 'xla' twin of phase 7; its rate;
+ 18. split volume kernels against their plain versions: the projection
+     (hex_project), the per-direction fd (hex_fd_dir, d = 0, 1, 2; diag on
+     the mesh's metric and general on a seeded random non-diagonal affine
+     metric), its dense form (hex_fd_dir_dense) and K2 at N+1 = 8 (and 5),
+     at the N=7 path's shapes (k1d=16 f32), the N=4 bench mesh (k1d=24
+     f32), and in f64 at N=4 k1d=4 and N=7 k1d=3 (K=27, a ragged tile);
+ 19. the N=7 path: presets.euler_hex_3d(7, 16, f32) ->
+     make_euler_rhs_fused(force_fused=True), which resolves to the split
+     path ('auto', diag detected) -> lsrk45 for 20 steps at dt=2.5e-4 with
+     every counter at 0 before: per stage the projection once, the fd once
+     per direction, K2 once, K1 never; a finite f32 state that agrees with
+     the twin make_euler_rhs(flux_diff_impl='lines') from the same q0;
+     sum(wJq q) conserved; f64 k1d=3 rhstest with dissipation off;
+ 20. the N=4 volume modes on the bench mesh (N=4, k1d=24, f32): 'auto' (K1,
+     joint_packed), 'split', 'split_pad8' and 'split_dense', each RHS
+     against the 'auto' one on a moving state (f32, and f64 at k1d=4),
+     then 20 steps of each with the counters at 0 before (launches per
+     stage);
+ 21. split timing: the N=7 rate over 1200 stages, device times of the
+     projection, each fd direction, the dense fd, the combine, the exchange
+     and K2 at N+1 = 8 beside their plain versions, the profiler's split;
+     the four N=4 modes' rates over 600 stages, their stages queued
+     ahead of the device and their volume stages'
+     device times.
 A kernel's time is its device time: the timed calls are queued behind a
 sleeping kernel, so the host's dispatch does not enter it.
 The line before the last is {"kernels": [...]} with each kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over 67
-TFLOP/s, from this run's shapes); the last line is {"ok": true,
-"device": {...}}.  Without a CUDA device it exits non-zero and prints no
+TFLOP/s, from this run's shapes and the entries of its operators that
+the function needs); the last line is {"ok": true, "device": {...}}.
+The elapsed time at each phase goes to stderr.  Without a CUDA device it exits non-zero and prints no
 result: there is no CPU path.
 """
 
@@ -152,6 +177,18 @@ CAV_MASS_TOL_F32 = 1e-6
 # device-only timing: the stream sleeps this many cycles (about 0.1 s at
 # the H100's clock) while the host queues the timed calls behind it
 SLEEP_CYCLES = 200_000_000
+# the N=7 path (split volume): N=7, k1d=16 (K=4096, Np=512, 10.5M DOF),
+# f32; the time step scales the N=3 path's 1e-3 by the h/N^2 limit
+# (about 0.37 of it at k1d=16) with margin
+N7, N7_K1D, N7_DT = 7, 16, 2.5e-4
+# the N=4 bench mesh of the volume-mode comparison: k1d=24 (K=13824,
+# 8.64M DOF), f32
+N4, N4_K1D = 4, 24
+N4_MODES = ("auto", "split", "split_pad8", "split_dense")
+# the four N=4 modes are timed over 120 steps (600 stages) each, median of
+# REPEATS: at 1200 stages 'split' and 'split_pad8' (the same kernels) read
+# 0.03% apart, at 240 stages 10% apart
+N4_TIMED_STEPS = 120
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and FP32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -243,6 +280,15 @@ def print_profile(card, label, prof):
         print(f"    {ms:.4f} ms/stage  {name}")
 
 
+T_START = time.perf_counter()
+
+
+def stamp(phase):
+    """The script's elapsed time at the start of a phase, on stderr."""
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s at phase "
+          f"{phase}", file=sys.stderr, flush=True)
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -258,7 +304,10 @@ def bound(n_bytes, n_ops):
 
 # Operations per element, counted by hand from the sources at the shapes
 # they are given: an FMA is two operations, a division, log, exp, pow or
-# sqrt one (so the bound is a floor); dense products as written; each
+# sqrt one (so the bound is a floor); an operator product over the
+# operator's entries that the function needs (entries(op)): all of them on
+# the tri, one node line per point on the Gauss-collocated hex (N+1 of each
+# row of Ef, of each column of LIFT, of each row of a derivative); each
 # two-point flux pair counted ONCE (the triangular form, the least work).
 # Pair costs: the 3D EC pair with one metric direction (diag) 74; the
 # general 3-term contraction adds the two other directional fluxes (12)
@@ -275,19 +324,33 @@ def line_pairs(n1):
     return 3 * n1 * n1 * (n1 * (n1 - 1) // 2 + 2 * n1)
 
 
-def ops_k1(n1, form="diag"):
+def entries(op):
+    """Entries of an operator that its product needs: those above its
+    roundoff (1e-12 of its largest).  The hex line operators hold exact
+    zeros only up to roundoff of the 1D interpolation."""
+    a = op.abs()
+    return int((a > 1e-12 * a.max()).sum())
+
+
+def ops_project(n1, ef_entries):
+    """The entropy projection of K1 and row 3: v(U) at the volume nodes,
+    Ef v, and U(v_f) with the flux variables and logs at the face points."""
     nq, nfq = n1 ** 3, 6 * n1 * n1
-    return (27 * nq + 2 * nfq * nq * 5 + 40 * nfq
-            + PAIR_3D[form] * line_pairs(n1) + 5 * nfq + 2 * nq * nfq * 5
-            + 15 * nq)
+    return 27 * nq + 2 * ef_entries * 5 + 40 * nfq
 
 
-def ops_k2(n1, diag=True):
+def ops_k1(n1, ef_entries, lift_entries, form="diag"):
+    nq, nfq = n1 ** 3, 6 * n1 * n1
+    return (ops_project(n1, ef_entries) + PAIR_3D[form] * line_pairs(n1)
+            + 5 * nfq + 2 * lift_entries * 5 + 15 * nq)
+
+
+def ops_k2(n1, lift_entries, diag=True):
     """The general form adds the two other directional fluxes (12), two
     more normal terms per field (20) and the 3-component normal velocity
     of both sides (8) at every face node."""
     nq, nfq = n1 ** 3, 6 * n1 * n1
-    return (120 if diag else 160) * nfq + 2 * nq * nfq * 5 + 15 * nq
+    return (120 if diag else 160) * nfq + 2 * lift_entries * 5 + 15 * nq
 
 
 def ops_lines(n1, curved):
@@ -336,46 +399,58 @@ def ops_face(dim, rebuild_local):
     return rebuild + ghosts + pair + lf + nf + 4 * dim + 6 + nf
 
 
-def ops_visc(dim, np_, nq, nfq, proj):
+def ops_visc(dim, nq, nfq, front, vqlift, ef, drpq):
     """One element of the viscous mid-section, each contraction formed
     once (the kernels repeat some per node; the bound counts what the
     function needs): the front product; the surface gradient term
     (0.5·dv·nxj once per face node, then its lift); per quadrature node
     the gradients, K(v) (83 operations in 2D, 190 in 3D) and the
     production; the contracted traction; the divergence (g_r = Σ_x
-    geo[r,x]·σ_x once per node, then the D_r Pq products)."""
+    geo[r,x]·σ_x once per node, then the D_r Pq products).  front,
+    vqlift, ef and drpq are the operators the kernels take."""
     nf = dim + 2
     sigma = 83 if dim == 2 else 190
-    front = 2 * (proj + dim) * nq * nq * nf
-    surface = 2 * dim * nq * nfq * nf + nfq * nf * (1 + dim)
+    front = 2 * entries(front) * nf
+    surface = 2 * dim * entries(vqlift) * nf + nfq * nf * (1 + dim)
     node = nf * dim * (2 * dim + 1) + sigma + 3 * dim * nf
-    traction = nfq * (2 * dim * nf * nq + 2 * dim * nf)
-    div = dim * nq * nf * (2 * dim - 1) + 2 * dim * np_ * nq * nf
+    traction = 2 * dim * nf * entries(ef) + nfq * 2 * dim * nf
+    div = dim * nq * nf * (2 * dim - 1) + 2 * entries(drpq) * nf
     return front + surface + nq * node + traction + div
 
 
-def ops_k4(dim, np_, nq, nfq, proj):
-    """The tail-folded form (merged_tail), as the cavity paths run it."""
-    fold = (4 * (dim + 2) * nfq + 6 * (dim + 2)) * np_   # LIFTs, assembly
-    return (nfq * ops_face(dim, True) + ops_visc(dim, np_, nq, nfq, proj)
-            + fold)
+def ops_k4(dim, np_, nq, nfq, k4args, lift):
+    """The tail-folded form (merged_tail), as the cavity paths run it;
+    k4args are K4's positional arguments (the operators are the last
+    four), lift the tail's LIFT."""
+    fold = 4 * (dim + 2) * entries(lift) + 6 * (dim + 2) * np_
+    return (nfq * ops_face(dim, True)
+            + ops_visc(dim, nq, nfq, *k4args[-4:]) + fold)
 
 
 def ptxas_report(log):
     """ptxas' register/spill lines of the kernels worth watching, from the
     build log: the N=3 hex kernels (K1 diag, general and curved; K2; row
-    10), K1 and row 10 curved at N=4 in f64 (the most registers), the tri
-    and CNS kernels and K5."""
-    out, entry = [], None
+    10), K1 and row 10 curved at N=4 in f64, the split kernels at N=4 and
+    N=7 (the projection; the fd in direction 0, diag, general and dense)
+    and K2 at N=7, the tri and CNS kernels and K5.  A spill line counts
+    only under its own entry's "Function properties" (not under a device
+    function's, such as libdevice's pow)."""
+    out, entry, props = [], None, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            entry = line
+            entry, props = line, None
+            continue
+        if "Function properties for" in line:
+            props = line.split("for", 1)[1].strip()
             continue
         if not entry or not ("registers" in line or "spill" in line):
+            continue
+        if "spill" in line and (props is None or props not in entry):
             continue
         report = line.split("ptxas info    :")[-1].strip()
         name = entry.split("'")[1] if "'" in entry else entry
         kind = next((k for k in ("hex_volume", "hex_surface", "hex_lines",
+                                 "hex_project", "hex_fd_dir",
                                  "tri_modal_volume", "dense_fd",
                                  "cns_surface_viscous", "cns_surface",
                                  "cns_viscous") if k + "_kernel" in name),
@@ -385,6 +460,21 @@ def ptxas_report(log):
         form = name.split("kernel", 1)[1]
         prec = "f64" if form.startswith("Id") else "f32"
         flags = [b == "1" for b in re.findall(r"Lb([01])E", form)]
+        ints = re.findall(r"Li(\d+)E", form)
+        n_of = {"5": 4, "8": 7}.get(ints[0]) if ints else None
+        if kind in ("hex_project", "hex_fd_dir"):
+            # the split kernels at N=4 and N=7; the fd in direction 0
+            if n_of is None or (kind == "hex_fd_dir" and ints[1] != "0"):
+                continue
+            variant = ("" if kind == "hex_project" else
+                       " dense" if flags[1] else
+                       " diag" if flags[0] else " general")
+            out.append(f"ptxas N={n_of} {kind} {prec}{variant}: {report}")
+            continue
+        if kind == "hex_surface" and ints and ints[0] == "8":
+            out.append(f"ptxas N=7 {kind} {prec} "
+                       f"{'diag' if flags[0] else 'general'}: {report}")
+            continue
         if kind.startswith("hex_"):
             if kind == "hex_volume":
                 variant = ("diag" if flags[0] else
@@ -450,7 +540,9 @@ def main():
                 "cns_viscous": sv.cns_viscous,
                 "flux_differencing_lines_fused":
                     tp.flux_differencing_lines_fused,
-                "flux_differencing_dense": df.flux_differencing_dense}
+                "flux_differencing_dense": df.flux_differencing_dense,
+                "hex_project": fv.hex_project, "hex_fd_dir": fv.hex_fd_dir,
+                "hex_fd_dir_dense": fv.hex_fd_dir_dense}
 
     def zero_counts():
         for w in wrappers.values():
@@ -460,6 +552,7 @@ def main():
         return {name: w.launches for name, w in wrappers.items()}
 
     # ---- 1. device ----
+    stamp("1")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_label()
@@ -471,6 +564,7 @@ def main():
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
     # ---- 2. build ----
+    stamp("2")
     info = kernels.build()
     kernels.library()
     print(f"build: {info.seconds:.1f} s -> {info.path.name}")
@@ -553,6 +647,7 @@ def main():
                                                                k_s)
 
     # ---- 3. Euler kernels against their plain versions ----
+    stamp("3")
     disc, q0 = euler_hex_3d(n=N, k1d=K1D, dtype=torch.float32, device=dev)
     if not fv.detect_axis_aligned(disc):
         raise AssertionError("the k1d=32 mesh must be detected axis-aligned")
@@ -568,6 +663,7 @@ def main():
     del disc8, q8
 
     # ---- 4. the Euler path ----
+    stamp("4")
     rhs = make_euler_rhs_fused(disc, dissipation=True)
     zero_counts()
     qf, _ = lsrk45(rhs, q0, DT, STEPS)
@@ -617,6 +713,7 @@ def main():
     del disc4, q4
 
     # ---- 5. Euler timing ----
+    stamp("5")
     dof = 5 * disc.np_ * disc.num_elements
     step_ms = cuda_ms(lambda: lsrk45(rhs, q0, DT, TIMED_STEPS), 1)
     rate = dof * 5 * TIMED_STEPS / (step_ms / 1e3)
@@ -673,14 +770,16 @@ def main():
     # bytes the diag variants read and write: q, geo, Ef, LIFT -> ph_qf,
     # traces; traces, neighbour traces, compact nxj, 1/J, LIFT, ph_qf -> dq
     k1_bound = bound(nbytes(q0, disc.geo, vargs[2], disc.lift, k_out, k_tr),
-                     ops_k1(N + 1) * ne)
+                     ops_k1(N + 1, entries(vargs[2]), entries(vargs[3]))
+                     * ne)
     k2_bound = bound(nbytes(*sargs[:3], sargs[5], disc.lift, sargs[7], k_s),
-                     ops_k2(N + 1) * ne)
+                     ops_k2(N + 1, entries(disc.lift)) * ne)
     udisc = disc      # the uniform mesh, for row 10 (phase 16)
     del rhs, twin, qf, vargs, sargs, kouts, k_out, k_tr, k_s, disc, q0
     torch.cuda.empty_cache()
 
     # ---- 6. cavity kernels against their plain versions ----
+    stamp("6")
     def held(name, tag, kern, plain, tol, names):
         """max |kernel - plain| / max |plain| per output, printed; raises
         past tol; returns the largest absolute error."""
@@ -766,6 +865,7 @@ def main():
     del d8, q8, bc8, d5, q5, bc5
 
     # ---- 7. the cavity path ----
+    stamp("7")
     cdisc, cq0, cbc, cp = lid_driven_cavity(CAV_N, CAV_K1D,
                                             dtype=torch.float32, device=dev)
     flags = dict(mu=cp["mu"], pr=cp["pr"], re=cp["re"], bc=cbc,
@@ -836,6 +936,7 @@ def main():
     del edisc, eq0, eq
 
     # ---- 8. cavity timing ----
+    stamp("8")
     def path_timing(label, rhs, q0, dof, twin):
         """(ms per stage, DOF*RK-stage/s) of rhs over 1200 stages, and the
         twin's rate, printed."""
@@ -906,10 +1007,12 @@ def main():
     k3_bound = bound(nbytes(*k3args[:6], *k3outs),
                      ops_k3(cdisc.np_, cdisc.nq, cdisc.nh) * cne)
     k4_bound = bound(nbytes(*k4args, *k4tail, *k4out),
-                     ops_k4(2, cdisc.np_, cdisc.nq, cdisc.nfq, True) * cne)
+                     ops_k4(2, cdisc.np_, cdisc.nq, cdisc.nfq, k4args,
+                            k4tail[1]) * cne)
     del ctwin, k4out
 
     # ---- 9. 3D cavity kernels against their plain versions ----
+    stamp("9")
     hdisc, hq, hbc, hp = cavity_case("isothermal", CAV3_N, CAV3_K1D,
                                      torch.float32, dev, dim=3)
     herrs, hins, k1outs = cavity_kernels(
@@ -926,6 +1029,7 @@ def main():
     del d4, q4, bc4, d3, q3, bc3
 
     # ---- 10. the 3D cavity path ----
+    stamp("10")
     hdisc, hq0, hbc, hp = lid_driven_cavity_3d(CAV3_N, CAV3_K1D,
                                                dtype=torch.float32,
                                                device=dev)
@@ -996,6 +1100,7 @@ def main():
     del edisc, eq0, eq
 
     # ---- 11. 3D cavity timing ----
+    stamp("11")
     hdof = 5 * hdisc.np_ * hdisc.num_elements
     hstage_ms, _ = path_timing(
         "3D cavity path (K1+exchange+K4+exchange+LIFT, LSRK45)", hrhs, hq0,
@@ -1030,10 +1135,12 @@ def main():
         lambda: lsrk45(hrhs, hq0, CAV_TIMED_DT, 4), 20))
     hne = hdisc.num_elements
     h4_bound = bound(nbytes(*h4args, *h4tail, *h4out),
-                     ops_k4(3, hdisc.np_, hdisc.nq, hdisc.nfq, False) * hne)
+                     ops_k4(3, hdisc.np_, hdisc.nq, hdisc.nfq, h4args,
+                            h4tail[1]) * hne)
     del htwin, h4out
 
     # ---- 12. the split path (K8 then K7) on both cavities ----
+    stamp("12")
     split_rows = {}
     for label, disc, q0, pflags, vol, ins, small in (
             ("tri", cdisc, cq0, flags, "fused", cins,
@@ -1093,12 +1200,13 @@ def main():
             k8_bound=bound(nbytes(*a8, *o8),
                            ops_face(disc.dim, False) * disc.nfq * ne),
             k7_bound=bound(nbytes(*a7, *(o7 if proj else o7[:3])),
-                           ops_visc(disc.dim, disc.np_, disc.nq, disc.nfq,
-                                    proj) * ne))
+                           ops_visc(disc.dim, disc.nq, disc.nfq, *a7[6:10])
+                           * ne))
         del split, merged, sqf, o8, o7
 
 
     # ---- 13. curved Euler kernels against their plain versions ----
+    stamp("13")
     vdisc, vq0 = euler_hex_3d(n=N, k1d=K1D, curved=True,
                               dtype=torch.float32, device=dev)
     if vdisc.geo.shape[1] != vdisc.nh or fv.detect_axis_aligned(vdisc):
@@ -1117,6 +1225,7 @@ def main():
     del d_
 
     # ---- 14. the curved Euler path ----
+    stamp("14")
     vrhs = make_euler_rhs_fused(vdisc, dissipation=True)
     zero_counts()
     vqf, _ = lsrk45(vrhs, vq0, DT, STEPS)
@@ -1196,6 +1305,7 @@ def main():
     del vqt, vql, vtwin, ltwin
 
     # ---- 15. curved Euler timing ----
+    stamp("15")
     vstep_ms = cuda_ms(lambda: lsrk45(vrhs, vq0, DT, TIMED_STEPS), 1)
     vstage_ms = vstep_ms / (5 * TIMED_STEPS)
     print(f"[{card}] curved path (K1c+exchange+K2, LSRK45): "
@@ -1222,12 +1332,14 @@ def main():
     vne = vdisc.num_elements
     k1c_bound = bound(nbytes(cvargs[0], cvargs[2], cvargs[3], *ckouts[:2])
                       + line_metric_bytes(N + 1, vne, 4),
-                      ops_k1(N + 1, "curved") * vne)
+                      ops_k1(N + 1, entries(cvargs[2]), entries(cvargs[3]),
+                             "curved") * vne)
     k2c_bound = bound(nbytes(*csargs[:8], ckouts[2]),
-                      ops_k2(N + 1, diag=False) * vne)
+                      ops_k2(N + 1, entries(csargs[6]), diag=False) * vne)
     del vrhs, ckouts, csargs
 
     # ---- 16. the flux-differencing kernels against their plain versions --
+    stamp("16")
     def fd_case(kind, disc, q, tag):
         """Row 10 ('lines'), K5 ('dense') or K3c ('modal') on (disc, q)
         against the plain version; returns (max abs error, the call, the
@@ -1334,6 +1446,7 @@ def main():
     del vdisc, vq0, vq, vqf, wdisc, wq
 
     # ---- 17. the cavity twin with the dense kernel (K5) ----
+    stamp("17")
     ptwin = make_cns_rhs(cdisc, flux_diff_impl="pallas", **flags)
     zero_counts()
     cqp, _ = lsrk45(ptwin, cq0, CAV_DT, CAV_STEPS)
@@ -1355,6 +1468,273 @@ def main():
           f"{ms / (5 * TWIN_TIMED_STEPS):.4f} ms/stage over "
           f"{5 * TWIN_TIMED_STEPS} stages, median of {REPEATS}")
     del ptwin, cqp, cqt
+
+    # ---- 18. split volume kernels against their plain versions ----
+    stamp("18")
+    def split_case(disc, q, tag, random_geo=None):
+        """The projection, the fd of each direction (diag on the mesh's
+        metric; general on random_geo), the dense fd, the split stage and
+        K2 against their plain versions; returns ({kernel: max abs error},
+        {kernel: (call, plain call)}, inputs and outputs for the bounds)."""
+        tol = TOL[dtype_name(q)]
+        lo, ef = disc.line_ops, disc.vhp[disc.nq:]
+        errs, calls = {}, {}
+        errs["proj"] = held("hex_project", tag, fv.hex_project(q, ef, gamma),
+                            fv.hex_project_plain(q, ef, gamma), tol,
+                            ("qh", "qlog", "traces"))
+        calls["proj"] = (lambda: fv.hex_project(q, ef, gamma),
+                         lambda: fv.hex_project_plain(q, ef, gamma))
+        qh, qlog, _ = fv.hex_project_plain(q, ef, gamma)
+        forms = [("diag", disc.geo, True)]
+        if random_geo is not None:
+            forms.append(("general, random metric", random_geo, False))
+        errs["fd"] = errs["dense"] = 0.0
+        for d in range(3):
+            for label, geo, diag in forms:
+                kw = dict(line_ops=lo, d=d, diag=diag)
+                errs["fd"] = max(errs["fd"], held(
+                    "hex_fd_dir", f"{tag} d={d} {label}",
+                    (fv.hex_fd_dir(qh, qlog, geo, gamma, **kw),),
+                    (fv.hex_fd_dir_plain(qh, qlog, geo, gamma, **kw),), tol,
+                    ("out",)))
+                calls[f"fd{d}"] = (
+                    lambda kw=kw: fv.hex_fd_dir(qh, qlog, disc.geo, gamma,
+                                                **dict(kw, diag=True)),
+                    lambda kw=kw: fv.hex_fd_dir_plain(qh, qlog, disc.geo,
+                                                      gamma,
+                                                      **dict(kw, diag=True)))
+            for label, geo, _ in forms:
+                kw = dict(line_ops=lo, d=d)
+                errs["dense"] = max(errs["dense"], held(
+                    "hex_fd_dir_dense", f"{tag} d={d} {label.split(',')[-1]}",
+                    (fv.hex_fd_dir_dense(qh, qlog, geo, gamma, **kw),),
+                    (fv.hex_fd_dir_dense_plain(qh, qlog, geo, gamma, **kw),),
+                    tol, ("out",)))
+                calls[f"dense{d}"] = (
+                    lambda kw=kw: fv.hex_fd_dir_dense(qh, qlog, disc.geo,
+                                                      gamma, **kw),
+                    lambda kw=kw: fv.hex_fd_dir_dense_plain(
+                        qh, qlog, disc.geo, gamma, **kw))
+        vkw = dict(line_ops=lo, diag=True)
+        vargs = (q, disc.geo, ef, disc.lift, gamma)
+        held("euler_volume_split", tag, fv.euler_volume_split(*vargs, **vkw),
+             fv.euler_volume_split_plain(*vargs, **vkw), tol,
+             ("ph_qf", "traces"))
+        ph_qf, tr = fv.euler_volume_split_plain(*vargs, **vkw)
+        nbr = disc.gather_traces(tr)
+        nxj = (disc.nxj[0] + disc.nxj[1] + disc.nxj[2])[None]
+        sargs = (tr, nbr, nxj, disc.sj, disc.inv_sj, disc.inv_jac[:1],
+                 disc.lift, ph_qf, gamma)
+        skw = dict(dissipation=True, diag=True)
+        errs["k2"] = held(f"K2 euler_surface (N+1={lo.n1d})", tag,
+                          (fv.euler_surface(*sargs, **skw),),
+                          (fv.euler_surface_plain(*sargs, **skw),), tol,
+                          ("dq",))
+        calls["k2"] = (lambda: fv.euler_surface(*sargs, **skw),
+                       lambda: fv.euler_surface_plain(*sargs, **skw))
+        parts = [fv.hex_fd_dir(qh, qlog, disc.geo, gamma, line_ops=lo, d=d,
+                               diag=True) for d in range(3)]
+        calls["combine"] = (lambda: fv.split_combine(parts, disc.lift, lo),
+                            None)
+        calls["exchange"] = (lambda: disc.gather_traces(tr), None)
+        io = dict(q=q, ef=ef, qh=qh, qlog=qlog, tr=tr, out=parts[0],
+                  sargs=sargs, dq=fv.euler_surface_plain(*sargs, **skw))
+        return errs, calls, io
+
+    d7, q7_0 = euler_hex_3d(n=N7, k1d=N7_K1D, dtype=torch.float32,
+                            device=dev)
+    if not fv.detect_axis_aligned(d7):
+        raise AssertionError("the N=7 k1d=16 mesh must be detected "
+                             "axis-aligned")
+    q7 = random_state(d7, 9)
+    n7_errs, n7_calls, n7_io = split_case(
+        d7, q7, f"N=7 k1d={N7_K1D} f32 (the N=7 path)",
+        random_affine(d7)[0])
+    d4, _ = euler_hex_3d(n=N4, k1d=N4_K1D, dtype=torch.float32, device=dev)
+    q4m = random_state(d4, 10)
+    n4_errs, n4_calls, n4_io = split_case(
+        d4, q4m, f"N=4 k1d={N4_K1D} f32 (the N=4 bench mesh)",
+        random_affine(d4)[0])
+    for n_, k1d in ((N4, 4), (N7, 3)):
+        d_, _ = euler_hex_3d(n=n_, k1d=k1d, dtype=torch.float64, device=dev)
+        split_case(d_, random_state(d_, 11), f"N={n_} k1d={k1d} f64"
+                   + (" (K=27, ragged)" if k1d == 3 else ""),
+                   random_affine(d_)[0])
+    del d_
+
+    # ---- 19. the N=7 path ----
+    stamp("19")
+    from esdg_cns_tpu_torch.solvers.euler_fused import resolve_volume_mode
+
+    if resolve_volume_mode(d7) != "split":
+        raise AssertionError("'auto' must resolve to the split path at N=7")
+    rhs7 = make_euler_rhs_fused(d7, dissipation=True, force_fused=True)
+    zero_counts()
+    q7f, _ = lsrk45(rhs7, q7_0, N7_DT, STEPS)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n7_launches = {k: counts[k] for k in ("hex_project", "hex_fd_dir",
+                                          "euler_surface", "euler_volume",
+                                          "hex_fd_dir_dense")}
+    print(f"N=7 path: {STEPS} LSRK45 steps ({5 * STEPS} stages) at "
+          f"dt={N7_DT:g}, launches {n7_launches}")
+    want = {"hex_project": 5 * STEPS, "hex_fd_dir": 15 * STEPS,
+            "euler_surface": 5 * STEPS, "euler_volume": 0,
+            "hex_fd_dir_dense": 0}
+    if n7_launches != want:
+        raise AssertionError(f"expected launches {want} on the N=7 path")
+    if q7f.dtype != torch.float32 or not bool(torch.isfinite(q7f).all()):
+        raise AssertionError("N=7 state not finite f32")
+    twin7 = make_euler_rhs(d7, dissipation=True, flux_diff_impl="lines",
+                           compute_rhstest=False)
+    q7t, _ = lsrk45(twin7, q7_0, N7_DT, STEPS)
+    e_twin7, _ = rel_err(q7f, q7t)
+    print(f"N=7 split path vs plain twin after {STEPS} steps: rel "
+          f"{e_twin7:.3e} (tol {TWIN_TOL_F32:.0e})")
+    if not e_twin7 <= TWIN_TOL_F32:
+        raise AssertionError("N=7 path disagrees with the plain twin")
+    check_conservation(d7, q7_0, q7f, "N=7 path ")
+    del q7t
+    d3_, _ = euler_hex_3d(n=N7, k1d=3, dtype=torch.float64, device=dev)
+    zero_counts()
+    _, aux = make_euler_rhs_fused(d3_, dissipation=False, force_fused=True,
+                                  compute_rhstest=True)(random_state(d3_, 12))
+    rt = float(aux["rhstest"])
+    print(f"f64 N=7 k1d=3 kernel path (launches {read_counts()}), "
+          f"dissipation off: rhstest {rt:.3e} (tol {RHSTEST_TOL_F64:.0e})")
+    if not abs(rt) <= RHSTEST_TOL_F64:
+        raise AssertionError("entropy conservation violated (N=7)")
+    del d3_
+
+    # ---- 20. the N=4 volume modes ----
+    stamp("20")
+    mode_rhs = {m: make_euler_rhs_fused(d4, dissipation=True, volume_mode=m)
+                for m in N4_MODES}
+    ref4 = mode_rhs["auto"](q4m)[0]
+    d4s, _ = euler_hex_3d(n=N4, k1d=4, dtype=torch.float64, device=dev)
+    q4s = random_state(d4s, 13)
+    ref4s = make_euler_rhs_fused(d4s)(q4s)[0]
+    mode_launches = {}
+    for m in N4_MODES[1:]:
+        e32, _ = rel_err(mode_rhs[m](q4m)[0], ref4)
+        e64, _ = rel_err(make_euler_rhs_fused(d4s, volume_mode=m)(q4s)[0],
+                         ref4s)
+        print(f"N=4 volume_mode={m!r} vs 'auto' (K1), one RHS on a moving "
+              f"state: f32 k1d={N4_K1D} rel {e32:.3e} (tol "
+              f"{TOL['float32']:.0e}), f64 k1d=4 rel {e64:.3e} (tol "
+              f"{TOL['float64']:.0e})")
+        if not (e32 <= TOL["float32"] and e64 <= TOL["float64"]):
+            raise AssertionError(f"volume_mode={m!r} disagrees with K1")
+    del d4s, q4s, ref4s, ref4
+    q4_0 = euler_hex_3d(n=N4, k1d=N4_K1D, dtype=torch.float32,
+                        device=dev)[1]
+    for m in N4_MODES:
+        zero_counts()
+        q4f, _ = lsrk45(mode_rhs[m], q4_0, DT, STEPS)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        mode_launches[m] = counts
+        print(f"N=4 volume_mode={m!r}: {STEPS} steps, launches {counts}")
+        dense = m == "split_dense"
+        want = ({"euler_volume": 5 * STEPS, "euler_surface": 5 * STEPS}
+                if m == "auto" else
+                {"hex_project": 5 * STEPS, "euler_surface": 5 * STEPS,
+                 ("hex_fd_dir_dense" if dense else "hex_fd_dir"): 15 * STEPS})
+        if counts != want:
+            raise AssertionError(f"expected launches {want} for {m!r}")
+        if not bool(torch.isfinite(q4f).all()):
+            raise AssertionError(f"N=4 {m!r} state not finite")
+    del q4f
+
+    # ---- 21. split timing ----
+    stamp("21")
+    dof7 = 5 * d7.np_ * d7.num_elements
+    step7_ms = cuda_ms(lambda: lsrk45(rhs7, q7_0, N7_DT, TIMED_STEPS), 1)
+    stage7_ms = step7_ms / (5 * TIMED_STEPS)
+    print(f"[{card}] N=7 path (split: projection+3 fd+combine+exchange+K2, "
+          f"LSRK45): {dof7 * 5 * TIMED_STEPS / (step7_ms / 1e3):.4e} "
+          f"DOF*RK-stage/s, {stage7_ms:.4f} ms/stage over "
+          f"{5 * TIMED_STEPS} stages, median of {REPEATS}")
+    twin7_ms = cuda_ms(lambda: lsrk45(twin7, q7_0, N7_DT, TWIN_TIMED_STEPS),
+                       1)
+    print(f"[{card}] N=7 plain twin 'lines': "
+          f"{dof7 * 5 * TWIN_TIMED_STEPS / (twin7_ms / 1e3):.4e} "
+          f"DOF*RK-stage/s, {twin7_ms / (5 * TWIN_TIMED_STEPS):.4f} ms/stage")
+    del twin7
+    n7_times = {}
+    for key, label in (("proj", "hex_project"), ("fd0", "hex_fd_dir d=0"),
+                       ("fd1", "hex_fd_dir d=1"), ("fd2", "hex_fd_dir d=2"),
+                       ("dense0", "hex_fd_dir_dense d=0"),
+                       ("dense1", "hex_fd_dir_dense d=1"),
+                       ("dense2", "hex_fd_dir_dense d=2"),
+                       ("combine", "combine (plain: sums, 1/w, LIFT matmul)"),
+                       ("exchange", "trace exchange (rolls)"),
+                       ("k2", "K2 euler_surface N+1=8")):
+        call, plain = n7_calls[key]
+        ms = dev_ms(call, 20)
+        pms = dev_ms(plain, 2) if plain is not None else None
+        n7_times[key] = (ms, pms)
+        print(f"[{card}] {label} N=7 k1d={N7_K1D} f32: kernel {ms:.4f} ms"
+              + (f", plain {pms:.4f} ms ({pms / ms:.1f}x)" if pms else "")
+              + ", device time")
+    fd_ms = sum(n7_times[f"fd{d}"][0] for d in range(3))
+    split7 = (n7_times["proj"][0] + fd_ms + n7_times["combine"][0]
+              + n7_times["exchange"][0] + n7_times["k2"][0])
+    print(f"[{card}] N=7 stage: projection {n7_times['proj'][0]:.4f} + fd "
+          f"{fd_ms:.4f} + combine {n7_times['combine'][0]:.4f} + exchange "
+          f"{n7_times['exchange'][0]:.4f} + K2 {n7_times['k2'][0]:.4f} = "
+          f"{split7:.4f} ms of {stage7_ms:.4f} ms")
+    stage7_dev_ms = dev_ms(lambda: lsrk45(rhs7, q7_0, N7_DT, 10), 1) / 50
+    print(f"[{card}] N=7 stage device time (queued ahead of the device): "
+          f"{stage7_dev_ms:.4f} ms of {stage7_ms:.4f} ms")
+    print_profile(card, "N=7 path", device_profile(
+        lambda: lsrk45(rhs7, q7_0, N7_DT, 4), 20))
+    dof4 = 5 * d4.np_ * d4.num_elements
+    ef4 = d4.vhp[d4.nq:]
+    vol4 = {m: (lambda m=m: (fv.euler_volume_split if m.startswith("split")
+                             else fv.euler_volume)(
+        q4m, d4.geo, ef4, d4.lift, gamma, line_ops=d4.line_ops,
+        **({"dense": True} if m == "split_dense" else {"diag": True}),
+        **({"pad_x": True} if m == "split_pad8" else {})))
+        for m in N4_MODES}
+    for m in N4_MODES:
+        ms = cuda_ms(lambda: lsrk45(mode_rhs[m], q4_0, DT, N4_TIMED_STEPS),
+                     1)
+        vms = dev_ms(vol4[m], 20)
+        sdev = dev_ms(lambda: lsrk45(mode_rhs[m], q4_0, DT, 10), 1) / 50
+        print(f"[{card}] N=4 k1d={N4_K1D} volume_mode={m!r}: "
+              f"{dof4 * 5 * N4_TIMED_STEPS / (ms / 1e3):.4e} DOF*RK-stage/s, "
+              f"{ms / (5 * N4_TIMED_STEPS):.4f} ms/stage over "
+              f"{5 * N4_TIMED_STEPS} stages, median of {REPEATS}; stage "
+              f"queued ahead of the device {sdev:.4f} ms; volume stage "
+              f"{vms:.4f} ms (device time)")
+    for key, label in (("proj", "hex_project"), ("fd0", "hex_fd_dir d=0"),
+                       ("dense0", "hex_fd_dir_dense d=0"),
+                       ("k2", "K2 euler_surface N+1=5")):
+        print(f"[{card}] {label} N=4 k1d={N4_K1D} f32: "
+              f"{dev_ms(n4_calls[key][0], 20):.4f} ms, device time")
+    ne7 = d7.num_elements
+    nq7, nfp7 = d7.nq, d7.nfq // 6
+    itemsize = 4
+    proj_bound = bound(nbytes(n7_io["q"], n7_io["ef"], n7_io["qh"],
+                              n7_io["qlog"], n7_io["tr"]),
+                       ops_project(N7 + 1, entries(n7_io["ef"])) * ne7)
+    # one direction reads its volume points and its two faces' points of
+    # qh and qlog (7 rows), one metric row (diag; three for the dense
+    # form's contraction) and writes [5, Nq + 2 Nfp, K]
+    fd_in = 7 * (nq7 + 2 * nfp7) * ne7 * itemsize
+    fd_bound = bound(fd_in + ne7 * itemsize + nbytes(n7_io["out"]),
+                     PAIR_3D["diag"] * line_pairs(N7 + 1) // 3 * ne7)
+    dense_bound = bound(fd_in + 3 * ne7 * itemsize + nbytes(n7_io["out"]),
+                        PAIR_3D["general"] * line_pairs(N7 + 1) // 3 * ne7)
+    sa = n7_io["sargs"]
+    k2n8_bound = bound(nbytes(*sa[:3], sa[5], sa[6], sa[7], n7_io["dq"]),
+                       ops_k2(N7 + 1, entries(sa[6])) * ne7)
+    fd_avg = fd_ms / 3
+    fd_plain_avg = sum(n7_times[f"fd{d}"][1] for d in range(3)) / 3
+    dense_avg = sum(n7_times[f"dense{d}"][0] for d in range(3)) / 3
+    dense_plain_avg = sum(n7_times[f"dense{d}"][1] for d in range(3)) / 3
+    del rhs7, mode_rhs, vol4, n7_calls, n4_calls, n7_io, n4_io, d4, q4m
 
     hex_split = split_rows["hex"]
     rows = [
@@ -1394,10 +1774,29 @@ def main():
         ("flux_differencing_lines_fused", "hex_lines.cu",
          "tensor_product_fd.py:506", lines_launches, fd_rows["lines"][0],
          r10_ms, r10_plain_ms, r10_bound),
+        # the split path: launches over the N=7 path's 100 stages (the
+        # dense fd: the N=4 'split_dense' run's); ms per launch at N=7
+        # k1d=16 (the fd: the mean of the three directions)
+        ("hex_project", "hex_split.cu", "pallas_volume.py:429",
+         n7_launches["hex_project"], n7_errs["proj"], *n7_times["proj"],
+         proj_bound),
+        ("hex_fd_dir", "hex_split.cuh", "pallas_volume.py:451",
+         n7_launches["hex_fd_dir"], n7_errs["fd"], fd_avg, fd_plain_avg,
+         fd_bound),
+        ("hex_fd_dir_dense", "hex_split.cuh", "pallas_volume.py:930",
+         mode_launches["split_dense"]["hex_fd_dir_dense"], n7_errs["dense"],
+         dense_avg, dense_plain_avg, dense_bound),
+        ("euler_surface_n8", "hex_surface.cu", "pallas_volume.py:1146",
+         n7_launches["euler_surface"], n7_errs["k2"], *n7_times["k2"],
+         k2n8_bound),
     ]
-    for name, *_, ms, _, (bms, by) in rows:
+    for name, *_, ms, pms, (bms, by) in rows:
         print(f"[{card}] {name}: bound {bms:.4f} ms by {by}, kernel "
-              f"{ms:.4f} ms ({bms / ms:.1%} of the bound)")
+              f"{ms:.4f} ms ({bms / ms:.1%} of the bound), plain "
+              f"{pms:.4f} ms ({pms / ms:.2f}x the kernel's time)")
+    slower = [name for name, *_, ms, pms, _ in rows if ms > pms]
+    print(f"[{card}] kernels slower than their plain version: "
+          f"{', '.join(slower) if slower else 'none'}")
     for label in ("tri",):
         sr = split_rows[label]
         for key, bkey in (("K8 cns_surface", "k8_bound"),
@@ -1422,7 +1821,7 @@ def main():
     return 0
 
 if __name__ == "__main__":
-    t0 = time.perf_counter()
     rc = main()
-    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s",
+          file=sys.stderr)
     sys.exit(rc)

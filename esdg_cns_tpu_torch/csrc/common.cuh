@@ -11,6 +11,11 @@
 
 namespace esdg {
 
+constexpr size_t kMaxSmem = 232448;  // 227 KB usable per block on sm_90
+
+// the line lengths the split volume path builds: N = 1..7
+#define ESDG_SPLIT_N1(X) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
+
 // Scalar constants derived from gamma in double and rounded once to T,
 // as the reference does with its Python-float constants.
 template <typename T>
@@ -74,16 +79,27 @@ __device__ __forceinline__ EcPairN<T, DIM> ec_pair_n(const T* L, const T* R,
   return p;
 }
 
+// v[d] by selects, so a d known only at run time indexes no register
+// array (which would put it in local memory)
+template <typename T, int DIM>
+__device__ __forceinline__ T pick(const T* v, int d) {
+  T x = v[0];
+#pragma unroll
+  for (int j = 1; j < DIM; ++j) x = (j == d) ? v[j] : x;
+  return x;
+}
+
 // EC flux along direction d: f = (f_rho, f_m1..DIM, f_E)
 template <typename T, int DIM>
 __device__ __forceinline__ void ec_dir_n(const EcPairN<T, DIM>& p, int d,
                                          T* f) {
-  const T f1 = p.rholog * p.velavg[d];
+  const T vd = pick<T, DIM>(p.velavg, d);
+  const T f1 = p.rholog * vd;
   f[0] = f1;
 #pragma unroll
   for (int j = 0; j < DIM; ++j)
     f[1 + j] = (j == d) ? f1 * p.velavg[j] + p.pa : f1 * p.velavg[j];
-  f[DIM + 1] = p.e_plus_p * p.velavg[d];
+  f[DIM + 1] = p.e_plus_p * vd;
 }
 
 // Metric-contracted 3D EC flux sum_x g[x] F_x(L, R).  DIAG: axis-aligned
@@ -110,13 +126,71 @@ __device__ __forceinline__ void contracted_flux(const T* L, const T* R,
   }
 }
 
+// The node lines of the Gauss-collocated hex, volume node
+// i = a0 + N1 a1 + N1^2 a2: line L of direction d holds the volume nodes
+// line_base(d, L) + a line_stride(d), a = 0..N1-1, and pierces face point
+// L of faces 2d and 2d+1 (face point (2d + side) N1^2 + L).  Ef and LIFT
+// touch nothing else: row fp of Ef and column fp of LIFT are zero off the
+// line of face point fp, up to the roundoff of the 1D interpolation.
+template <int N1>
+__device__ __forceinline__ int line_stride(int d) {
+  return d == 0 ? 1 : (d == 1 ? N1 : N1 * N1);
+}
+template <int N1>
+__device__ __forceinline__ int line_base(int d, int L) {
+  return d == 0 ? N1 * L : (d == 1 ? (L % N1) + N1 * N1 * (L / N1) : L);
+}
+// the line of direction d through volume node i
+template <int N1>
+__device__ __forceinline__ int node_line(int d, int i) {
+  return d == 0 ? i / N1
+                : (d == 1 ? (i % N1) + N1 * (i / (N1 * N1)) : i % (N1 * N1));
+}
+
+// s[f] += sum_j Ef[fp, j] v(f, j) over the N1 volume nodes of face point
+// fp's line: Ef v at one face point (ef [Nfq, Nq]).
+template <typename T, int N1, typename V>
+__device__ __forceinline__ void ef_line(const T* __restrict__ ef, int fp,
+                                        V v, T s[5]) {
+  constexpr int NQ = N1 * N1 * N1, NFP = N1 * N1;
+  const int d = fp / (2 * NFP), L = fp % NFP;
+  const int base = line_base<N1>(d, L), stride = line_stride<N1>(d);
+  const T* erow = ef + fp * NQ;
+#pragma unroll
+  for (int a = 0; a < N1; ++a) {
+    const int j = base + a * stride;
+    const T e = __ldg(erow + j);
+#pragma unroll
+    for (int f = 0; f < 5; ++f) s[f] += e * v(f, j);
+  }
+}
+
+// s[f] += sum_fp LIFT[i, fp] x(f, fp) over the six face points of volume
+// node i's three lines: LIFT x at one volume node (lift [Nq, Nfq]).
+template <typename T, int N1, typename X>
+__device__ __forceinline__ void lift_lines(const T* __restrict__ lift, int i,
+                                           X x, T s[5]) {
+  constexpr int NFP = N1 * N1, NFQ = 6 * NFP;
+  const T* lrow = lift + i * NFQ;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    const int L = node_line<N1>(d, i);
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      const int fp = (2 * d + side) * NFP + L;
+      const T a = __ldg(lrow + fp);
+#pragma unroll
+      for (int f = 0; f < 5; ++f) s[f] += a * x(f, fp);
+    }
+  }
+}
+
 // Largest tile of elements (32, 16, 8, 4, 2 or 1) whose shared memory,
 // fixed + per_elem * te values of T, fits in a block.
 template <typename T>
-inline int tile_elements(size_t fixed, size_t per_elem) {
-  constexpr size_t kMax = 232448;  // 227 KB usable per block on sm_90
+constexpr int tile_elements(size_t fixed, size_t per_elem) {
   for (int te = 32; te >= 1; te /= 2)
-    if ((fixed + per_elem * te) * sizeof(T) <= kMax) return te;
+    if ((fixed + per_elem * te) * sizeof(T) <= kMaxSmem) return te;
   return 0;
 }
 

@@ -1,0 +1,5 @@
+// Direction 2 of the split volume path's flux-differencing kernel
+// (hex_split.cuh, entry esdg_hex_fd_dir in hex_split.cu).
+#include "hex_split.cuh"
+
+template int esdg::fd_dir_direction<2>(ESDG_FD_DIRECTION_ARGS);

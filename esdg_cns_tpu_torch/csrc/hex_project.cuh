@@ -1,0 +1,91 @@
+// The entropy projection of collocated hex elements, shared by K1
+// (hex_volume.cu) and the split path's projection kernel (hex_split.cu),
+// so the two cannot drift.  It replaces
+// esdg_cns_tpu/ops/pallas_volume.py::_entropy_project_hex, the projection
+// both TPU kernels (_volume_kernel, _proj_kernel) run:
+//   1. entropy variables v(U) at the Nq collocated volume nodes;
+//   2. the face extrapolation Ef v ([Nfq x Nq] per field), over the N+1
+//      volume nodes of each face point's line (common.cuh's ef_line: the
+//      rest of the row is zero up to roundoff);
+//   3. U(v_f) at the Nfq face points (pow/exp of the inverse map);
+//   4. flux variables (rho, u, beta) and (log rho, log beta) at all
+//      Nh = Nq + Nfq points, handed to the caller.
+// A block owns TE elements (threadIdx.x, so the K-last loads and stores
+// coalesce) and NW workers (threadIdx.y) per element.  v at the volume
+// nodes is staged in vbuf [5][NQ][TE] (shared memory: a face point reads
+// its line's nodes, which other workers wrote).  Lanes past K compute on the
+// quiescent state (rho=1, m=0, E=1) and store nothing.
+#pragma once
+
+#include "common.cuh"
+
+namespace esdg {
+
+// put(r, node, value) receives row r (0..6) of the flux variables at
+// hybridized point node (volume nodes first, then face point fp at
+// NQ + fp); traces [7, NFQ, K] receives the face points' rows.  vbuf may be
+// reused once this returns (it ends with a barrier).  Every thread of the
+// block calls it.
+template <typename T, int N1, int TE, int NW, typename Put>
+__device__ __forceinline__ void entropy_project(const T* __restrict__ q,
+                                                const T* __restrict__ ef,
+                                                T* vbuf, T* __restrict__ traces,
+                                                long long K, long long k,
+                                                bool live, const Consts<T>& c,
+                                                Put put) {
+  constexpr int NQ = N1 * N1 * N1, NFQ = 6 * N1 * N1;
+  const int e = threadIdx.x;
+  const int w = threadIdx.y;
+  auto V = [&](int f, int node) -> T& { return vbuf[(f * NQ + node) * TE + e]; };
+
+  // ---- 1. v(U) at the volume nodes + volume flux variables ----
+  for (int i = w; i < NQ; i += NW) {
+    T u[5] = {T(1), T(0), T(0), T(0), T(1)};  // quiescent past K
+    if (live) {
+#pragma unroll
+      for (int f = 0; f < 5; ++f) u[f] = q[(long long)(f * NQ + i) * K + k];
+    }
+    const T rho = u[0], E = u[4];
+    const T rhou2 = u[1] * u[1] + u[2] * u[2] + u[3] * u[3];
+    const T p = c.gm1 * (E - (T(0.5) * rhou2) / rho);
+    const T s = log(p) - c.gamma * log(rho);
+    V(0, i) = (c.gamma_p1 - s) - (c.gm1 * E) / p;
+#pragma unroll
+    for (int j = 1; j < 4; ++j) V(j, i) = (c.gm1 * u[j]) / p;
+    V(4, i) = (-c.gm1 * rho) / p;
+    const T beta = rho / (T(2) * p);
+    put(0, i, rho);
+#pragma unroll
+    for (int j = 1; j < 4; ++j) put(j, i, u[j] / rho);
+    put(4, i, beta);
+    put(5, i, log(rho));
+    put(6, i, log(beta));
+  }
+  __syncthreads();
+
+  // ---- 2.-4. v_f = Ef v, U(v_f), face flux variables and traces ----
+  for (int fp = w; fp < NFQ; fp += NW) {
+    T fv[5] = {T(0), T(0), T(0), T(0), T(0)};
+    ef_line<T, N1>(ef, fp, V, fv);
+    const T vnorm = fv[1] * fv[1] + fv[2] * fv[2] + fv[3] * fv[3];
+    const T sf = (c.gamma - fv[0]) + vnorm / (T(2) * fv[4]);
+    const T rhoe =
+        pow(c.gm1 / pow(-fv[4], c.gamma), c.inv_gm1) * exp(-sf / c.gm1);
+    const T frho = rhoe * (-fv[4]);
+    const T fm1 = rhoe * fv[1], fm2 = rhoe * fv[2], fm3 = rhoe * fv[3];
+    const T fe = rhoe * (T(1) - vnorm / (T(2) * fv[4]));
+    const T fpress =
+        c.gm1 * (fe - (T(0.5) * (fm1 * fm1 + fm2 * fm2 + fm3 * fm3)) / frho);
+    const T fbeta = frho / (T(2) * fpress);
+    const T vals[7] = {frho,  fm1 / frho, fm2 / frho,     fm3 / frho,
+                       fbeta, log(frho),  log(fbeta)};
+#pragma unroll
+    for (int r = 0; r < 7; ++r) {
+      put(r, NQ + fp, vals[r]);
+      if (live) traces[(long long)(r * NFQ + fp) * K + k] = vals[r];
+    }
+  }
+  __syncthreads();  // v is read by every worker above
+}
+
+}  // namespace esdg

@@ -9,7 +9,9 @@
 // conservative states and wavespeeds rebuilt pointwise from the flux
 // variables (p = rho / (2 beta)); then per element
 //   dq = -(ph_qf + LIFT flux) (1/J)
-// with the [Nq x Nfq] LIFT contraction in this kernel.
+// with the [Nq x Nfq] LIFT contraction in this kernel, over the six face
+// points of each volume node's three lines (common.cuh's lift_lines: LIFT
+// is zero elsewhere up to roundoff).
 // Variants: DIAG (axis-aligned mesh) takes the compact one-row normal
 // nxj [1, Nfq, K], derives sj = |nxj| and 1/sj in-kernel, takes the
 // normal momentum from component d of face group d and inv_jac [1, K];
@@ -17,26 +19,36 @@
 // inv_jac [Nq, K].
 //
 // What bounds it on this card: one two-point flux (five divisions, two
-// logarithmic means), two square roots and the 5 x Nq x Nfq LIFT
-// multiply-adds per element; it streams traces and neighbour traces
-// (2 x 88 MB in f32 at K=32768), the normal, ph_qf and the output
-// (about 0.27 GB per RHS), so it sits between that HBM stream and the
-// shared-memory reads of the LIFT product.
+// logarithmic means) and two square roots per face point and 5 x 6
+// LIFT multiply-adds per volume node; it streams traces and neighbour
+// traces (2 x 88 MB in f32 at K=32768), the normal, ph_qf and the output
+// (about 0.27 GB per RHS), and that HBM stream is its bound.
 //
-// Simple design: a block owns 32 elements (threadIdx.x, so the K-last
-// loads and stores coalesce) and 8 workers; the workers first write the
-// element's [5 x Nfq] interface flux to shared memory (123 KB per block
-// in f64 at N=3), then each computes output nodes with the LIFT row
-// read through the read-only cache (the same address for all 32 lanes
-// of a warp).  Lanes past K compute on a quiescent state and store
+// Simple design: a block owns TE elements (threadIdx.x, so the K-last
+// loads and stores coalesce) and 256 / TE workers; the workers first write
+// the element's [5 x Nfq] interface flux to shared memory (123 KB per
+// block in f64 at N=3), then each computes output nodes with the LIFT
+// entries read through the read-only cache (the same address for all
+// lanes of the element row).  TE is the largest of 32, 16, 8 whose tile
+// fits in shared memory: in f32 32 up to N+1 = 7 and 16 at N+1 = 8; in
+// f64 32 up to N+1 = 5, 16 at N+1 = 6 and 7 and 8 at N+1 = 8 (Nfq = 384).
+// Lanes past K compute on a quiescent state and store
 // nothing.  Folding the neighbour gather into this kernel (it could read
 // the neighbour's traces from global memory directly) is later work.
 #include "common.cuh"
 
 namespace esdg {
 
-constexpr int kSurfaceTE = 32;
-constexpr int kSurfaceNW = 8;
+constexpr int kSurfaceThreads = 256;
+
+template <typename T, int N1>
+struct SurfaceTile {
+  static constexpr int NFQ = 6 * N1 * N1;
+  static constexpr int TE = tile_elements<T>(0, size_t(5) * NFQ);
+  static constexpr int NW = kSurfaceThreads / TE;
+  static constexpr size_t SMEM = size_t(5) * NFQ * TE * sizeof(T);
+  static_assert(SMEM <= kMaxSmem, "surface tile exceeds shared memory");
+};
 
 template <typename T>
 __device__ __forceinline__ void conservative(const T* qv, T gm1, T u[5]) {
@@ -51,7 +63,7 @@ __device__ __forceinline__ void conservative(const T* qv, T gm1, T u[5]) {
 }
 
 template <typename T, int N1, bool DIAG>
-__global__ void __launch_bounds__(kSurfaceTE * kSurfaceNW)
+__global__ void __launch_bounds__(kSurfaceThreads)
     hex_surface_kernel(const T* __restrict__ tr, const T* __restrict__ nbr,
                        const T* __restrict__ nxj, const T* __restrict__ sj,
                        const T* __restrict__ isj,
@@ -59,8 +71,9 @@ __global__ void __launch_bounds__(kSurfaceTE * kSurfaceNW)
                        const T* __restrict__ lift,
                        const T* __restrict__ phqf, T* __restrict__ out,
                        long long K, double gamma, int dissipation) {
-  constexpr int NQ = N1 * N1 * N1, NFP = N1 * N1, NFQ = 6 * NFP;
-  constexpr int TE = kSurfaceTE, NW = kSurfaceNW;
+  using Tile = SurfaceTile<T, N1>;
+  constexpr int NQ = N1 * N1 * N1, NFP = N1 * N1, NFQ = Tile::NFQ;
+  constexpr int TE = Tile::TE, NW = Tile::NW;
   const Consts<T> c(gamma);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -116,7 +129,7 @@ __global__ void __launch_bounds__(kSurfaceTE * kSurfaceNW)
       conservative(qm, c.gm1, um);
       conservative(qp, c.gm1, up);
       auto lam = [&](const T* u) {
-        const T un = DIAG ? (u[1 + d] * n[0]) * isjv
+        const T un = DIAG ? (pick<T, 3>(u + 1, d) * n[0]) * isjv
                           : (u[1] * n[0] + u[2] * n[1] + u[3] * n[2]) * isjv;
         const T pr = c.gm1 * (u[4] - (T(0.5) * un * un) / u[0]);
         return fabs(un / u[0]) + sqrt((c.gamma * pr) / u[0]);
@@ -133,12 +146,9 @@ __global__ void __launch_bounds__(kSurfaceTE * kSurfaceNW)
   if (!live) return;  // no barrier below
   for (int i = w; i < NQ; i += NW) {
     T s[5] = {T(0), T(0), T(0), T(0), T(0)};
-    const T* lrow = lift + i * NFQ;
-    for (int fp = 0; fp < NFQ; ++fp) {
-      const T a = __ldg(lrow + fp);
-#pragma unroll
-      for (int f = 0; f < 5; ++f) s[f] += a * sflux[(f * NFQ + fp) * TE + e];
-    }
+    lift_lines<T, N1>(
+        lift, i,
+        [&](int f, int fp) { return sflux[(f * NFQ + fp) * TE + e]; }, s);
     const T ij = DIAG ? inv_jac[k] : inv_jac[(long long)i * K + k];
 #pragma unroll
     for (int f = 0; f < 5; ++f) {
@@ -153,15 +163,14 @@ int launch_surface(const void* tr, const void* nbr, const void* nxj,
                    const void* sj, const void* isj, const void* inv_jac,
                    const void* lift, const void* phqf, void* out, long long K,
                    double gamma, int dissipation, cudaStream_t stream) {
-  constexpr int NFQ = 6 * N1 * N1;
-  constexpr size_t smem = size_t(5) * NFQ * kSurfaceTE * sizeof(T);
+  using Tile = SurfaceTile<T, N1>;
   auto kern = hex_surface_kernel<T, N1, DIAG>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tile::SMEM));
   if (err != cudaSuccess) return int(err);
-  const dim3 block(kSurfaceTE, kSurfaceNW);
-  const dim3 grid(unsigned((K + kSurfaceTE - 1) / kSurfaceTE));
-  kern<<<grid, block, smem, stream>>>(
+  const dim3 block(Tile::TE, Tile::NW);
+  const dim3 grid(unsigned((K + Tile::TE - 1) / Tile::TE));
+  kern<<<grid, block, Tile::SMEM, stream>>>(
       static_cast<const T*>(tr), static_cast<const T*>(nbr),
       static_cast<const T*>(nxj), static_cast<const T*>(sj),
       static_cast<const T*>(isj), static_cast<const T*>(inv_jac),
@@ -186,6 +195,9 @@ int dispatch_surface(int n1, const void* tr, const void* nbr,
     ESDG_SURFACE_CASE(3)
     ESDG_SURFACE_CASE(4)
     ESDG_SURFACE_CASE(5)
+    ESDG_SURFACE_CASE(6)
+    ESDG_SURFACE_CASE(7)
+    ESDG_SURFACE_CASE(8)
     default:
       return -1;
   }

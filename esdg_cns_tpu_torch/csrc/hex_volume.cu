@@ -5,10 +5,12 @@
 // triangular line fd, _fd_packed on the default path).  Per element it
 // computes:
 //   1. entropy variables v(U) at the Nq collocated volume nodes;
-//   2. the face extrapolation Ef v ([Nfq x Nq] per field), in this kernel;
+//   2. the face extrapolation Ef v ([Nfq x Nq] per field), in this kernel,
+//      over the N+1 nodes of each face point's line;
 //   3. U(v_f) at the Nfq face points (pow/exp of the inverse map);
 //   4. flux variables (rho, u, beta) and (log rho, log beta) at all
-//      Nh = Nq + Nfq points, staged in shared memory;
+//      Nh = Nq + Nfq points, staged in shared memory (steps 1-4 are
+//      hex_project.cuh, shared with the split path's projection kernel);
 //   5. skew line-sparse EC flux differencing along the three directions
 //      (line_fd.cuh) with the cvol/cface tables of
 //      ops/tensor_product_fd._hex_line_coeffs: one metric term per
@@ -16,7 +18,9 @@
 //      contraction otherwise, and on curved meshes (CURVED, geo [9, Nh, K])
 //      the 3-term contraction with pairwise-averaged metrics;
 //   6. the face-row reduction (skew negatives of the vol-face couplings);
-//   7. out = 2 (1/wq) acc_vol + 2 LIFT ((1/wf) face_rows), LIFT in-kernel.
+//   7. out = 2 (1/wq) acc_vol + 2 LIFT ((1/wf) face_rows), LIFT in-kernel
+//      over the six face points of each node's three lines (common.cuh's
+//      lift_lines; Ef and LIFT are zero elsewhere up to roundoff).
 // Outputs: ph_qf [5, Nq, K] and traces [7, Nfq, K] =
 // (rho, u1, u2, u3, beta, log rho, log beta) at the face points, faces
 // r-, r+, s-, s+, t-, t+ in the face-node order of ref_hex (Ef's rows).
@@ -24,12 +28,14 @@
 // What bounds it on this card: at N=3, K=32768 each element evaluates
 // 672 two-point fluxes (3 directions x 16 lines x (6 vol-vol + 8
 // vol-face) pairs), each with five IEEE divisions and a select-guarded
-// logarithmic mean, plus 2 x 30720 multiply-adds of the dense Ef and
+// logarithmic mean, plus 2 x 1920 multiply-adds of the line-sparse Ef and
 // LIFT products.  The HBM stream is only q, the metric and the two
 // outputs (in f32: 42 MB in, 42 MB + 88 MB out, about 0.17 GB per RHS;
-// the curved metric is 189 MB, of which the kernel reads 113 MB), so the
-// kernel is bound by arithmetic and division/transcendental throughput,
-// and by shared-memory bandwidth in the two dense products — not by HBM.
+// the curved metric is 189 MB, of which the kernel reads 113 MB).  Counted
+// at the FP32 peak, with a division or logarithm as one operation, the
+// pairs take less time than that stream, so chip_smoke.py's bound is the
+// stream's; the kernel's time goes to the divisions, transcendentals and
+// shared-memory traffic of the pairs, which that count does not weigh.
 //
 // Simple design: a block owns TE elements (16, or 8 where the f64 tile
 // would not fit) and 256 threads; threadIdx.x runs over the elements, so
@@ -42,8 +48,9 @@
 // contraction, sums in another order): f32 agrees with the plain version
 // to ~1e-6 of max|out|, f64 to ~1e-14.
 //
-// Making it fast (register tiling of the lines, the sparse Ef, fewer
-// divisions, wider occupancy) is later work.
+// Making it fast (register tiling of the lines, fewer divisions, wider
+// occupancy) is later work.
+#include "hex_project.cuh"
 #include "line_fd.cuh"
 
 namespace esdg {
@@ -57,7 +64,7 @@ __global__ void __launch_bounds__(kVolumeThreads)
                       T* __restrict__ out, T* __restrict__ traces,
                       long long K, double gamma) {
   using Tile = VolumeTile<T, N1>;
-  constexpr int NQ = Tile::NQ, NFP = Tile::NFP, NFQ = Tile::NFQ;
+  constexpr int NQ = Tile::NQ;
   constexpr int NH = Tile::NH, TE = Tile::TE, NW = Tile::NW;
   const Consts<T> c(gamma);
 
@@ -71,59 +78,11 @@ __global__ void __launch_bounds__(kVolumeThreads)
   auto SH = [&](int r, int node) -> T& { return sh[(r * NH + node) * TE + e]; };
   auto ACC = [&](int f, int node) -> T& { return acc[(f * NQ + node) * TE + e]; };
 
-  // ---- 1. v(U) at the volume nodes (into acc) + volume flux variables ----
-  for (int i = w; i < NQ; i += NW) {
-    T u[5] = {T(1), T(0), T(0), T(0), T(1)};  // quiescent past K
-    if (live) {
-#pragma unroll
-      for (int f = 0; f < 5; ++f) u[f] = q[(long long)(f * NQ + i) * K + k];
-    }
-    const T rho = u[0], E = u[4];
-    const T rhou2 = u[1] * u[1] + u[2] * u[2] + u[3] * u[3];
-    const T p = c.gm1 * (E - (T(0.5) * rhou2) / rho);
-    const T s = log(p) - c.gamma * log(rho);
-    ACC(0, i) = (c.gamma_p1 - s) - (c.gm1 * E) / p;
-#pragma unroll
-    for (int j = 1; j < 4; ++j) ACC(j, i) = (c.gm1 * u[j]) / p;
-    ACC(4, i) = (-c.gm1 * rho) / p;
-    const T beta = rho / (T(2) * p);
-    SH(0, i) = rho;
-#pragma unroll
-    for (int j = 1; j < 4; ++j) SH(j, i) = u[j] / rho;
-    SH(4, i) = beta;
-    SH(5, i) = log(rho);
-    SH(6, i) = log(beta);
-  }
-  __syncthreads();
-
-  // ---- 2.-3. v_f = Ef v, U(v_f), face flux variables and traces ----
-  for (int fp = w; fp < NFQ; fp += NW) {
-    T fv[5] = {T(0), T(0), T(0), T(0), T(0)};
-    const T* erow = ef + fp * NQ;
-    for (int j = 0; j < NQ; ++j) {
-      const T a = __ldg(erow + j);
-#pragma unroll
-      for (int f = 0; f < 5; ++f) fv[f] += a * ACC(f, j);
-    }
-    const T vnorm = fv[1] * fv[1] + fv[2] * fv[2] + fv[3] * fv[3];
-    const T sf = (c.gamma - fv[0]) + vnorm / (T(2) * fv[4]);
-    const T rhoe =
-        pow(c.gm1 / pow(-fv[4], c.gamma), c.inv_gm1) * exp(-sf / c.gm1);
-    const T frho = rhoe * (-fv[4]);
-    const T fm1 = rhoe * fv[1], fm2 = rhoe * fv[2], fm3 = rhoe * fv[3];
-    const T fe = rhoe * (T(1) - vnorm / (T(2) * fv[4]));
-    const T fpress =
-        c.gm1 * (fe - (T(0.5) * (fm1 * fm1 + fm2 * fm2 + fm3 * fm3)) / frho);
-    const T fbeta = frho / (T(2) * fpress);
-    const T vals[7] = {frho,  fm1 / frho, fm2 / frho,     fm3 / frho,
-                       fbeta, log(frho),  log(fbeta)};
-#pragma unroll
-    for (int r = 0; r < 7; ++r) {
-      SH(r, NQ + fp) = vals[r];
-      if (live) traces[(long long)(r * NFQ + fp) * K + k] = vals[r];
-    }
-  }
-  __syncthreads();  // v is read by every worker above; now reuse acc
+  // ---- 1.-4. entropy projection (hex_project.cuh): flux variables at
+  // all Nh points into sh, traces out; v is staged in acc ----
+  entropy_project<T, N1, TE, NW>(
+      q, ef, acc, traces, K, k, live, c,
+      [&](int r, int node, T v) { SH(r, node) = v; });
   for (int i = w; i < NQ; i += NW) {
 #pragma unroll
     for (int f = 0; f < 5; ++f) ACC(f, i) = T(0);
@@ -137,12 +96,8 @@ __global__ void __launch_bounds__(kVolumeThreads)
   if (!live) return;  // no barrier below
   for (int i = w; i < NQ; i += NW) {
     T s[5] = {T(0), T(0), T(0), T(0), T(0)};
-    const T* lrow = lift + i * NFQ;
-    for (int fp = 0; fp < NFQ; ++fp) {
-      const T a = __ldg(lrow + fp);
-#pragma unroll
-      for (int f = 0; f < 5; ++f) s[f] += a * SH(f, NQ + fp);
-    }
+    lift_lines<T, N1>(lift, i, [&](int f, int fp) { return SH(f, NQ + fp); },
+                      s);
     const T two_iw = T(2) * iw[i];
 #pragma unroll
     for (int f = 0; f < 5; ++f)

@@ -129,6 +129,12 @@ def library() -> ctypes.CDLL:
     lib.esdg_hex_surface.argtypes = [_I, _I, _I, _I] + [_P] * 9 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_surface.restype = _I
+    lib.esdg_hex_project.argtypes = [_I, _I] + [_P] * 5 + [
+        ctypes.c_longlong, ctypes.c_double, _P]
+    lib.esdg_hex_project.restype = _I
+    lib.esdg_hex_fd_dir.argtypes = [_I] * 5 + [_P] * 6 + [
+        ctypes.c_longlong, ctypes.c_double, _P]
+    lib.esdg_hex_fd_dir.restype = _I
     lib.esdg_tri_modal_volume.argtypes = [_I, _I] + [_P] * 9 + [
         ctypes.c_longlong, _I, _I, _I, ctypes.c_double, _P]
     lib.esdg_tri_modal_volume.restype = _I

@@ -1,9 +1,17 @@
-"""Fused volume (K1) and surface (K2) stages of the collocated-hex Euler RHS.
+"""Fused volume (K1), split volume (rows 3, 4) and surface (K2) stages of
+the collocated-hex Euler RHS.
 
-Port of the main-path kernels of ``esdg_cns_tpu/ops/pallas_volume.py``:
+Port of the hex kernels of ``esdg_cns_tpu/ops/pallas_volume.py``:
 
   * ``euler_volume`` (K1, CUDA ``csrc/hex_volume.cu``) replaces
     ``_volume_kernel`` / ``euler_volume_pallas``;
+  * ``euler_volume_split`` replaces ``euler_volume_split_pallas``: the
+    projection ``hex_project`` (row 3, ``_proj_kernel``), one
+    flux-differencing launch per direction, ``hex_fd_dir`` (row 4a,
+    ``_fd_dir_kernel`` / ``_fd_dir_pad8_kernel``) or ``hex_fd_dir_dense``
+    (row 4b, ``_fd_dir_dense_kernel`` / ``_fd_dir_dense_chunked_kernel``),
+    all CUDA ``csrc/hex_split.cu``, then a plain-tensor combine, as the
+    TPU package's is XLA;
   * ``euler_surface`` (K2, CUDA ``csrc/hex_surface.cu``) replaces
     ``_surface_kernel`` / ``euler_surface_pallas``.
 
@@ -18,7 +26,9 @@ layouts, not math: the port keeps the math.  The CUDA kernels cover
 affine meshes (diagonal and general metric) and curved ones: K1 with the
 metric at every hybridized point (geo [9, Nh, K], pairwise-averaged in
 the line loop, ``csrc/line_fd.cuh``), K2 with per-point normals, sj and
-1/J (its general form).
+1/J (its general form).  K1 keeps an element's whole tile in shared
+memory and is built for N = 1..4; the split path keeps one line per
+thread in registers and is built, as K2 is, for N = 1..7 (affine only).
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ import numpy as np
 import torch
 
 from ..physics.euler import ec_flux_fields
-from .tensor_product_fd import LineOps, _hex_line_coeffs, flux_differencing_lines
+from .tensor_product_fd import (LineOps, _dir_layout, _hex_line_coeffs,
+                                flux_differencing_lines)
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
@@ -352,9 +363,271 @@ def euler_surface(traces, nbr, nxj, sj, inv_sj, inv_jac, lift, ph_qf,
             traces.data_ptr(), nbr.data_ptr(), nxj.data_ptr(), sj_ptr,
             isj_ptr, inv_jac.data_ptr(), lift.data_ptr(), ph_qf.data_ptr(),
             out.data_ptr(), k, float(gamma), stream)
-    _raise_on(name, rc)
+    _raise_on(name, rc, "no kernel for this polynomial degree (N = 1..7 are "
+                        "built)")
     euler_surface.launches += 1
     return out
 
 
 euler_surface.launches = 0
+
+
+# -----------------------------------------------------------------------------
+# The split volume path (rows 3, 4a, 4b)
+# -----------------------------------------------------------------------------
+
+_SPLIT_BUILT = "no kernel for this polynomial degree (N = 1..7 are built)"
+
+
+def hex_project_plain(q, ef, gamma):
+    """Plain PyTorch projection; same contract as ``hex_project``."""
+    nq = q.shape[1]
+    qh, qlog = _entropy_project_hex(q, ef, gamma)
+    return qh, qlog, torch.cat([qh[:, nq:], qlog[:, nq:]], dim=0)
+
+
+def hex_project(q, ef, gamma):
+    """Split-path projection (row 3): q [5, Nq, K], ef [Nfq, Nq] ->
+    (qh [5, Nh, K], qlog [2, Nh, K], traces [7, Nfq, K]): the flux
+    variables (rho, u1..3, beta) and their logs at all hybridized points,
+    and the face traces of K1's contract."""
+    if q.device.type == "cpu":
+        return hex_project_plain(q, ef, gamma)
+    if q.device.type != "cuda":
+        raise ValueError(f"hex_project: no kernel for device {q.device}")
+    name = "hex_project"
+    nf, nq, k = q.shape
+    nfq = ef.shape[0]
+    n1 = round(nq ** (1.0 / 3.0))
+    _check_cuda(name, {"q": q, "ef": ef}, q.dtype, q.device)
+    _check_shape(name, "q", q, (5, n1 ** 3, k))
+    _check_shape(name, "ef", ef, (6 * n1 * n1, nq))
+    nh = nq + nfq
+    qh = torch.empty((5, nh, k), dtype=q.dtype, device=q.device)
+    qlog = torch.empty((2, nh, k), dtype=q.dtype, device=q.device)
+    traces = torch.empty((7, nfq, k), dtype=q.dtype, device=q.device)
+    if k == 0:
+        return qh, qlog, traces
+    from ..kernels import library
+
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.esdg_hex_project(
+            _DTYPE_CODE[q.dtype], n1, q.data_ptr(), ef.data_ptr(),
+            qh.data_ptr(), qlog.data_ptr(), traces.data_ptr(), k,
+            float(gamma), stream)
+    _raise_on(name, rc, _SPLIT_BUILT)
+    hex_project.launches += 1
+    return qh, qlog, traces
+
+
+hex_project.launches = 0
+
+
+def _fd_dir_plain(qh, qlog, geo, gamma, line_ops, d, diag, dense):
+    """One direction of the line-sparse fd, triangular or dense (mirror of
+    ``_fd_dir_kernel`` / ``_fd_dir_dense_kernel``): [5, Nq + 2 Nfp, K] =
+    the volume rows, then the face rows of faces 2d and 2d+1 (not scaled
+    by 1/wf)."""
+    if geo.shape[1] != 1:
+        raise ValueError("split volume path is affine-only")
+    n1 = line_ops.n1d
+    nq, nfp, k = n1 ** 3, n1 * n1, qh.shape[2]
+    cvol, cface, _, _ = _volume_consts(line_ops, qh.dtype, qh.device)
+    shape, axis = _dir_layout(3, n1, d)
+    vshape = (*shape, k)
+    vol = [qh[f, :nq].reshape(vshape) for f in range(5)]
+    vlog = [qlog[l, :nq].reshape(vshape) for l in range(2)]
+    gshape = (1,) * len(shape) + (k,)
+    xs = (d,) if diag else (0, 1, 2)
+    geo_d = [geo[d * 3 + x, 0].reshape(gshape) for x in xs]
+    dirs = (d,) if diag else None
+
+    def contract(ql, qr, ll, lr):
+        fluxes = ec_flux_fields(ql, qr, ll, lr, gamma, dirs=dirs)
+        return [sum(g * fl[f] for g, fl in zip(geo_d, fluxes))
+                for f in range(5)]
+
+    line = lambda a, j, n=1: a.narrow(axis, j, n)
+    coeff = lambda row: row.reshape(*shape, 1)
+    acc = [torch.zeros(vshape, dtype=qh.dtype, device=qh.device)
+           for _ in range(5)]
+    if dense:
+        for ap in range(n1):
+            fr = contract(vol, [line(v, ap) for v in vol], vlog,
+                          [line(l, ap) for l in vlog])
+            c = coeff(cvol[d * n1 + ap])
+            acc = [a + c * r for a, r in zip(acc, fr)]
+    else:
+        for ap in range(1, n1):
+            fr = contract([line(v, 0, ap) for v in vol],
+                          [line(v, ap) for v in vol],
+                          [line(l, 0, ap) for l in vlog],
+                          [line(l, ap) for l in vlog])
+            c = line(coeff(cvol[d * n1 + ap]), 0, ap)
+            zshape = list(vshape)
+            zshape[axis] = n1 - ap - 1
+            for f in range(5):
+                w = c * fr[f]
+                acc[f] = acc[f] + torch.cat(
+                    [w, -w.sum(axis, keepdim=True),
+                     w.new_zeros(zshape)], dim=axis)
+    fshape = list(vshape)
+    fshape[axis] = 1
+    face_rows = []
+    for side in range(2):
+        fid = 2 * d + side
+        rows = slice(nq + fid * nfp, nq + (fid + 1) * nfp)
+        fr = contract(vol, [qh[f, rows].reshape(fshape) for f in range(5)],
+                      vlog, [qlog[l, rows].reshape(fshape) for l in range(2)])
+        c = coeff(cface[fid])
+        rows_out = []
+        for f in range(5):
+            w = c * fr[f]
+            acc[f] = acc[f] + w
+            rows_out.append(-w.sum(axis).reshape(nfp, k))
+        face_rows.append(rows_out)
+    return torch.stack([torch.cat([acc[f].reshape(nq, k), face_rows[0][f],
+                                   face_rows[1][f]]) for f in range(5)])
+
+
+def _fd_dir_launch(name, qh, qlog, geo, gamma, line_ops, d, diag, dense):
+    if qh.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {qh.device}")
+    if geo.shape[1] != 1:
+        raise ValueError("split volume path is affine-only")
+    if d not in (0, 1, 2):
+        raise ValueError(f"{name}: direction {d}, expected 0, 1 or 2")
+    n1 = line_ops.n1d
+    nq, nfp, k = n1 ** 3, n1 * n1, qh.shape[2]
+    nh = nq + 6 * nfp
+    tensors = {"qh": qh, "qlog": qlog, "geo": geo}
+    _check_cuda(name, tensors, qh.dtype, qh.device)
+    for key, shape in (("qh", (5, nh, k)), ("qlog", (2, nh, k)),
+                       ("geo", (9, 1, k))):
+        _check_shape(name, key, tensors[key], shape)
+    out = torch.empty((5, nq + 2 * nfp, k), dtype=qh.dtype, device=qh.device)
+    if k == 0:
+        return out
+    cvol, cface, _, _ = _volume_consts(line_ops, qh.dtype, qh.device)
+    from ..kernels import library
+
+    lib = library()
+    with torch.cuda.device(qh.device):
+        stream = torch.cuda.current_stream(qh.device).cuda_stream
+        rc = lib.esdg_hex_fd_dir(
+            _DTYPE_CODE[qh.dtype], n1, d, int(diag), int(dense),
+            qh.data_ptr(), qlog.data_ptr(), geo.data_ptr(), cvol.data_ptr(),
+            cface.data_ptr(), out.data_ptr(), k, float(gamma), stream)
+    _raise_on(name, rc, _SPLIT_BUILT)
+    return out
+
+
+def hex_fd_dir_plain(qh, qlog, geo, gamma, *, line_ops: LineOps, d: int,
+                     diag: bool = False):
+    """Plain PyTorch version of ``hex_fd_dir``."""
+    return _fd_dir_plain(qh, qlog, geo, gamma, line_ops, d, diag, False)
+
+
+def hex_fd_dir(qh, qlog, geo, gamma, *, line_ops: LineOps, d: int,
+               diag: bool = False):
+    """Direction d of the triangular line-sparse flux differencing (row 4a):
+    every vol-vol pair of a line once, the vol-face pairs of faces 2d and
+    2d+1; diag (axis-aligned mesh) one metric term, else the 3-term affine
+    contraction.  qh [5, Nh, K], qlog [2, Nh, K], geo [9, 1, K] ->
+    [5, Nq + 2 Nfp, K]: the volume rows, then the face rows of faces 2d
+    and 2d+1, not scaled by 1/wf."""
+    if qh.device.type == "cpu":
+        return hex_fd_dir_plain(qh, qlog, geo, gamma, line_ops=line_ops, d=d,
+                                diag=diag)
+    out = _fd_dir_launch("hex_fd_dir", qh, qlog, geo, gamma, line_ops, d,
+                         diag, False)
+    hex_fd_dir.launches += 1
+    return out
+
+
+hex_fd_dir.launches = 0
+
+
+def hex_fd_dir_dense_plain(qh, qlog, geo, gamma, *, line_ops: LineOps,
+                           d: int):
+    """Plain PyTorch version of ``hex_fd_dir_dense``."""
+    return _fd_dir_plain(qh, qlog, geo, gamma, line_ops, d, False, True)
+
+
+def hex_fd_dir_dense(qh, qlog, geo, gamma, *, line_ops: LineOps, d: int):
+    """Direction d of the dense flat-partner flux differencing (row 4b):
+    every node against all N+1 nodes of its line (cvol's diagonal is zero)
+    and both face points, always the 3-term affine contraction; same
+    contract as ``hex_fd_dir``."""
+    if qh.device.type == "cpu":
+        return hex_fd_dir_dense_plain(qh, qlog, geo, gamma,
+                                      line_ops=line_ops, d=d)
+    out = _fd_dir_launch("hex_fd_dir_dense", qh, qlog, geo, gamma, line_ops,
+                         d, False, True)
+    hex_fd_dir_dense.launches += 1
+    return out
+
+
+hex_fd_dir_dense.launches = 0
+
+
+def split_combine(parts, lift, line_ops: LineOps):
+    """Ph QF = 2 (1/wq) sum_d QF_vol,d + 2 LIFT ((1/wf) QF_face): the three
+    directions' [5, Nq + 2 Nfp, K] parts -> ph_qf [5, Nq, K].  Plain
+    tensor code on every device (the TPU package's combine is XLA); the
+    LIFT product is a float32 matmul with TF32 off."""
+    n1 = line_ops.n1d
+    nq, nfp = n1 ** 3, n1 * n1
+    p0 = parts[0]
+    _, _, iw, iwf = _volume_consts(line_ops, p0.dtype, p0.device)
+    acc_vol = parts[0][:, :nq] + parts[1][:, :nq] + parts[2][:, :nq]
+    qf_face = torch.cat([iwf[:, None] * parts[d][:, nq + side * nfp:
+                                                 nq + (side + 1) * nfp]
+                         for d in range(3) for side in range(2)], dim=1)
+    return 2.0 * iw[:, None] * acc_vol + 2.0 * torch.matmul(lift, qf_face)
+
+
+def _check_split(geo, dense, pad_x):
+    if geo.shape[1] != 1:
+        raise ValueError("split volume path is affine-only")
+    if pad_x and dense:
+        raise ValueError("pad_x is only implemented for the non-dense "
+                         "split fd kernels")
+
+
+def euler_volume_split_plain(q, geo, ef, lift, gamma, *, line_ops: LineOps,
+                             dense: bool = False, diag: bool = False,
+                             pad_x: bool = False):
+    """Plain PyTorch split volume stage; same contract as
+    ``euler_volume_split``."""
+    _check_split(geo, dense, pad_x)
+    qh, qlog, traces = hex_project_plain(q, ef, gamma)
+    parts = [_fd_dir_plain(qh, qlog, geo, gamma, line_ops, d,
+                           diag and not dense, dense) for d in range(3)]
+    return split_combine(parts, lift, line_ops), traces
+
+
+def euler_volume_split(q, geo, ef, lift, gamma, *, line_ops: LineOps,
+                       dense: bool = False, diag: bool = False,
+                       pad_x: bool = False):
+    """Split volume stage (affine hex): ``hex_project``, then one
+    ``hex_fd_dir`` (or, dense, ``hex_fd_dir_dense``) per direction, then
+    ``split_combine``.  Same contract as ``euler_volume``: (ph_qf
+    [5, Nq, K], traces [7, Nfq, K]).
+
+    diag: one metric term per direction (axis-aligned mesh; ignored by the
+    dense form, which always contracts all three, as in the TPU package).
+    pad_x: the TPU package's sublane-padded layout of the same math; it
+    runs the same line kernel here and is refused with dense, as there.
+    """
+    _check_split(geo, dense, pad_x)
+    qh, qlog, traces = hex_project(q, ef, gamma)
+    if dense:
+        parts = [hex_fd_dir_dense(qh, qlog, geo, gamma, line_ops=line_ops,
+                                  d=d) for d in range(3)]
+    else:
+        parts = [hex_fd_dir(qh, qlog, geo, gamma, line_ops=line_ops, d=d,
+                            diag=diag) for d in range(3)]
+    return split_combine(parts, lift, line_ops), traces

@@ -13,9 +13,12 @@ at setup time: the front operator [Vq Pq; Vq D_r Pq], Vq LIFT and D_r Pq
                  quadrature;
      'fused_hex' K1 ``ops.fused_volume.euler_volume`` (collocated hexes,
                  axis-aligned metric when ``detect_axis_aligned`` says
-                 so); Vq = Pq = I there, so the viscous front reads v(U)
-                 directly and its front operator is the gradient rows
-                 [Vq D_r Pq] alone (proj=False);
+                 so), or at N = 7 the split path ``euler_volume_split``
+                 (projection kernel, one fd kernel per direction), chosen
+                 as the TPU package chooses; Vq = Pq = I
+                 there, so the viscous front reads v(U) directly and its
+                 front operator is the gradient rows [Vq D_r Pq] alone
+                 (proj=False);
      'xla'       plain tensor code: one front GEMM [Vh Pq; Vq Pq;
                  Vq D_r Pq] on v(U) and ``flux_diff_impl``;
   2. one exchange of the traces (``Discretization.gather_traces``);
@@ -35,8 +38,6 @@ at setup time: the front operator [Vq Pq; Vq D_r Pq], Vq LIFT and D_r Pq
 
 Semantics equal to ``solvers.cns.make_cns_rhs`` (the plain twin) up to
 roundoff: the same physics, the same BC hooks, the same two exchanges.
-The JAX package selects its N>=4 split volume kernels for 'fused_hex';
-those are TPU layouts of K1's math, and the port runs K1 at every N.
 """
 
 from __future__ import annotations
@@ -106,7 +107,8 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
         raise ValueError("make_cns_rhs_affine requires an affine mesh")
     from ..ops.cns_surface import cns_surface
     from ..ops.cns_surface_bc import prepare_surface_bc
-    from ..ops.fused_volume import detect_axis_aligned, euler_volume
+    from ..ops.fused_volume import (detect_axis_aligned, euler_volume,
+                                    euler_volume_split)
     from ..ops.modal_volume import euler_modal_volume
     from ..ops.surface_viscous import cns_surface_viscous, cns_viscous
     from ..utils.compensated import weighted_entropy_residual
@@ -129,6 +131,11 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
         raise ValueError("volume_impl='fused_hex' requires a collocated "
                          "hex discretization")
     hex_diag = None
+    # the TPU package's fused_hex front (cns_fused.py:314-318): the packed
+    # joint kernel (K1 here) at misaligned orders (8 % (N+1) != 0) and at
+    # N+1 = 4, the split path at any other N >= 4 (N = 7), K1 below
+    packed = 8 % (disc.n + 1) != 0 or disc.n + 1 == 4
+    split_front = volume_impl == "fused_hex" and disc.n >= 4 and not packed
     if volume_impl == "fused_hex":
         hex_diag = (detect_axis_aligned(disc) if axis_aligned is None
                     else axis_aligned)
@@ -228,8 +235,9 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
                 list(fr[:, nq:].split(nq, dim=1)), ph_qf)
 
     def front_fused_hex(q):
-        ph_qf, tr = euler_volume(q, geo, ef, disc.lift, gamma,
-                                 line_ops=disc.line_ops, diag=hex_diag)
+        vol = euler_volume_split if split_front else euler_volume
+        ph_qf, tr = vol(q, geo, ef, disc.lift, gamma,
+                        line_ops=disc.line_ops, diag=hex_diag)
         vu_q = phys.v_ufun(q, gamma)
         vqd = (None if use_fused_viscous
                else list(_apply(front, vu_q).split(nq, dim=1)))

@@ -3,27 +3,50 @@
 Port of ``esdg_cns_tpu/solvers/euler_fused.make_euler_rhs_fused``: three
 stages per RHS,
 
-  1. K1 ``ops.fused_volume.euler_volume``: entropy projection, line-sparse
-     EC flux differencing and Ph QF; writes ph_qf and the 7-row face
-     traces;
+  1. the volume stage, by ``volume_mode``: K1
+     ``ops.fused_volume.euler_volume`` (entropy projection, line-sparse EC
+     flux differencing and Ph QF in one kernel) or the split path
+     ``ops.fused_volume.euler_volume_split`` (projection kernel, one fd
+     kernel per direction, plain combine); either writes ph_qf and the
+     7-row face traces;
   2. the face-trace exchange ``Discretization.gather_traces`` (flat rolls
      on the periodic grid, plain tensor ops);
   3. K2 ``ops.fused_volume.euler_surface``: EC interface flux, LF
      penalty, LIFT, the sum with ph_qf and the 1/J scaling.
 
-Only the semantics every TPU ``volume_mode`` shares are ported (the
-packed, pad8 and split modes are TPU layouts).  Semantics equal to
+The TPU package's volume modes are resolved as it resolves them: the
+joint modes ('joint', 'joint_pad8', 'joint_packed') are K1's math in
+three TPU layouts and run K1; the split modes ('split', 'split_pad8',
+'split_dense') run the split path, which 'auto' picks on affine meshes at
+N = 7 (8 % (N+1) == 0, N+1 != 4).  N >= 6 without ``force_fused`` is
+the plain lines path, as in JAX.  Semantics equal to
 ``make_euler_rhs(flux_diff_impl='lines')``, tested against it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
-from ..ops.fused_volume import detect_axis_aligned, euler_surface, euler_volume
+from ..ops.fused_volume import (detect_axis_aligned, euler_surface,
+                                euler_volume, euler_volume_split)
 from ..physics import euler as phys
+
+
+def resolve_volume_mode(disc, volume_mode: str = "auto") -> str:
+    """The TPU package's 'auto' rule (``euler_fused.py:105-121``): on affine
+    meshes the packed joint kernel at misaligned orders (8 % (N+1) != 0)
+    and at N+1 = 4, the split path at other N >= 4 (N = 7), else joint."""
+    if volume_mode != "auto":
+        return volume_mode
+    n1 = disc.n + 1
+    if disc.affine and (8 % n1 != 0 or n1 == 4):
+        return "joint_packed"
+    if disc.n >= 4 and disc.affine:
+        return "split"
+    return "joint"
 
 
 def make_euler_rhs_fused(
@@ -33,10 +56,19 @@ def make_euler_rhs_fused(
     dissipation: bool = True,
     compute_rhstest: bool = False,
     rhstest_mode: str = "native",
+    force_fused: bool = False,
+    volume_mode: str = "auto",
     axis_aligned: Optional[bool] = None,
 ):
     """Build the fused RHS; requires a collocated hex discretization.
 
+    volume_mode: 'auto' (``resolve_volume_mode``), 'joint', 'joint_pad8',
+    'joint_packed' (K1), 'split', 'split_pad8' (the split path, diag on
+    axis-aligned meshes) or 'split_dense' (the split path's dense fd).
+    force_fused: at N >= 6 this function returns the plain
+    ``make_euler_rhs(flux_diff_impl='lines')`` unless this is set, and
+    refuses ``axis_aligned`` and a named ``volume_mode`` there, which that
+    path would ignore.
     axis_aligned: on uniform/cartesian meshes the metric is diagonal and
     each face group's normal has one nonzero component, so the kernels
     skip the cross-direction flux assembly and contraction terms.  None
@@ -47,10 +79,35 @@ def make_euler_rhs_fused(
     """
     if disc.elem_type != "hex" or disc.line_ops is None:
         raise ValueError("fused RHS requires a collocated hex mesh")
+    if disc.n >= 6 and not force_fused:
+        # the fallback must not silently drop the flags it ignores
+        dropped = {"axis_aligned": axis_aligned,
+                   "volume_mode": None if volume_mode == "auto"
+                   else volume_mode}
+        set_flags = [k for k, v in dropped.items() if v is not None]
+        if set_flags:
+            raise ValueError(
+                f"N={disc.n} >= 6 falls back to the XLA lines path, "
+                f"which ignores {set_flags}; drop these arguments, use "
+                f"make_euler_rhs directly, or pass force_fused=True")
+        from .euler import make_euler_rhs
+
+        return make_euler_rhs(disc, gamma=gamma, dissipation=dissipation,
+                              flux_diff_impl="lines",
+                              compute_rhstest=compute_rhstest,
+                              rhstest_mode=rhstest_mode)
     nq = disc.nq
     ef = disc.vhp[nq:]
     if axis_aligned is None:
         axis_aligned = detect_axis_aligned(disc)
+    mode = resolve_volume_mode(disc, volume_mode)
+    if mode == "split_dense":
+        volume = functools.partial(euler_volume_split, dense=True)
+    elif mode in ("split", "split_pad8"):
+        volume = functools.partial(euler_volume_split, diag=axis_aligned,
+                                   pad_x=mode == "split_pad8")
+    else:   # the joint modes, and an unknown name, as in the TPU package
+        volume = functools.partial(euler_volume, diag=axis_aligned)
 
     if axis_aligned:
         # compact one-row normal: each face point's single nonzero
@@ -64,9 +121,8 @@ def make_euler_rhs_fused(
 
     def rhs(q, t: float = 0.0):
         del t
-        ph_qf, traces = euler_volume(q, disc.geo, ef, disc.lift, gamma,
-                                     line_ops=disc.line_ops,
-                                     diag=axis_aligned)
+        ph_qf, traces = volume(q, disc.geo, ef, disc.lift, gamma,
+                               line_ops=disc.line_ops)
         nbr = disc.gather_traces(traces)
         rhs_q = euler_surface(traces, nbr, nxj, disc.sj, disc.inv_sj,
                               inv_jac, disc.lift, ph_qf, gamma,

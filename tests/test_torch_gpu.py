@@ -198,6 +198,161 @@ def test_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
     args7, kw7 = k7_inputs(cdisc, cq, bc, p)
     with pytest.raises(NotImplementedError):
         sv.cns_viscous(*args7, **dict(kw7, contract=False))
+    # K1 keeps its whole tile in shared memory: N >= 5 is the split path's
+    d5, q5 = euler_hex_3d(n=5, k1d=2, dtype=torch.float32, device=cuda)
+    with pytest.raises(NotImplementedError):
+        fv.euler_volume(q5, d5.geo, d5.vhp[d5.nq:], d5.lift, GAMMA,
+                        line_ops=d5.line_ops)
+    # the split path is affine-only and has no padded dense form
+    curved = disc.geo.expand(9, disc.nh, -1).contiguous()
+    with pytest.raises(ValueError, match="affine-only"):
+        fv.euler_volume_split(q, curved, ef, disc.lift, GAMMA,
+                              line_ops=disc.line_ops)
+    with pytest.raises(ValueError, match="pad_x"):
+        fv.euler_volume_split(q, disc.geo, ef, disc.lift, GAMMA,
+                              line_ops=disc.line_ops, dense=True, pad_x=True)
+    qh, qlog, _ = fv.hex_project(q, ef, GAMMA)
+    with pytest.raises(ValueError, match="affine-only"):
+        fv.hex_fd_dir(qh, qlog, curved, GAMMA, line_ops=disc.line_ops, d=0)
+    with pytest.raises(ValueError):
+        fv.hex_fd_dir_dense(qh, qlog, disc.geo, GAMMA,
+                            line_ops=disc.line_ops, d=3)
+    with pytest.raises(TypeError):
+        fv.hex_project(q.double(), ef, GAMMA)
+
+
+# ---- the split volume path (rows 3, 4a, 4b) and K2 at N = 5..7 ----
+
+def _split_counts():
+    return (fv.hex_project.launches, fv.hex_fd_dir.launches,
+            fv.hex_fd_dir_dense.launches, fv.euler_volume.launches,
+            fv.euler_surface.launches)
+
+
+# k1d=3 gives K=27: a ragged last tile of every kernel
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,k1d", [(1, 3), (2, 2), (4, 3), (7, 3)])
+def test_split_volume_kernels_match_plain(cuda, dtype, n, k1d):
+    disc, _ = euler_hex_3d(n=n, k1d=k1d, dtype=dtype, device=cuda)
+    q = _random_state(disc, dtype, cuda)
+    ef = disc.vhp[disc.nq:]
+    tol = TOL[dtype]
+    before = _split_counts()
+    got = fv.hex_project(q, ef, GAMMA)
+    want = fv.hex_project_plain(q, ef, GAMMA)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= tol
+    qh, qlog, _ = want
+    random_geo = _random_affine(disc, dtype, cuda)[0]
+    lo = disc.line_ops
+    for d in range(3):
+        for geo, diag in ((disc.geo, True), (disc.geo, False),
+                          (random_geo, False)):
+            a = fv.hex_fd_dir(qh, qlog, geo, GAMMA, line_ops=lo, d=d,
+                              diag=diag)
+            b = fv.hex_fd_dir_plain(qh, qlog, geo, GAMMA, line_ops=lo, d=d,
+                                    diag=diag)
+            torch.cuda.synchronize()
+            assert _rel(a, b) <= tol, (d, diag)
+        for geo in (disc.geo, random_geo):
+            a = fv.hex_fd_dir_dense(qh, qlog, geo, GAMMA, line_ops=lo, d=d)
+            b = fv.hex_fd_dir_dense_plain(qh, qlog, geo, GAMMA, line_ops=lo,
+                                          d=d)
+            torch.cuda.synchronize()
+            assert _rel(a, b) <= tol, d
+    after = _split_counts()
+    assert after[:3] == (before[0] + 1, before[1] + 9, before[2] + 6)
+    for dense in (False, True):
+        a = fv.euler_volume_split(q, disc.geo, ef, disc.lift, GAMMA,
+                                  line_ops=lo, dense=dense, diag=not dense)
+        b = fv.euler_volume_split_plain(q, disc.geo, ef, disc.lift, GAMMA,
+                                        line_ops=lo, dense=dense,
+                                        diag=not dense)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert _rel(x, y) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [5, 6, 7])
+@pytest.mark.parametrize("diag", [True, False])
+def test_surface_kernel_at_high_order(cuda, dtype, n, diag):
+    """K2 at N+1 = 6..8, with every tile it takes there: 32 elements in
+    f32 at N+1 = 6, 7 and 16 at 8; 16 in f64 at N+1 = 6, 7 and 8 at 8
+    (k1d=3: K=27, a ragged last tile)."""
+    disc, _ = euler_hex_3d(n=n, k1d=3, dtype=dtype, device=cuda)
+    q = _random_state(disc, dtype, cuda)
+    ph_qf, tr = fv.euler_volume_split_plain(
+        q, disc.geo, disc.vhp[disc.nq:], disc.lift, GAMMA,
+        line_ops=disc.line_ops, diag=True)
+    if diag:
+        nxj, inv_jac = _surface_inputs(disc, diag)
+        sj, inv_sj = disc.sj, disc.inv_sj
+    else:   # a non-diagonal normal: every cross term of the flux counts
+        _, nxj, sj, inv_sj, inv_jac = _random_affine(disc, dtype, cuda)
+    nbr = disc.gather_traces(tr)
+    for dissipation in (True, False):
+        args = (tr, nbr, nxj, sj, inv_sj, inv_jac, disc.lift, ph_qf, GAMMA)
+        kw = dict(dissipation=dissipation, diag=diag)
+        a = fv.euler_surface(*args, **kw)
+        b = fv.euler_surface_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert _rel(a, b) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_n7_split_rhs_matches_twin_and_conserves_entropy(cuda):
+    """The N=7 path as 'auto' picks it with force_fused: the projection,
+    one fd launch per direction and K2, no K1; equal to the lines twin."""
+    disc, _ = euler_hex_3d(n=7, k1d=3, dtype=torch.float64, device=cuda)
+    q = _random_state(disc, torch.float64, cuda, seed=2)
+    before = _split_counts()
+    b, _ = make_euler_rhs_fused(disc, dissipation=True, force_fused=True)(q)
+    after = _split_counts()
+    assert [x - y for x, y in zip(after, before)] == [1, 3, 0, 0, 1]
+    a, _ = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
+                          compute_rhstest=False)(q)
+    assert _rel(b, a) <= 1e-11
+    _, aux = make_euler_rhs_fused(disc, dissipation=False, force_fused=True,
+                                  compute_rhstest=True)(q)
+    assert abs(float(aux["rhstest"])) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_n4_split_modes_match_auto(cuda, dtype):
+    disc, _ = euler_hex_3d(n=4, k1d=3, dtype=dtype, device=cuda)
+    q = _random_state(disc, dtype, cuda, seed=3)
+    ref, _ = make_euler_rhs_fused(disc)(q)          # 'auto': K1
+    for mode, dense in (("split", 0), ("split_pad8", 0), ("split_dense", 1)):
+        before = _split_counts()
+        got, _ = make_euler_rhs_fused(disc, volume_mode=mode)(q)
+        after = _split_counts()
+        assert [x - y for x, y in zip(after, before)] == [
+            1, 3 * (1 - dense), 3 * dense, 0, 1], mode
+        assert _rel(got, ref) <= TOL[dtype], mode
+
+
+@pytest.mark.gpu
+def test_fused_hex_front_at_n7_takes_the_split_path(cuda):
+    disc, q0, bc, p = lid_driven_cavity_3d(n=7, k1d=2, dtype=torch.float64,
+                                           device=cuda)
+    rng = np.random.default_rng(1)
+    q = q0 + 5e-4 * torch.as_tensor(
+        rng.standard_normal(tuple(q0.shape)), device=cuda) * torch.tensor(
+        [1.0, 0.1, 0.1, 0.1, 1.0], dtype=torch.float64,
+        device=cuda)[:, None, None]
+    flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
+                 inviscid_dissipation=True, viscous_dissipation=True)
+    before = _split_counts()
+    a, _ = make_cns_rhs_affine(disc, volume_impl="fused_hex", **flags)(q)
+    after = _split_counts()
+    assert [x - y for x, y in zip(after[:4], before[:4])] == [1, 3, 0, 0]
+    b, _ = make_cns_rhs(disc, **flags)(q)
+    assert _rel(a, b) <= 1e-9
 
 
 # ---- the curved Euler kernels (K1 on curved metrics, K2 on curved

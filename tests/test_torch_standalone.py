@@ -35,6 +35,16 @@ for impl in ("pallas", "lines_pallas"):
     c, _ = make_euler_rhs(disc, flux_diff_impl=impl, compute_rhstest=False)(q0)
     rel = float((c - b).abs().max() / b.abs().max())
     assert rel < 1e-11, (impl, rel)
+assert "esdg_cns_tpu_torch.ops.fused_volume" in sys.modules
+for n, modes in ((4, ("split", "split_pad8", "split_dense")), (7, ("auto",))):
+    disc, q0 = euler_hex_3d(n=n, k1d=2, dtype=torch.float64, device="cpu")
+    b, _ = make_euler_rhs(disc, flux_diff_impl="lines",
+                          compute_rhstest=False)(q0)
+    for mode in modes:
+        c, _ = make_euler_rhs_fused(disc, force_fused=True,
+                                    volume_mode=mode)(q0)
+        rel = float((c - b).abs().max() / b.abs().max())
+        assert rel < 1e-11, (n, mode, rel)
 from esdg_cns_tpu_torch.presets import lid_driven_cavity
 from esdg_cns_tpu_torch.solvers import make_cns_rhs, make_cns_rhs_affine
 disc, q0, bc, p = lid_driven_cavity(n=2, k1d=2, dtype=torch.float64,
@@ -74,9 +84,10 @@ def _env():
 def test_port_runs_with_jax_blocked():
     """(g) importing every module (``ops.dense_fd`` among them), one
     Euler RHS (with the 'lines', 'pallas' and 'lines_pallas' flux
-    differencing) and the cavity RHS on the 2D merged and split paths and
-    on the 3D fused_hex path, with no JAX; no module of the JAX package is
-    loaded."""
+    differencing), the split volume path (N=4 in its three split modes,
+    N=7 as 'auto' picks it) and the cavity RHS on the 2D merged and split
+    paths and on the 3D fused_hex path, with no JAX; no module of the JAX
+    package is loaded."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        env=_env(), capture_output=True, text=True,
                        timeout=300)
