@@ -116,7 +116,38 @@ Phases (each raises on failure; nothing is caught):
      and K2 at N+1 = 8 beside their plain versions, the profiler's split;
      the four N=4 modes' rates over 600 stages, their stages queued
      ahead of the device and their volume stages'
-     device times.
+     device times;
+ 22. K1 at N+1 = 6, the path JAX's 'auto' runs on it at N=5:
+     presets.euler_hex_3d(5, 20, f32) (K=8000, 8.64M DOF) ->
+     make_euler_rhs_fused ('auto' = joint_packed = K1, diag detected):
+     K1 and K2 against their plain versions (f32 at full width; f64 at
+     k1d=4 and k1d=3, K=27 ragged, diag and a random metric), lsrk45 for 20
+     steps at dt=5e-4 with every counter at 0 before (K1 and K2 once per
+     stage, nothing else), the twin make_euler_rhs(flux_diff_impl='lines'),
+     conservation, f64 k1d=3 rhstest with dissipation off; the rate over
+     1200 stages beside volume_mode='split' over 600 (one RHS of each
+     agrees), K1's, the split volume stage's and K2's device times;
+ 23. the same for K1 at N+1 = 7: euler_hex_3d(6, 16, f32) (K=4096, 7.0M
+     DOF) with force_fused=True, dt=4e-4;
+ 24. K1 at N+1 = 8: curved N=7 at k1d=8 under force_fused (K1c) and affine
+     N=7 with volume_mode='joint' (diag), against their plain versions (f32
+     at k1d=8; f64 at k1d=4 and k1d=3), one RHS each with the counters at
+     0 before (K1 and K2 once), K1's device time;
+ 25. K1c at N+1 = 6: curved N=5 at k1d=16 against the plain version (f32;
+     f64 at k1d=4 and 3), one RHS, K1c's device time, and the free stream
+     of the f64 kernel path (max |dq| of a constant state) at k1d=8 and,
+     beside the plain twin's, at k1d=16;
+ 26. the 3D Becker shock tube: presets.becker_shocktube_3d(5, 32)
+     (32 x 8 x 8 hexes, 2.21M DOF, mu=0.01) ->
+     make_cns_rhs_affine(volume_impl='fused_hex') (K1 at N+1 = 6, then K4
+     at dim=3 with the exact wave's time-dependent Dirichlet ghosts) ->
+     lsrk45 for 20 steps at the time step of esdg_cns_tpu/config.py's
+     estimate_dt, in f32 and f64, each with every counter at 0 before (K1
+     and K4 once per stage), against the twin make_cns_rhs, rhstest_visc
+     >= 0; the f64 L2 error against the exact wave at k1d=16 and k1d=32 at
+     one time, printed for mu=0.01 and required to fall for the resolved
+     mu=0.1 wave; the f32 rate over 25 stages (host-bound: the ghosts'
+     bisection) and the bisection's time.
 A kernel's time is its device time: the timed calls are queued behind a
 sleeping kernel, so the host's dispatch does not enter it.
 The line before the last is {"kernels": [...]} with each kernel's bound
@@ -158,8 +189,13 @@ CONSERVATION_TOL_F32 = 1e-8
 RHSTEST_TOL_F64 = 1e-10
 # free stream on the warped hex mesh, f64 k1d=8: max |dq| of a constant
 # state, every term of which cancels through the curl-form metric identity
-# (about 1e-13 at k1d=2 on the CPU; the residual grows like 1/h)
+# (about 1e-13 at k1d=2 on the CPU; the residual grows like 1/h and with N:
+# on the CPU the plain RHS reads 2.5e-12 at N=3 k1d=8, 4.3e-11 at N=5 k1d=8
+# and 1.66e-10 at N=5 k1d=16, as the JAX package's does)
 FREESTREAM_TOL_F64 = 1e-10
+# where that floor passes the tolerance, the kernel path's residual against
+# the plain twin's on the same mesh
+FREESTREAM_TWIN_FACTOR = 2.0
 # the split path (K8 then K7) against the merged kernel (K4) on one RHS,
 # max |split - merged| / max |merged|: the same arithmetic in two kernels
 SPLIT_TOL = {"float32": 1e-5, "float64": 1e-12}
@@ -185,14 +221,40 @@ N7, N7_K1D, N7_DT = 7, 16, 2.5e-4
 # 8.64M DOF), f32
 N4, N4_K1D = 4, 24
 N4_MODES = ("auto", "split", "split_pad8", "split_dense")
-# the four N=4 modes are timed over 120 steps (600 stages) each, median of
-# REPEATS: at 1200 stages 'split' and 'split_pad8' (the same kernels) read
-# 0.03% apart, at 240 stages 10% apart
+# the four N=4 modes (and 'split' at N=5, 6) are timed over 120 steps (600
+# stages) each, median of REPEATS: at 1200 stages 'split' and 'split_pad8'
+# (the same kernels) read 0.03% apart, at 240 stages 10% apart
 N4_TIMED_STEPS = 120
+# K1 at N+1 = 6, 7 on the Euler paths JAX runs on it: N=5 at k1d=20
+# (K=8000, Np=216, 8.64M DOF: the N=4 bench mesh's DOF) under 'auto', and
+# N=6 at k1d=16 (K=4096, 7.0M DOF) under force_fused, f32; their time
+# steps scale the N=3 path's 1e-3 by the h/N^2 limit with margin
+N5, N5_K1D, N5_DT = 5, 20, 5e-4
+N6, N6_K1D, N6_DT = 6, 16, 4e-4
+# K1 at N+1 = 8 (curved N=7 under force_fused, affine N=7 with
+# volume_mode='joint') and K1c at N+1 = 6 (curved N=5)
+N7_K1_K1D, CURVED_N5_K1D = 8, 16
+# the 3D Becker shock tube (presets.becker_shocktube_3d, mu=0.01): N=5,
+# k1d=32 (32 x 8 x 8 = 2048 hexes, 2.21M DOF) through fused_hex
+BECKER_N, BECKER_K1D = 5, 32
+# the accuracy check's wave: the JAX package's accuracy tests' (mu = 0.1),
+# which k1d=16 and 32 resolve; the default mu = 0.01 shock they do not
+BECKER_ACCURACY_MU = 0.1
+# f64 kernel path against the f64 twin after 20 steps (100 stages): one
+# RHS agrees to ~1e-13 of max |dq|, and the stages add dt times that
+TWIN_TOL_F64 = 1e-10
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and FP32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+
+
+def becker_dt(n, k1d, cfl=0.5):
+    """The time step of esdg_cns_tpu/config.py's estimate_dt for a CNS run
+    on hexes: cfl h / C_N with C_N = 3 (N+1)(N+2)/2 and h = 2 / k1d,
+    capped by the parabolic limit 2 / (C_N k1d^2)."""
+    cn = 3.0 * (n + 1) * (n + 2) / 2
+    return min(cfl * (2.0 / k1d) / cn, 2.0 / (cn * k1d * k1d))
 
 
 def card_label():
@@ -430,7 +492,9 @@ def ops_k4(dim, np_, nq, nfq, k4args, lift):
 def ptxas_report(log):
     """ptxas' register/spill lines of the kernels worth watching, from the
     build log: the N=3 hex kernels (K1 diag, general and curved; K2; row
-    10), K1 and row 10 curved at N=4 in f64, the split kernels at N=4 and
+    10), K1 and row 10 curved at N=4 in f64, K1 at N = 5, 6, 7 in every
+    form and type (a line of a curved f64 thread is more than its 255
+    registers hold), the split kernels at N=4 and
     N=7 (the projection; the fd in direction 0, diag, general and dense)
     and K2 at N=7, the tri and CNS kernels and K5.  A spill line counts
     only under its own entry's "Function properties" (not under a device
@@ -483,7 +547,10 @@ def ptxas_report(log):
                 variant = "diag" if flags[0] else "general"
             else:
                 variant = "curved" if flags[0] else "affine"
-            if "Li4E" in form:
+            if kind == "hex_volume" and ints and ints[0] in ("6", "7", "8"):
+                out.append(f"ptxas N={int(ints[0]) - 1} {kind} {prec} "
+                           f"{variant}: {report}")
+            elif "Li4E" in form:
                 out.append(f"ptxas N=3 {kind} {prec} {variant}: {report}")
             elif "Li5E" in form and prec == "f64" and variant == "curved":
                 out.append(f"ptxas N=4 {kind} {prec} {variant}: {report}")
@@ -568,6 +635,10 @@ def main():
     info = kernels.build()
     kernels.library()
     print(f"build: {info.seconds:.1f} s -> {info.path.name}")
+    secs = sorted(info.source_seconds().items(), key=lambda kv: -kv[1])
+    if secs:
+        print("nvcc per source, all started together: " + ", ".join(
+            f"{name} {sec:.1f} s" for name, sec in secs))
     for line in ptxas_report(info.log):
         print(line)
 
@@ -903,8 +974,9 @@ def main():
     d64, q64, bc64, p64 = lid_driven_cavity(CAV_N, CAV_K1D,
                                             dtype=torch.float64, device=dev)
     zero_counts()
-    q64f, _ = lsrk45(make_cns_rhs_affine(d64, **dict(flags, bc=bc64)), q64,
-                     CAV_DT, CAV_STEPS)
+    q64f, _ = lsrk45(make_cns_rhs_affine(d64, volume_impl="fused",
+                                         **dict(flags, bc=bc64)),
+                     q64, CAV_DT, CAV_STEPS)
     cdrift64 = abs(mass(d64, q64f) - mass(d64, q64)) / mass(d64, q64)
     print(f"cavity mass |d sum(wJq rho)| / sum(wJq rho) after {CAV_STEPS} "
           f"steps: f32 {cdrift:.2e} (tol {CAV_MASS_TOL_F32:.0e}; the f32 "
@@ -926,7 +998,7 @@ def main():
     _, eaux = make_cns_rhs_affine(
         edisc, mu=ep["mu"], pr=ep["pr"], re=ep["re"], bc=ebc,
         inviscid_dissipation=True, viscous_dissipation=True,
-        compute_rhstest=True)(eq)
+        volume_impl="fused", compute_rhstest=True)(eq)
     rtv, rt = float(eaux["rhstest_visc"]), float(eaux["rhstest"])
     print(f"f64 k1d=8 kernel path (K3 + K4 merged, launches "
           f"{read_counts()}), adiabatic walls at rest: rhstest_visc "
@@ -1736,6 +1808,318 @@ def main():
     dense_plain_avg = sum(n7_times[f"dense{d}"][1] for d in range(3)) / 3
     del rhs7, mode_rhs, vol4, n7_calls, n4_calls, n7_io, n4_io, d4, q4m
 
+    # ---- 22., 23. K1 at N+1 = 6, 7: the Euler paths JAX runs on it ----
+    def k1_order_path(n, k1d, dt, kw, phase):
+        """The Euler path at order n whose 'auto' volume stage is K1
+        (JAX's joint_packed): K1 and K2 against their plain versions (f32
+        at full width, f64 small), 20 steps with every counter at 0
+        before, the twin, conservation, f64 rhstest, then the rate beside
+        volume_mode='split' and K1's device time.  Returns the kernels
+        line's numbers for K1 at this order."""
+        stamp(phase)
+        disc, q0 = euler_hex_3d(n=n, k1d=k1d, dtype=torch.float32,
+                                device=dev)
+        if not fv.detect_axis_aligned(disc):
+            raise AssertionError(f"the N={n} k1d={k1d} mesh must be "
+                                 "detected axis-aligned")
+        if resolve_volume_mode(disc) != "joint_packed":
+            raise AssertionError(f"'auto' must resolve to K1 at N={n}")
+        tag = f"N={n} k1d={k1d}"
+        abs_v, _, vargs, vkw, sargs, skw, kouts = check_kernels(
+            disc, random_state(disc, 20 + n), True,
+            f"{tag} f32 diag (the N={n} path)")
+        for k1d_s in (4, 3):
+            d_, _ = euler_hex_3d(n=n, k1d=k1d_s, dtype=torch.float64,
+                                 device=dev)
+            q_ = random_state(d_, 21)
+            ragged = " (K=27, ragged tile)" if k1d_s == 3 else ""
+            check_kernels(d_, q_, True, f"N={n} k1d={k1d_s} f64 diag{ragged}")
+            check_kernels(d_, q_, False, f"N={n} k1d={k1d_s} f64 general, "
+                          f"random metric{ragged}", random_affine(d_))
+        rhs_n = make_euler_rhs_fused(disc, dissipation=True, **kw)
+        zero_counts()
+        qf, _ = lsrk45(rhs_n, q0, dt, STEPS)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        print(f"N={n} path ('auto' = K1{', force_fused' if kw else ''}): "
+              f"{STEPS} LSRK45 steps ({5 * STEPS} stages) at dt={dt:g}, "
+              f"launches {counts}")
+        want = {"euler_volume": 5 * STEPS, "euler_surface": 5 * STEPS}
+        if counts != want:
+            raise AssertionError(f"expected launches {want} on the N={n} "
+                                 "path")
+        if qf.dtype != torch.float32 or not bool(torch.isfinite(qf).all()):
+            raise AssertionError(f"N={n} state not finite f32")
+        twin_n = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
+                                compute_rhstest=False)
+        qt, _ = lsrk45(twin_n, q0, dt, STEPS)
+        e_tw, _ = rel_err(qf, qt)
+        print(f"N={n} path vs plain twin after {STEPS} steps: rel "
+              f"{e_tw:.3e} (tol {TWIN_TOL_F32:.0e})")
+        if not e_tw <= TWIN_TOL_F32:
+            raise AssertionError(f"N={n} path disagrees with the plain twin")
+        check_conservation(disc, q0, qf, f"N={n} path ")
+        del qt, qf, twin_n
+        d_, _ = euler_hex_3d(n=n, k1d=3, dtype=torch.float64, device=dev)
+        zero_counts()
+        _, aux = make_euler_rhs_fused(d_, dissipation=False,
+                                      compute_rhstest=True, **kw)(
+            random_state(d_, 22))
+        rt = float(aux["rhstest"])
+        print(f"f64 N={n} k1d=3 kernel path (launches {read_counts()}), "
+              f"dissipation off: rhstest {rt:.3e} (tol "
+              f"{RHSTEST_TOL_F64:.0e})")
+        if not (abs(rt) <= RHSTEST_TOL_F64
+                and read_counts()["euler_volume"] == 1):
+            raise AssertionError(f"entropy conservation violated (N={n})")
+        del d_
+        dof = 5 * disc.np_ * disc.num_elements
+        step_ms = cuda_ms(lambda: lsrk45(rhs_n, q0, dt, TIMED_STEPS), 1)
+        stage_ms = step_ms / (5 * TIMED_STEPS)
+        print(f"[{card}] N={n} path (K1+exchange+K2, LSRK45): "
+              f"{dof * 5 * TIMED_STEPS / (step_ms / 1e3):.4e} "
+              f"DOF*RK-stage/s, {stage_ms:.4f} ms/stage over "
+              f"{5 * TIMED_STEPS} stages, median of {REPEATS}")
+        srhs = make_euler_rhs_fused(disc, dissipation=True,
+                                    volume_mode="split", **kw)
+        e_s, _ = rel_err(srhs(q0)[0], rhs_n(q0)[0])
+        if not e_s <= TOL["float32"]:
+            raise AssertionError(f"N={n} 'split' disagrees with K1")
+        sstep_ms = cuda_ms(lambda: lsrk45(srhs, q0, dt, N4_TIMED_STEPS), 1)
+        sstage_ms = sstep_ms / (5 * N4_TIMED_STEPS)
+        k1n_ms = dev_ms(lambda: fv.euler_volume(*vargs, **vkw), 20)
+        k1n_plain_ms = dev_ms(lambda: fv.euler_volume_plain(*vargs, **vkw),
+                              2)
+        split_ms = dev_ms(lambda: fv.euler_volume_split(*vargs, **vkw), 20)
+        k2n_ms = dev_ms(lambda: fv.euler_surface(*sargs, **skw), 20)
+        sdev = dev_ms(lambda: lsrk45(rhs_n, q0, dt, 10), 1) / 50
+        print(f"[{card}] N={n} volume_mode='split' (one RHS vs K1 rel "
+              f"{e_s:.3e}): {dof * 5 * N4_TIMED_STEPS / (sstep_ms / 1e3):.4e}"
+              f" DOF*RK-stage/s, {sstage_ms:.4f} ms/stage over "
+              f"{5 * N4_TIMED_STEPS} stages, against 'auto' (K1) "
+              f"{stage_ms:.4f} ms/stage ({sstage_ms / stage_ms - 1:+.1%})")
+        print(f"[{card}] N={n} k1d={k1d} f32 device times: K1 {k1n_ms:.4f} ms "
+              f"(plain {k1n_plain_ms:.4f}), split volume stage "
+              f"{split_ms:.4f} ms, K2 N+1={n + 1} {k2n_ms:.4f} ms; stage "
+              f"queued ahead of the device {sdev:.4f} of {stage_ms:.4f} ms")
+        k_out, k_tr, _ = kouts
+        ne_ = disc.num_elements
+        b = bound(nbytes(vargs[0], disc.geo, vargs[2], disc.lift, k_out,
+                         k_tr),
+                  ops_k1(n + 1, entries(vargs[2]), entries(vargs[3])) * ne_)
+        return dict(launches=counts["euler_volume"], err=abs_v, ms=k1n_ms,
+                    plain_ms=k1n_plain_ms, bound=b)
+
+    k1_n6 = k1_order_path(N5, N5_K1D, N5_DT, {}, "22")
+    torch.cuda.empty_cache()
+    k1_n7 = k1_order_path(N6, N6_K1D, N6_DT,
+                          dict(force_fused=True), "23")
+    torch.cuda.empty_cache()
+
+    def k1_one_rhs(disc, q, kw, label):
+        """One RHS of make_euler_rhs_fused with every counter at 0 before:
+        K1 and K2 launched once, nothing else; returns K1's launches."""
+        zero_counts()
+        dq, _ = make_euler_rhs_fused(disc, dissipation=True, **kw)(q)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        print(f"{label}: one RHS, launches {counts}")
+        if counts != {"euler_volume": 1, "euler_surface": 1}:
+            raise AssertionError(f"expected K1 and K2 once ({label})")
+        if not bool(torch.isfinite(dq).all()):
+            raise AssertionError(f"{label}: RHS not finite")
+        return counts["euler_volume"]
+
+    def k1_row(disc, vargs, vkw, kouts, launches, err, form, tag, curved):
+        """Device times and the bound of K1 at these shapes."""
+        ms = dev_ms(lambda: fv.euler_volume(*vargs, **vkw), 20)
+        pms = dev_ms(lambda: fv.euler_volume_plain(*vargs, **vkw), 2)
+        print(f"[{card}] K1 {tag}: kernel {ms:.4f} ms, plain {pms:.4f} ms "
+              f"({pms / ms:.1f}x), device times")
+        ne_, n1 = disc.num_elements, disc.line_ops.n1d
+        extra = (line_metric_bytes(n1, ne_, vargs[0].element_size())
+                 if curved else nbytes(vargs[1]))
+        b = bound(nbytes(vargs[0], vargs[2], vargs[3], *kouts[:2]) + extra,
+                  ops_k1(n1, entries(vargs[2]), entries(vargs[3]), form)
+                  * ne_)
+        return dict(launches=launches, err=err, ms=ms, plain_ms=pms, bound=b)
+
+    # ---- 24. K1 at N+1 = 8: curved (K1c) and affine volume_mode='joint' ----
+    stamp("24")
+    k1_n8 = {}
+    for label, curved, kw in (
+            ("curved", True, dict(force_fused=True)),
+            ("affine", False, dict(force_fused=True, volume_mode="joint"))):
+        d_, _ = euler_hex_3d(n=7, k1d=N7_K1_K1D, curved=curved,
+                             dtype=torch.float32, device=dev)
+        q_ = random_state(d_, 23)
+        diag = not curved and fv.detect_axis_aligned(d_)
+        tag = (f"N=7 k1d={N7_K1_K1D} f32 {label}"
+               + (" diag" if diag else "") + " (N+1=8)")
+        geom = curved_geom(d_) if curved else None
+        abs_v, _, vargs, vkw, _, _, kouts = check_kernels(d_, q_, diag, tag,
+                                                          geom)
+        for k1d_s in (4, 3):
+            ds, _ = euler_hex_3d(n=7, k1d=k1d_s, curved=curved,
+                                 dtype=torch.float64, device=dev)
+            qs = random_state(ds, 24)
+            ragged = " (K=27, ragged tile)" if k1d_s == 3 else ""
+            check_kernels(ds, qs, diag, f"N=7 k1d={k1d_s} f64 {label}"
+                          + (" diag" if diag else "") + ragged,
+                          curved_geom(ds) if curved else None)
+            if not curved:
+                check_kernels(ds, qs, False, f"N=7 k1d={k1d_s} f64 general, "
+                              f"random metric{ragged}", random_affine(ds))
+        kws = ", ".join(f"{k}={v!r}" for k, v in kw.items())
+        n_launch = k1_one_rhs(d_, q_, kw,
+                              f"N=7 k1d={N7_K1_K1D} {label} ({kws})")
+        k1_n8[label] = k1_row(d_, vargs, vkw, kouts, n_launch, abs_v,
+                              "curved" if curved else
+                              ("diag" if diag else "general"),
+                              tag, curved)
+        del d_, q_, vargs, kouts
+    torch.cuda.empty_cache()
+
+    # ---- 25. K1c at N+1 = 6: curved N=5 ----
+    stamp("25")
+    cd5, _ = euler_hex_3d(n=5, k1d=CURVED_N5_K1D, curved=True,
+                          dtype=torch.float32, device=dev)
+    cq5 = random_state(cd5, 25)
+    tag = f"curved N=5 k1d={CURVED_N5_K1D} f32 (N+1=6)"
+    abs_v, _, vargs, vkw, _, _, kouts = check_kernels(cd5, cq5, False, tag,
+                                                      curved_geom(cd5))
+    for k1d_s in (4, 3):
+        ds, _ = euler_hex_3d(n=5, k1d=k1d_s, curved=True, dtype=torch.float64,
+                             device=dev)
+        check_kernels(ds, random_state(ds, 26), False,
+                      f"curved N=5 k1d={k1d_s} f64"
+                      + (" (K=27, ragged tile)" if k1d_s == 3 else ""),
+                      curved_geom(ds))
+    n_launch = k1_one_rhs(cd5, cq5, {}, f"curved N=5 k1d={CURVED_N5_K1D}")
+    k1c_n6 = k1_row(cd5, vargs, vkw, kouts, n_launch, abs_v, "curved", tag,
+                    True)
+    del cd5, cq5, vargs, kouts
+    # the free stream, f64: at k1d=8 against FREESTREAM_TOL_F64 (phase 14's
+    # mesh size); at the path's k1d=16 the metric identity's own roundoff
+    # floor is above it (the JAX package's lines RHS reads 1.66e-10 there
+    # on the CPU), so the kernel path is held to the plain twin's residual
+    fs5 = {}
+    for k1d in (8, CURVED_N5_K1D):
+        ds, _ = euler_hex_3d(n=5, k1d=k1d, curved=True, dtype=torch.float64,
+                             device=dev)
+        zero_counts()
+        fs_k = float(make_euler_rhs_fused(ds, dissipation=True)(
+            constant_state(ds))[0].abs().max())
+        launched = read_counts()["euler_volume"]
+        fs_t = float(make_euler_rhs(ds, dissipation=True,
+                                    flux_diff_impl="lines",
+                                    compute_rhstest=False)(
+            constant_state(ds))[0].abs().max())
+        fs5[k1d] = (fs_k, fs_t)
+        print(f"free stream on the warped mesh, N=5 k1d={k1d} f64: max |dq| "
+              f"of a constant state, kernel path (K1 launches {launched}) "
+              f"{fs_k:.3e}, plain twin 'lines' {fs_t:.3e}")
+        if launched != 1:
+            raise AssertionError("expected one K1 launch (free stream)")
+        del ds
+    print(f"free stream checks: k1d=8 kernel path <= {FREESTREAM_TOL_F64:.0e}"
+          f"; k1d={CURVED_N5_K1D} kernel path <= "
+          f"{FREESTREAM_TWIN_FACTOR:g} x the twin's")
+    if not (fs5[8][0] <= FREESTREAM_TOL_F64
+            and fs5[CURVED_N5_K1D][0] <= FREESTREAM_TWIN_FACTOR
+            * fs5[CURVED_N5_K1D][1]):
+        raise AssertionError("free stream not preserved on the curved mesh "
+                             "(N=5)")
+    torch.cuda.empty_cache()
+
+    # ---- 26. the 3D Becker shock tube at N=5 through fused_hex ----
+    stamp("26")
+    from esdg_cns_tpu_torch.physics.exact import BeckerShock
+    from esdg_cns_tpu_torch.presets import becker_shocktube_3d
+    from esdg_cns_tpu_torch.solvers import l2_error
+
+    def becker_case(k1d, dtype, mu=None):
+        disc, q0, bc, shock = becker_shocktube_3d(
+            n=BECKER_N, k1d=k1d, dtype=dtype, device=dev,
+            shock=None if mu is None else BeckerShock(mu=mu))
+        flags = dict(mu=shock.mu, pr=shock.pr, bc=bc,
+                     inviscid_dissipation=True, compute_rhstest=False)
+        return (disc, q0, shock, flags,
+                make_cns_rhs_affine(disc, volume_impl="fused_hex", **flags))
+
+    bdt = becker_dt(BECKER_N, BECKER_K1D)
+    becker = {}
+    for dtype, tol in ((torch.float32, TWIN_TOL_F32),
+                       (torch.float64, TWIN_TOL_F64)):
+        disc, q0, shock, flags, brhs = becker_case(BECKER_K1D, dtype)
+        name = dtype_name(q0)
+        zero_counts()
+        qf, _ = lsrk45(brhs, q0, bdt, STEPS)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in read_counts().items() if v}
+        print(f"Becker 3D N={BECKER_N} k1d={BECKER_K1D} (K={disc.num_elements}"
+              f", mu={shock.mu}) {name} fused_hex: {STEPS} LSRK45 steps at "
+              f"dt={bdt:.6g}, launches {counts}")
+        want = {"euler_volume": 5 * STEPS, "cns_surface_viscous": 5 * STEPS}
+        if counts != want:
+            raise AssertionError(f"expected launches {want} on the Becker "
+                                 "path")
+        if not bool(torch.isfinite(qf).all()):
+            raise AssertionError("Becker state not finite")
+        qt, _ = lsrk45(make_cns_rhs(disc, **flags), q0, bdt, STEPS)
+        e_tw, _ = rel_err(qf, qt)
+        _, aux = brhs(qf, STEPS * bdt)
+        rtv = float(aux["rhstest_visc"])
+        print(f"Becker 3D {name} fused_hex vs twin make_cns_rhs after "
+              f"{STEPS} steps: rel {e_tw:.3e} (tol {tol:.0e}); rhstest_visc "
+              f"{rtv:.4e} (>= 0)")
+        if not (e_tw <= tol and rtv >= 0.0):
+            raise AssertionError(f"Becker path ({name}) disagrees with the "
+                                 "twin or produces negative entropy")
+        becker[name] = (disc, q0, shock, brhs)
+        del qt, qf
+    # accuracy against the exact wave, f64, both meshes to one time: with
+    # mu = 0.01 the shock (about 0.02 wide) is under-resolved at k1d=16 and
+    # 32 (0.125 per element) and the error does not fall (printed); the
+    # check takes the wave of the JAX package's accuracy tests (mu = 0.1,
+    # tests/test_viscous.py:151), which the meshes resolve
+    t_end = STEPS * becker_dt(BECKER_N, BECKER_K1D // 2)
+    errs = {}
+    for mu in (None, BECKER_ACCURACY_MU):
+        for k1d in (BECKER_K1D // 2, BECKER_K1D):
+            disc, q0, shock, _, brhs = becker_case(k1d, torch.float64, mu)
+            ns = int(np.ceil(t_end / becker_dt(BECKER_N, k1d)))
+            qf, _ = lsrk45(brhs, q0, t_end / ns, ns)
+            u1d = shock.conservative(disc.xq[0].cpu().numpy(), t_end)
+            z = np.zeros_like(u1d[0])
+            exact = torch.as_tensor(np.stack([u1d[0], u1d[1], z, z, u1d[2]]),
+                                    device=dev)
+            errs[shock.mu, k1d] = float(l2_error(disc, qf, exact))
+            print(f"Becker 3D f64 mu={shock.mu} k1d={k1d} "
+                  f"(K={disc.num_elements}): {ns} steps to t={t_end:.6g}, L2 "
+                  f"error against the exact wave {errs[shock.mu, k1d]:.4e}"
+                  + ("" if mu else " (printed)"))
+    if not (errs[BECKER_ACCURACY_MU, BECKER_K1D]
+            < errs[BECKER_ACCURACY_MU, BECKER_K1D // 2]):
+        raise AssertionError("the Becker error did not fall with the mesh")
+    # the stage is host-bound (the ghosts' bisection is some 1400 small
+    # launches per RHS), so its rate is timed over the twins' 25 stages
+    disc, q0, shock, brhs = becker["float32"]
+    bdof = 5 * disc.np_ * disc.num_elements
+    bstep_ms = cuda_ms(lambda: lsrk45(brhs, q0, bdt, TWIN_TIMED_STEPS), 1)
+    bstage_ms = bstep_ms / (5 * TWIN_TIMED_STEPS)
+    bdev = dev_ms(lambda: lsrk45(brhs, q0, bdt, 2), 1) / 10
+    ghost_ms = cuda_ms(lambda: shock.conservative_torch(disc.xf[0], 0.01), 5)
+    print(f"[{card}] Becker 3D N={BECKER_N} k1d={BECKER_K1D} f32 (exact-wave "
+          f"ghosts + K1 N+1=6 + exchange + K4-3D + exchange + LIFT, LSRK45): "
+          f"{bdof * 5 * TWIN_TIMED_STEPS / (bstep_ms / 1e3):.4e} "
+          f"DOF*RK-stage/s, {bstage_ms:.4f} ms/stage over "
+          f"{5 * TWIN_TIMED_STEPS} stages, median of {REPEATS}; stage queued "
+          f"ahead of the device {bdev:.4f} ms; the ghosts' bisection (100 "
+          f"halvings, once per RHS) {ghost_ms:.4f} ms")
+    del becker, disc, q0, brhs
+    torch.cuda.empty_cache()
+
     hex_split = split_rows["hex"]
     rows = [
         ("euler_volume", "hex_volume.cu", "pallas_volume.py:87",
@@ -1789,7 +2173,17 @@ def main():
         ("euler_surface_n8", "hex_surface.cu", "pallas_volume.py:1146",
          n7_launches["euler_surface"], n7_errs["k2"], *n7_times["k2"],
          k2n8_bound),
-    ]
+        # K1 at N+1 = 6, 7 (phases 22, 23: launches over each path's 100
+        # stages), at N+1 = 8 and K1c at N+1 = 6, 8 (one RHS each)
+    ] + [(name, src, "pallas_volume.py:87", r["launches"], r["err"], r["ms"],
+          r["plain_ms"], r["bound"])
+         for name, src, r in (
+             ("euler_volume_n6", "hex_volume6.cu", k1_n6),
+             ("euler_volume_n7", "hex_volume7.cu", k1_n7),
+             ("euler_volume_n8", "hex_volume8.cu", k1_n8["affine"]),
+             ("euler_volume_curved_n6", "hex_volume6.cu", k1c_n6),
+             ("euler_volume_curved_n8", "hex_volume8.cu",
+              k1_n8["curved"]))]
     for name, *_, ms, pms, (bms, by) in rows:
         print(f"[{card}] {name}: bound {bms:.4f} ms by {by}, kernel "
               f"{ms:.4f} ms ({bms / ms:.1%} of the bound), plain "

@@ -1,9 +1,9 @@
 // The split volume path of the collocated-hex ES-DG Euler RHS: a
 // projection kernel (this file), one flux-differencing kernel per
 // direction (hex_split.cuh, instantiated in hex_fd_dir0..2.cu) and a plain
-// combine, in place of K1's all-in-one volume kernel where that kernel's
-// tile does not fit (K1 dispatches N+1 <= 5).  This file holds the entry
-// points of both kernels.
+// combine, in place of K1's all-in-one volume kernel: the TPU package's
+// 'split' volume modes, which its 'auto' takes at N = 7.  This file holds
+// the entry points of both kernels.
 //
 // hex_project_kernel replaces _proj_kernel (row 3) of
 // esdg_cns_tpu/ops/pallas_volume.py, behind euler_volume_split_pallas:

@@ -42,24 +42,20 @@ namespace esdg {
 
 constexpr int kVolumeThreads = 256;
 
-// shared memory of a tile of te elements: 7 x Nh flux variables and a
-// 5 x Nq accumulator per element
-template <typename T, int N1>
-constexpr size_t volume_smem_bytes(int te) {
-  return size_t(7 * (N1 * N1 * N1 + 6 * N1 * N1) + 5 * N1 * N1 * N1) * te *
-         sizeof(T);
-}
-
+// The tile of K1 and row 10: the largest of at most 16 elements whose
+// shared memory fits (common.cuh's tile_elements), so N+1 <= 5 keep the
+// 16 or 8 elements they were measured with; N+1 = 6..8 take 8, 4 or 2.
 template <typename T, int N1>
 struct VolumeTile {
   static constexpr int NQ = N1 * N1 * N1;
   static constexpr int NFP = N1 * N1;
   static constexpr int NFQ = 6 * NFP;
   static constexpr int NH = NQ + NFQ;
-  static constexpr int TE =
-      volume_smem_bytes<T, N1>(16) <= kMaxSmem ? 16 : 8;
+  static constexpr int TE_FIT = tile_elements<T>(0, size_t(7 * NH + 5 * NQ));
+  static constexpr int TE = TE_FIT < 16 ? TE_FIT : 16;
   static constexpr int NW = kVolumeThreads / TE;
-  static constexpr size_t SMEM = volume_smem_bytes<T, N1>(TE);
+  // 7 x Nh flux variables and a 5 x Nq accumulator per element
+  static constexpr size_t SMEM = size_t(7 * NH + 5 * NQ) * TE * sizeof(T);
   static_assert(SMEM <= kMaxSmem, "volume tile exceeds shared memory");
 };
 

@@ -25,6 +25,7 @@ import ctypes
 import dataclasses
 import functools
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -44,7 +45,13 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 class BuildInfo:
     path: Path
     seconds: float      # 0.0 when the library was up to date
-    log: str            # nvcc's output (ptxas register/spill report)
+    log: str            # nvcc's output (ptxas register/spill report),
+                        # each source under "== <name> (<seconds> s)"
+
+    def source_seconds(self):
+        """{source name: its nvcc seconds}, from the log's headers."""
+        return {m.group(1): float(m.group(2)) for m in re.finditer(
+            r"^== (\S+\.cu) \(([0-9.]+) s\)$", self.log, re.M)}
 
 
 def _sources():
@@ -75,15 +82,18 @@ def _compile(lib: Path, jobs: int) -> BuildInfo:
 
     def compile_one(src_obj):
         src, obj = src_obj
-        return subprocess.run([nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)],
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
+        t = time.perf_counter()
+        res = subprocess.run([nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        return res, time.perf_counter() - t
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(jobs) as pool:
-        results = list(pool.map(compile_one, zip(sources, objs)))
-    log = "\n".join(f"== {src.name}\n{res.stdout}"
-                    for src, res in zip(sources, results))
+        timed = list(pool.map(compile_one, zip(sources, objs)))
+    results = [res for res, _ in timed]
+    log = "\n".join(f"== {src.name} ({sec:.1f} s)\n{res.stdout}"
+                    for src, (res, sec) in zip(sources, timed))
     failed = [src.name for src, res in zip(sources, results)
               if res.returncode != 0]
     if not failed:

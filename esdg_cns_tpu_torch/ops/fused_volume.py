@@ -27,8 +27,9 @@ affine meshes (diagonal and general metric) and curved ones: K1 with the
 metric at every hybridized point (geo [9, Nh, K], pairwise-averaged in
 the line loop, ``csrc/line_fd.cuh``), K2 with per-point normals, sj and
 1/J (its general form).  K1 keeps an element's whole tile in shared
-memory and is built for N = 1..4; the split path keeps one line per
-thread in registers and is built, as K2 is, for N = 1..7 (affine only).
+memory (16 elements a block at N+1 <= 4, down to 2 at N+1 = 8 in f64)
+and is built, as K2 and the split path (one line per thread in
+registers, affine only) are, for N = 1..7.
 """
 
 from __future__ import annotations
@@ -120,8 +121,11 @@ def _check_shape(name, key, t, shape):
                          f"expected {tuple(shape)}")
 
 
-def _raise_on(name, rc, unsupported="no kernel for this polynomial degree "
-                                    "(N = 1..4 are built)"):
+# K1, K2 and the split path are built for N+1 = 2..8
+_N7_BUILT = "no kernel for this polynomial degree (N = 1..7 are built)"
+
+
+def _raise_on(name, rc, unsupported="no kernel for this polynomial degree"):
     if rc == -1:
         raise NotImplementedError(f"{name}: {unsupported}")
     if rc != 0:
@@ -237,7 +241,7 @@ def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
             q.data_ptr(), geo.data_ptr(), cvol.data_ptr(), cface.data_ptr(),
             iw.data_ptr(), iwf.data_ptr(), ef.data_ptr(), lift.data_ptr(),
             out.data_ptr(), traces.data_ptr(), k, float(gamma), stream)
-    _raise_on(name, rc)
+    _raise_on(name, rc, _N7_BUILT)
     euler_volume.launches += 1
     return out, traces
 
@@ -363,8 +367,7 @@ def euler_surface(traces, nbr, nxj, sj, inv_sj, inv_jac, lift, ph_qf,
             traces.data_ptr(), nbr.data_ptr(), nxj.data_ptr(), sj_ptr,
             isj_ptr, inv_jac.data_ptr(), lift.data_ptr(), ph_qf.data_ptr(),
             out.data_ptr(), k, float(gamma), stream)
-    _raise_on(name, rc, "no kernel for this polynomial degree (N = 1..7 are "
-                        "built)")
+    _raise_on(name, rc, _N7_BUILT)
     euler_surface.launches += 1
     return out
 
@@ -375,8 +378,6 @@ euler_surface.launches = 0
 # -----------------------------------------------------------------------------
 # The split volume path (rows 3, 4a, 4b)
 # -----------------------------------------------------------------------------
-
-_SPLIT_BUILT = "no kernel for this polynomial degree (N = 1..7 are built)"
 
 
 def hex_project_plain(q, ef, gamma):
@@ -417,7 +418,7 @@ def hex_project(q, ef, gamma):
             _DTYPE_CODE[q.dtype], n1, q.data_ptr(), ef.data_ptr(),
             qh.data_ptr(), qlog.data_ptr(), traces.data_ptr(), k,
             float(gamma), stream)
-    _raise_on(name, rc, _SPLIT_BUILT)
+    _raise_on(name, rc, _N7_BUILT)
     hex_project.launches += 1
     return qh, qlog, traces
 
@@ -520,7 +521,7 @@ def _fd_dir_launch(name, qh, qlog, geo, gamma, line_ops, d, diag, dense):
             _DTYPE_CODE[qh.dtype], n1, d, int(diag), int(dense),
             qh.data_ptr(), qlog.data_ptr(), geo.data_ptr(), cvol.data_ptr(),
             cface.data_ptr(), out.data_ptr(), k, float(gamma), stream)
-    _raise_on(name, rc, _SPLIT_BUILT)
+    _raise_on(name, rc, _N7_BUILT)
     return out
 
 

@@ -308,7 +308,8 @@ def flux_differencing_lines_fused(qh, qlog, geo, gamma, *, elem_type: str,
             _DTYPE_CODE[qh.dtype], n1, int(curved), qh.data_ptr(),
             qlog.data_ptr(), geo.data_ptr(), cvol.data_ptr(),
             cface.data_ptr(), out.data_ptr(), k, float(gamma), stream)
-    _raise_on(name, rc)
+    _raise_on(name, rc, "no kernel for this polynomial degree (N = 1..4 "
+                        "are built)")
     flux_differencing_lines_fused.launches += 1
     return out
 

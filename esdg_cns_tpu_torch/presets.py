@@ -2,7 +2,9 @@
 
 Port of ``esdg_cns_tpu.presets``: ``euler_hex_3d`` (the periodic Euler
 main path, affine or curved), ``lid_driven_cavity`` (the 2D CNS cavity
-on tris) and ``lid_driven_cavity_3d`` (the 3D CNS cavity on hexes);
+on tris), ``lid_driven_cavity_3d`` (the 3D CNS cavity on hexes) and the
+Becker viscous shock tubes ``becker_shocktube_1d`` / ``_2d`` / ``_3d``
+(lines, tris, hexes; Dirichlet far-field states from the exact wave);
 ``square_warp`` curves a mesh of [-1, 1]^2 the way ``euler_hex_3d``
 curves the cube.  States, masks and parameters are built with the same
 NumPy and IEEE operations as the JAX presets, so both packages start from
@@ -14,10 +16,41 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core import build_discretization, ref_hex, ref_tri
-from .mesh.generators import uniform_hex_mesh, uniform_tri_mesh
-from .physics import primitive_to_conservative
+from .core import build_discretization, ref_hex, ref_line, ref_tri
+from .mesh.generators import (uniform_hex_mesh, uniform_line_mesh,
+                              uniform_tri_mesh)
+from .physics import (conservative_to_primitive_beta,
+                      primitive_to_conservative, v_ufun)
+from .physics.exact import BeckerShock
 from .solvers.boundary import Region, make_wall_bc, region_from_indicator
+
+
+def _becker_dirichlet_bc(disc, shock, embed):
+    """Dirichlet far-field BC from the exact Becker wave on every boundary
+    face point: flux variables for the inviscid ghost states, entropy
+    variables for the BR1 gradient stage, both evaluated at the call's
+    time on the device.  ``embed(u1d) -> [Nf, Nfq, K]`` lifts the 1D exact
+    conservative state (at the face x-coordinates) to the problem's field
+    count."""
+    xf = disc.xf[0]
+    last = {}
+
+    def exact(t):
+        # an RHS asks for both ghost states at one time: bisect once
+        if last.get("t") != t:
+            last["t"], last["u"] = t, embed(shock.conservative_torch(xf, t))
+        return last["u"]
+
+    def dirichlet_flux_vars(t):
+        return conservative_to_primitive_beta(exact(t), shock.gamma)
+
+    def dirichlet_entropy_vars(t):
+        return v_ufun(exact(t), shock.gamma)
+
+    return make_wall_bc(disc, [Region(
+        mask=disc.bmask, kind="dirichlet",
+        state=dirichlet_flux_vars, entropy_state=dirichlet_entropy_vars,
+    )])
 
 
 def euler_hex_3d(n: int = 3, k1d: int = 8, *, curved: bool = False,
@@ -46,6 +79,93 @@ def euler_hex_3d(n: int = 3, k1d: int = 8, *, curved: bool = False,
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     q0 = primitive_to_conservative(f(rho), f(vel), f(p))
     return disc, q0
+
+
+def becker_shocktube_1d(n: int = 4, k: int = 128, xl: float = -2.0,
+                        xr: float = 2.0, shock: BeckerShock = None, *,
+                        dtype: torch.dtype, device):
+    """1D CNS viscous shock tube on [xl, xr] with Dirichlet far-field BCs
+    from the exact Becker solution (reference
+    dg1D_CNS_modalESDG.jl:83-348).
+
+    Returns (disc, q0, bc, shock) with q0 [3, Np, K] the exact wave at
+    t = 0.
+    """
+    shock = BeckerShock() if shock is None else shock
+    vx, etov = uniform_line_mesh(k, xl, xr)
+    disc = build_discretization(ref_line(n), (vx,), etov, dtype=dtype,
+                                device=device)
+    q0 = torch.as_tensor(shock.conservative(disc.x[0].cpu().numpy(), 0.0),
+                         dtype=dtype, device=device)
+    bc = _becker_dirichlet_bc(disc, shock, embed=lambda u: u)
+    return disc, q0, bc, shock
+
+
+def becker_shocktube_2d(n: int = 2, k1d: int = 16, xl: float = -2.0,
+                        xr: float = 2.0, shock: BeckerShock = None, *,
+                        dtype: torch.dtype, device):
+    """2D CNS viscous shock tube on tris: the 1D Becker wave (mu = 0.01)
+    extended in y over [xl, xr] x [-0.5, 0.5], k1d x k1d/4 cells, periodic
+    in y, Dirichlet inflow/outflow in x (reference
+    dg2D_CNS_modalESDG.jl:22-27,161-217).
+
+    Returns (disc, q0, bc, shock) with q0 [4, Np, K].
+    """
+    shock = BeckerShock(mu=0.01) if shock is None else shock
+    vx, vy, etov = uniform_tri_mesh(k1d, max(k1d // 4, 1))
+    vx = xl + (xr - xl) * (1 + vx) / 2
+    vy = 0.5 * vy
+    disc = build_discretization(ref_tri(n), (vx, vy), etov,
+                                periodic_axes=(1,), dtype=dtype,
+                                device=device)
+
+    u1d = shock.conservative(disc.x[0].cpu().numpy().ravel(), 0.0)
+    sh = (disc.np_, disc.num_elements)
+    q0 = torch.as_tensor(
+        np.stack([u1d[0].reshape(sh), u1d[1].reshape(sh), np.zeros(sh),
+                  u1d[2].reshape(sh)]), dtype=dtype, device=device)
+
+    def embed(u):  # [3, ...] -> [4, ...]: zero y-momentum
+        z = torch.zeros_like(u[0])
+        return torch.stack([u[0], u[1], z, u[2]])
+
+    bc = _becker_dirichlet_bc(disc, shock, embed)
+    return disc, q0, bc, shock
+
+
+def becker_shocktube_3d(n: int = 2, k1d: int = 8, xl: float = -2.0,
+                        xr: float = 2.0, shock: BeckerShock = None, *,
+                        dtype: torch.dtype, device):
+    """3D CNS viscous shock tube: the 1D Becker wave (mu = 0.01) extended
+    in y and z on a Gauss-collocated hex mesh of [xl, xr] x [-0.5, 0.5]^2,
+    k1d x k1d/4 x k1d/4 cells, periodic in y and z, Dirichlet
+    inflow/outflow in x (the TPU package's capability beyond the
+    reference, built as ``becker_shocktube_2d``).
+
+    Returns (disc, q0, bc, shock) with q0 [5, Np, K].
+    """
+    shock = BeckerShock(mu=0.01) if shock is None else shock
+    ky = max(k1d // 4, 1)
+    vx, vy, vz, etov = uniform_hex_mesh(k1d, ky, ky)
+    vx = xl + (xr - xl) * (1 + vx) / 2
+    vy, vz = 0.5 * vy, 0.5 * vz
+    disc = build_discretization(ref_hex(n), (vx, vy, vz), etov,
+                                periodic_axes=(1, 2), dtype=dtype,
+                                device=device)
+
+    u1d = shock.conservative(disc.x[0].cpu().numpy().ravel(), 0.0)
+    sh = (disc.np_, disc.num_elements)
+    z = np.zeros(sh)
+    q0 = torch.as_tensor(
+        np.stack([u1d[0].reshape(sh), u1d[1].reshape(sh), z, z,
+                  u1d[2].reshape(sh)]), dtype=dtype, device=device)
+
+    def embed(u):  # [3, ...] -> [5, ...]: zero y/z-momentum
+        zz = torch.zeros_like(u[0])
+        return torch.stack([u[0], u[1], zz, zz, u[2]])
+
+    bc = _becker_dirichlet_bc(disc, shock, embed)
+    return disc, q0, bc, shock
 
 
 def square_warp(x, y, alpha: float = 0.1):

@@ -19,8 +19,9 @@ at setup time: the front operator [Vq Pq; Vq D_r Pq], Vq LIFT and D_r Pq
                  there, so the viscous front reads v(U) directly and its
                  front operator is the gradient rows [Vq D_r Pq] alone
                  (proj=False);
-     'xla'       plain tensor code: one front GEMM [Vh Pq; Vq Pq;
-                 Vq D_r Pq] on v(U) and ``flux_diff_impl``;
+     'xla'       (the default, and any other name, as in the TPU
+                 package) plain tensor code: one front GEMM [Vh Pq;
+                 Vq Pq; Vq D_r Pq] on v(U) and ``flux_diff_impl``;
   2. one exchange of the traces (``Discretization.gather_traces``);
   3. the surface section and the viscous mid-section (``surface_impl``):
      'merged' / 'merged_tail' K4 ``ops.surface_viscous.
@@ -73,7 +74,7 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
                         viscous_dissipation: bool = False,
                         re: Optional[float] = None,
                         flux_diff_impl: str = "auto",
-                        volume_impl: str = "fused",
+                        volume_impl: str = "xla",
                         viscous_impl: str = "auto",
                         surface_impl: str = "auto",
                         compute_rhstest: bool = True,
@@ -82,12 +83,14 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
     """Composed-operator CNS RHS for affine meshes; same contract as
     ``solvers.cns.make_cns_rhs``.
 
-    volume_impl: 'fused' (K3, tris), 'fused_hex' (K1, collocated hexes;
-      ``axis_aligned`` None detects the diagonal metric with
-      ``detect_axis_aligned``) or 'xla' (plain tensor code with
-      ``flux_diff_impl``: 'auto', 'xla', 'pallas', 'lines' or
-      'lines_pallas', ``_shared.resolve_flux_diff``).  The fused volume
-      kernels hold their own flux differencing.
+    volume_impl: 'xla' (the default, as in the TPU package: plain tensor
+      code with ``flux_diff_impl``: 'auto', 'xla', 'pallas', 'lines' or
+      'lines_pallas', ``_shared.resolve_flux_diff``), 'fused' (K3, tris)
+      or 'fused_hex' (K1, collocated hexes; ``axis_aligned`` None detects
+      the diagonal metric with ``detect_axis_aligned``).  Any other name
+      takes the 'xla' front, as the TPU package does (its TGV example
+      passes 'auto').  The fused volume kernels hold their own flux
+      differencing.
     viscous_impl: 'fused' (K7, or inside K4; needs a fused volume and
       rhstest_mode='native', since the kernels sum the per-element
       production in the state dtype), 'xla' (plain tensor mid-section) or
@@ -124,8 +127,6 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
     nh = disc.nh
     re = (1.0 / mu) if re is None else re
 
-    if volume_impl not in ("fused", "fused_hex", "xla"):
-        raise ValueError(f"unknown volume_impl: {volume_impl!r}")
     if volume_impl == "fused_hex" and (disc.elem_type != "hex"
                                        or disc.line_ops is None):
         raise ValueError("volume_impl='fused_hex' requires a collocated "
@@ -182,7 +183,7 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
     # gradient rows alone and the kernels hand back the input v(U)
     proj = volume_impl != "fused_hex"
     front, vqlift, drpq = composed_operators(disc, proj=proj)
-    if volume_impl == "xla":
+    if volume_impl not in ("fused", "fused_hex"):
         # rows [0:Nh) Vh Pq (the entropy projection; its face rows are
         # the entropy traces), then Vq Pq, then Vq D_r Pq
         front_h = torch.cat([disc.vhp, front])
@@ -243,8 +244,8 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
                else list(_apply(front, vu_q).split(nq, dim=1)))
         return (tr, *traces(tr), vu_q, vqd, ph_qf)
 
-    front_fn = {"fused": front_fused, "fused_hex": front_fused_hex,
-                "xla": front_xla}[volume_impl]
+    front_fn = {"fused": front_fused,
+                "fused_hex": front_fused_hex}.get(volume_impl, front_xla)
 
     def rhs(q, t=0.0):
         # tr = (qm | log rho, log beta) at the face points

@@ -51,8 +51,19 @@ def dg_grad(disc, u, uf, up):
     return tuple(out)
 
 
+def dg_div(disc, flux_vols, flux_fs, flux_ps):
+    """BR1 divergence of a vector field given per-direction components.
+
+    flux_vols: tuple over x-dirs of [..., Np, K]; flux_fs / flux_ps:
+    tuples of the own and neighbour traces [..., Nfq, K].
+    """
+    jump_n = sum(0.5 * (flux_ps[x] - flux_fs[x]) * disc.nxj[x]
+                 for x in range(disc.dim))
+    return dg_div_contracted(disc, flux_vols, jump_n)
+
+
 def dg_div_contracted(disc, flux_vols, jump_n):
-    """BR1 divergence with the interface jump already normal-contracted
+    """``dg_div`` with the interface jump already normal-contracted
     (jump_n [..., Nfq, K]): only sum_x flux_x nxj_x crosses the
     exchange."""
     acc = None

@@ -1,8 +1,8 @@
 """Entropy-stable DG semi-discretization of compressible Euler.
 
-Port of ``esdg_cns_tpu/solvers/euler.py`` (``entropy_projection`` and
-``make_euler_rhs``): the plain PyTorch twin of the fused paths, built
-from tensor ops only, on collocated hexes (line-sparse flux
+Port of ``esdg_cns_tpu/solvers/euler.py`` (``entropy_projection``,
+``make_euler_rhs`` and ``l2_error``): the plain PyTorch twin of the fused
+paths, built from tensor ops only, on collocated hexes (line-sparse flux
 differencing) and on triangles (dense flux differencing).
 
   1. entropy projection  U -> V at quadrature -> project -> U at
@@ -55,6 +55,7 @@ def make_euler_rhs(
     *,
     gamma: float = phys.GAMMA,
     dissipation: bool = True,
+    bc_fun=None,
     flux_diff_impl: str = "xla",
     compute_rhstest: bool = True,
     rhstest_mode: str = "native",
@@ -65,6 +66,11 @@ def make_euler_rhs(
       disc: ``core.Discretization``.
       dissipation: add local Lax-Friedrichs interface dissipation
         (entropy-stable); without it the scheme is entropy-conservative.
+      bc_fun: optional boundary hook
+        ``bc_fun(disc, qm, qp, uf, up, t) -> (qp, up)`` applied to the
+        gathered neighbour traces (flux-variable and conservative ghost
+        states; ``WallBC.inviscid`` has this signature).  Periodicity is
+        already in the exchange.
       flux_diff_impl: 'xla' (dense, the default, as in the TPU
         package), 'pallas' (dense, kernel K5), 'lines' (tensor-product
         sparse, collocated quad/hex), 'lines_pallas' (line-sparse, kernel
@@ -80,7 +86,6 @@ def make_euler_rhs(
     fd = resolve_flux_diff(disc, flux_diff_impl)
 
     def rhs(q, t: float = 0.0):
-        del t
         vu, uh = entropy_projection(disc, q, gamma)
         qh, qlog = flux_variables(uh, gamma)
 
@@ -88,6 +93,7 @@ def make_euler_rhs(
         flux, _ = inviscid_surface(
             disc, disc.gather_traces, qh[:, nq:, :], uh[:, nq:, :],
             qlog[:, nq:, :], gamma=gamma, dissipation=dissipation,
+            bc_inviscid=bc_fun, t=t,
         )
         rhs_surf = _apply(disc.lift, flux)
 
@@ -105,3 +111,10 @@ def make_euler_rhs(
         return rhs_q, aux
 
     return rhs
+
+
+def l2_error(disc, q, q_exact_at_quad):
+    """Quadrature L2 error of q against exact values at the quadrature
+    points: sqrt(sum wJq (Vq q - q_exact)^2) over fields and elements."""
+    dq = _apply(disc.vq, q) - q_exact_at_quad
+    return torch.sqrt(torch.sum(disc.wjq[None] * dq * dq))

@@ -235,7 +235,8 @@ def test_fused_cavity_rhs_matches_jax_and_twin(case):
         compute_rhstest=False, **flags,
         **({} if block_k is None else {"block_k": block_k}))(jnp.asarray(q), t)
     for rhstest in (False, True):
-        tdq, taux = make_cns_rhs_affine(td, bc=tbc, compute_rhstest=rhstest,
+        tdq, taux = make_cns_rhs_affine(td, bc=tbc, volume_impl="fused",
+                                        compute_rhstest=rhstest,
                                         **flags)(_t(q), t)
         assert _rel(tdq.numpy(), jdq) <= TOL, case
         assert _rel(tdq.numpy(), twin.numpy()) <= TOL, case

@@ -198,11 +198,11 @@ def test_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
     args7, kw7 = k7_inputs(cdisc, cq, bc, p)
     with pytest.raises(NotImplementedError):
         sv.cns_viscous(*args7, **dict(kw7, contract=False))
-    # K1 keeps its whole tile in shared memory: N >= 5 is the split path's
-    d5, q5 = euler_hex_3d(n=5, k1d=2, dtype=torch.float32, device=cuda)
-    with pytest.raises(NotImplementedError):
-        fv.euler_volume(q5, d5.geo, d5.vhp[d5.nq:], d5.lift, GAMMA,
-                        line_ops=d5.line_ops)
+    # K1 keeps its whole tile in shared memory and is built for N <= 7
+    d8, q8 = euler_hex_3d(n=8, k1d=1, dtype=torch.float32, device=cuda)
+    with pytest.raises(NotImplementedError, match="N = 1..7"):
+        fv.euler_volume(q8, d8.geo, d8.vhp[d8.nq:], d8.lift, GAMMA,
+                        line_ops=d8.line_ops)
     # the split path is affine-only and has no padded dense form
     curved = disc.geo.expand(9, disc.nh, -1).contiguous()
     with pytest.raises(ValueError, match="affine-only"):
@@ -353,6 +353,79 @@ def test_fused_hex_front_at_n7_takes_the_split_path(cuda):
     assert [x - y for x, y in zip(after[:4], before[:4])] == [1, 3, 0, 0]
     b, _ = make_cns_rhs(disc, **flags)(q)
     assert _rel(a, b) <= 1e-9
+
+
+# ---- K1 at N+1 = 6, 7, 8 (tiles of 8, 4 and 2 elements) ----
+
+# k1d=3 gives K=27: a ragged last tile at every tile size
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [5, 6, 7])
+@pytest.mark.parametrize("form", ["diag", "general", "random", "curved"])
+def test_volume_kernel_at_high_order(cuda, dtype, n, form):
+    """K1 against its plain version in each metric form: the mesh's own
+    metric (diag and the general contraction of its exact zeros), a seeded
+    random non-diagonal affine metric, and the warped mesh's per-point
+    metric."""
+    disc, _ = euler_hex_3d(n=n, k1d=3, curved=form == "curved", dtype=dtype,
+                           device=cuda)
+    q = _random_state(disc, dtype, cuda, seed=n)
+    geo = _random_affine(disc, dtype, cuda)[0] if form == "random" \
+        else disc.geo
+    vargs = (q, geo, disc.vhp[disc.nq:], disc.lift, GAMMA)
+    vkw = dict(line_ops=disc.line_ops, diag=form == "diag")
+    before = fv.euler_volume.launches
+    p_out, p_tr = fv.euler_volume_plain(*vargs, **vkw)
+    k_out, k_tr = fv.euler_volume(*vargs, **vkw)
+    torch.cuda.synchronize()
+    assert fv.euler_volume.launches == before + 1
+    assert _rel(k_out, p_out) <= TOL[dtype]
+    assert _rel(k_tr, p_tr) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,curved,kw", [
+    (5, False, {}), (6, False, dict(force_fused=True)),
+    (7, True, dict(force_fused=True)),
+    (7, False, dict(force_fused=True, volume_mode="joint"))])
+def test_k1_rhs_at_high_order_matches_twin(cuda, n, curved, kw):
+    """The RHS that JAX runs on its joint kernel at these orders takes K1
+    once and no split kernel, equals the lines twin and conserves entropy
+    with dissipation off."""
+    disc, _ = euler_hex_3d(n=n, k1d=3, curved=curved, dtype=torch.float64,
+                           device=cuda)
+    q = _random_state(disc, torch.float64, cuda, seed=4)
+    before = _split_counts()
+    b, _ = make_euler_rhs_fused(disc, dissipation=True, **kw)(q)
+    after = _split_counts()
+    assert [x - y for x, y in zip(after, before)] == [0, 0, 0, 1, 1]
+    a, _ = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
+                          compute_rhstest=False)(q)
+    assert _rel(b, a) <= 1e-11
+    _, aux = make_euler_rhs_fused(disc, dissipation=False,
+                                  compute_rhstest=True, **kw)(q)
+    assert abs(float(aux["rhstest"])) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_becker_3d_fused_hex_at_n5_takes_k1(cuda):
+    """The 3D Becker tube at N=5 through fused_hex: K1 at N+1 = 6 and K4
+    at dim=3 with the Dirichlet ghosts, equal to the twin make_cns_rhs."""
+    from esdg_cns_tpu_torch.presets import becker_shocktube_3d
+
+    disc, q0, bc, shock = becker_shocktube_3d(n=5, k1d=4,
+                                              dtype=torch.float64,
+                                              device=cuda)
+    flags = dict(mu=shock.mu, pr=shock.pr, bc=bc, inviscid_dissipation=True,
+                 viscous_dissipation=True, compute_rhstest=False)
+    before = (fv.euler_volume.launches, sv.cns_surface_viscous.launches)
+    a, aux = make_cns_rhs_affine(disc, volume_impl="fused_hex",
+                                 **flags)(q0, 0.037)
+    assert (fv.euler_volume.launches, sv.cns_surface_viscous.launches) == (
+        before[0] + 1, before[1] + 1)
+    b, _ = make_cns_rhs(disc, **flags)(q0, 0.037)
+    assert _rel(a, b) <= 1e-9
+    assert float(aux["rhstest_visc"]) >= 0.0
 
 
 # ---- the curved Euler kernels (K1 on curved metrics, K2 on curved
@@ -539,7 +612,8 @@ def test_fused_cavity_rhs_matches_twin_and_is_entropy_stable(cuda):
     flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
                  inviscid_dissipation=True, viscous_dissipation=True)
     a, _ = make_cns_rhs(disc, **flags)(q)
-    b, _ = make_cns_rhs_affine(disc, compute_rhstest=False, **flags)(q)
+    b, _ = make_cns_rhs_affine(disc, volume_impl="fused",
+                               compute_rhstest=False, **flags)(q)
     assert _rel(b, a) <= 1e-11
     disc, q0, bc, p = lid_driven_cavity(n=3, k1d=4, bctype="adiabatic",
                                         lid_profile=lambda x: 0.0 * x,
@@ -550,7 +624,8 @@ def test_fused_cavity_rhs_matches_twin_and_is_entropy_stable(cuda):
         [1.0, 0.1, 0.1, 1.0], dtype=torch.float64, device=cuda)[:, None, None]
     _, aux = make_cns_rhs_affine(disc, mu=p["mu"], pr=p["pr"], re=p["re"],
                                  bc=bc, inviscid_dissipation=True,
-                                 viscous_dissipation=True)(q)
+                                 viscous_dissipation=True,
+                                 volume_impl="fused")(q)
     assert float(aux["rhstest_visc"]) >= 0.0
     assert float(aux["rhstest"]) < 1e-10
 

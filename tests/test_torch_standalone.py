@@ -52,11 +52,12 @@ disc, q0, bc, p = lid_driven_cavity(n=2, k1d=2, dtype=torch.float64,
 flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
              inviscid_dissipation=True, viscous_dissipation=True,
              compute_rhstest=False)
-a, _ = make_cns_rhs_affine(disc, **flags)(q0 * 1.01)
+a, _ = make_cns_rhs_affine(disc, volume_impl="fused", **flags)(q0 * 1.01)
 b, _ = make_cns_rhs(disc, **flags)(q0 * 1.01)
 rel = float((a - b).abs().max() / b.abs().max())
 assert rel < 1e-11, rel
-c, _ = make_cns_rhs_affine(disc, surface_impl="fused", **flags)(q0 * 1.01)
+c, _ = make_cns_rhs_affine(disc, volume_impl="fused", surface_impl="fused",
+                           **flags)(q0 * 1.01)
 rel = float((c - b).abs().max() / b.abs().max())
 assert rel < 1e-11, rel
 from esdg_cns_tpu_torch.presets import lid_driven_cavity_3d
@@ -65,6 +66,23 @@ disc, q0, bc, p = lid_driven_cavity_3d(n=2, k1d=2, dtype=torch.float64,
 flags = dict(flags, mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc)
 a, _ = make_cns_rhs_affine(disc, volume_impl="fused_hex", **flags)(q0 * 1.01)
 b, _ = make_cns_rhs(disc, **flags)(q0 * 1.01)
+rel = float((a - b).abs().max() / b.abs().max())
+assert rel < 1e-11, rel
+assert "esdg_cns_tpu_torch.physics.exact" in sys.modules
+from esdg_cns_tpu_torch.presets import becker_shocktube_3d
+from esdg_cns_tpu_torch.solvers import l2_error
+disc, q0, bc, shock = becker_shocktube_3d(n=5, k1d=4, dtype=torch.float64,
+                                          device="cpu")
+flags = dict(mu=shock.mu, pr=shock.pr, bc=bc, inviscid_dissipation=True,
+             viscous_dissipation=True, compute_rhstest=False)
+a, _ = make_cns_rhs_affine(disc, volume_impl="fused_hex", **flags)(q0, 0.01)
+b, _ = make_cns_rhs(disc, **flags)(q0, 0.01)
+rel = float((a - b).abs().max() / b.abs().max())
+assert rel < 1e-9, rel
+assert float(l2_error(disc, q0, disc.vq @ q0)) == 0.0
+disc, q0 = euler_hex_3d(n=5, k1d=2, dtype=torch.float64, device="cpu")
+a, _ = make_euler_rhs_fused(disc)(q0)
+b, _ = make_euler_rhs(disc, flux_diff_impl="lines", compute_rhstest=False)(q0)
 rel = float((a - b).abs().max() / b.abs().max())
 assert rel < 1e-11, rel
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -82,12 +100,14 @@ def _env():
 
 
 def test_port_runs_with_jax_blocked():
-    """(g) importing every module (``ops.dense_fd`` among them), one
-    Euler RHS (with the 'lines', 'pallas' and 'lines_pallas' flux
-    differencing), the split volume path (N=4 in its three split modes,
-    N=7 as 'auto' picks it) and the cavity RHS on the 2D merged and split
-    paths and on the 3D fused_hex path, with no JAX; no module of the JAX
-    package is loaded."""
+    """(g) importing every module (``ops.dense_fd`` and ``physics.exact``
+    among them), one Euler RHS (with the 'lines', 'pallas' and
+    'lines_pallas' flux differencing), the split volume path (N=4 in its
+    three split modes, N=7 as 'auto' picks it), the cavity RHS on the 2D
+    merged and split paths and on the 3D fused_hex path, the 3D Becker
+    shock tube at N=5 on the fused_hex path and the Euler RHS at N=5 as
+    'auto' picks it (K1), with no JAX; no module of the JAX package is
+    loaded."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        env=_env(), capture_output=True, text=True,
                        timeout=300)
