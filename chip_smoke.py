@@ -9,7 +9,8 @@ Phases (each raises on failure; nothing is caught):
   2. build: nvcc builds esdg_cns_tpu_torch/csrc/*.cu for sm_90a; prints the
      build time and ptxas' register/spill report of the N=3 hex kernels
      (K1 diag, general and curved; K2; row 10), of K1 and row 10 curved
-     at N=4 in f64, of the tri and CNS kernels and of K5;
+     at N=4 in f64, of K3 and the CNS kernels in every form, of K5 and of
+     the Becker bisection;
   3. Euler kernels: K1 (euler_volume) and K2 (euler_surface) against their
      plain PyTorch versions on the card, at the main-path shapes (N=3,
      k1d=32, f32, axis-aligned) and at N=3, k1d=8 in f64 (axis-aligned and
@@ -146,11 +147,48 @@ Phases (each raises on failure; nothing is caught):
      and K4 once per stage), against the twin make_cns_rhs, rhstest_visc
      >= 0; the f64 L2 error against the exact wave at k1d=16 and k1d=32 at
      one time, printed for mu=0.01 and required to fall for the resolved
-     mu=0.1 wave; the f32 rate over 25 stages (host-bound: the ghosts'
-     bisection) and the bisection's time.
+     mu=0.1 wave; the f32 rate over 25 stages and the ghosts' time;
+ 27. the forms of the modal front: K3 at dim 1 and 3, K4 at (1, True) and
+     (3, True) (both fold_tail forms), K7 at the same (contract True and
+     False) and K8 at dim 1 against their plain versions, at the paths'
+     shapes (line N=4 K=128 f64 and f32, the Becker tube's pool; hex N=3
+     k1d=16 f32, the 3D cavity with the modal front), at ragged K (line
+     K=37, hex K=27) and in f64 on the wall recipes and the 3D Becker
+     tube; K7 contract=False also at the cavities' forms (2, True) and
+     (3, False); the Becker bisection kernel against the eager loop on the
+     1D and 3D tubes' face points (f32, f64: bitwise, or within an ulp
+     with the cause printed) and its time per RHS beside the loop's;
+ 28. the 3D hex path through K3: lid_driven_cavity_3d(3, 16, f32) ->
+     make_cns_rhs_affine(volume_impl='fused', bench.py's flags) -> lsrk45
+     for 20 steps with every counter at 0 before (K3 and K4 once per stage,
+     K1 never), finite and within 1e-5 of the twin; one RHS against
+     fused_hex (f32 1e-5; f64 k1d=4 1e-9), the split form (K8, K7 at (3,
+     True)) against merged_tail; f64 mass over 20 steps; the rate over 1200
+     stages, K3's, K4's and K7's device times, the profiler; the 3D Becker
+     tube (N=2, k1d=8, f64) through 'fused' on one RHS against the twin
+     (1e-10) and fused_hex (1e-9);
+ 29. the 1D path: becker_shocktube_1d(4, 128, f64) ->
+     make_cns_rhs_affine(volume_impl='fused', compute_rhstest=False) (K3
+     at dim 1, K4 at (1, True) merged_tail): one RHS against the twin
+     (1e-10), dopri45 to t=0.005 at err_tol 1e-11 against the twin stepped
+     the same way (1e-10, accepted steps equal or one apart: at that
+     tolerance the error estimate is a few digits above the RHS's
+     roundoff; K3 and K4 once per RHS),
+     its host time per step and per RHS, the split path (K8, K7 at dim 1)
+     against merged_tail; the device times of K3, K4, K7, K8 at dim 1 and
+     of K7 contract=False at each form;
+ 30. the paper anchor on the card: through the phase-29 path, dopri45 at
+     err_tol 1e-11 to T=0.1 at N=4, K=32, 64, 128, scored by
+     verification.becker_errors, each of l1, l2, linf within 1% of
+     results/paper_anchor_r05.json's row and the L2 rates above 4.5; the
+     readings, accepted steps beside the artifact's and seconds per row;
+     then verification.becker_shocktube_errors(2, 32) (the twin, as JAX
+     runs it) against its row.
 A kernel's time is its device time: the timed calls are queued behind a
 sleeping kernel, so the host's dispatch does not enter it.
-The line before the last is {"kernels": [...]} with each kernel's bound
+The Becker bisection's time per RHS is printed apart: it replaces no TPU
+kernel.  The line before the last is {"kernels": [...]} with each
+kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over 67
 TFLOP/s, from this run's shapes and the entries of its operators that
 the function needs); the last line is {"ok": true, "device": {...}}.
@@ -164,6 +202,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 # the Euler path: N=3, k1d=32 (K=32768, 10.5M DOF), f32
 N, K1D, STEPS, DT = 3, 32, 20, 1e-3
@@ -243,6 +282,30 @@ BECKER_ACCURACY_MU = 0.1
 # f64 kernel path against the f64 twin after 20 steps (100 stages): one
 # RHS agrees to ~1e-13 of max |dq|, and the stages add dt times that
 TWIN_TOL_F64 = 1e-10
+# phases 27-30, the modal front (K3) on lines and hexes: the 3D cavity's
+# mesh through volume_impl='fused' (hex N=3, k1d=16, f32) and the 1D Becker
+# tube of the paper's anchor (line N=4, K=128, f64); the line path steps
+# with dopri45 to LINE_T at the anchor's err_tol
+LINE_N, LINE_K, LINE_T = 4, 128, 0.005
+# dopri45 on the kernel path and on the twin at err_tol 1e-11: the
+# accepted counts one apart at most (phase 29 says why), the states within
+# TWIN_TOL_F64
+DOPRI_STEP_SLACK = 1
+# the fused front against fused_hex on the 3D cavity, one RHS: f32 at full
+# width, and f64 at k1d=4 to the TPU package's own limit between these
+# fronts (tests/test_cns_fused.py:48-67; Vq Pq = I only up to roundoff)
+FRONT_TOL = {"float32": 1e-5, "float64": 1e-9}
+# the 3D Becker tube in f64 through 'fused' (N=2, k1d=8), one RHS: against
+# the twin to the TPU package's limit between the affine and twin paths
+# (tests/test_cns_fused.py:42), against fused_hex as FRONT_TOL
+BECKER3D_FUSED = (2, 8)
+# the paper anchor (results/paper_anchor_r05.json, the reference 1D
+# driver's Mach-3 tube, N=4, T=0.1, err_tol 1e-11, f64): each of l1, l2,
+# linf within 1% of the artifact's row, and the L2 rates above 4.5, as
+# tests/test_paper_anchor.py:43 requires of the artifact
+ANCHOR_FILE = "results/paper_anchor_r05.json"
+ANCHOR_N, ANCHOR_KS, ANCHOR_T, ANCHOR_ERR_TOL = 4, (32, 64, 128), 0.1, 1e-11
+ANCHOR_REL, ANCHOR_MIN_RATE = 0.01, 4.5
 # the card's published peaks (H100 SXM data sheet): HBM bytes/s and FP32
 # operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -377,7 +440,10 @@ def bound(n_bytes, n_ops):
 # pairwise average of the three terms (6): 112.  The 2D EC pair with both
 # directions, the metric contraction and both rows' accumulation 85; a
 # curved metric adds the average of the four operator-metric terms (8).
+# The 1D pair (two logarithmic means, one direction, one metric term, both
+# rows' accumulation) 55.
 PAIR_3D = {"diag": 74, "general": 106, "curved": 112}
+PAIR_MODAL = {1: 55, 2: 85, 3: PAIR_3D["general"]}
 
 
 def line_pairs(n1):
@@ -427,10 +493,29 @@ def tri_pairs(nq, nh):
     return nq * (nq - 1) // 2 + nq * (nh - nq)
 
 
-def ops_k3(np_, nq, nh, curved=False):
-    return (2 * nq * np_ * 4 + 20 * nq + 2 * nh * nq * 4 + 40 * nh
-            + (93 if curved else 85) * tri_pairs(nq, nh)
-            + 2 * np_ * nh * 4 + 4 * np_)
+def needed_pairs(q_skew, nq):
+    """The pairs i < j of K3's sum that the data needs: those with an
+    operator entry of any direction above roundoff (1e-12 of the largest),
+    the zero face-face block left out.  Every pair on the tri and the line;
+    on the collocated hex only the pairs of a node line."""
+    a = q_skew.abs()
+    nz = (a > 1e-12 * a.max()).any(0)
+    nz[nq:, nq:] = False
+    return int(nz.triu(1).sum())
+
+
+def ops_k3(dim, vq, vhp, ph, q_skew, nq, curved=False):
+    """K3 per element: the three operator products over the entries they
+    need (Vq, Vh Pq and Ph: each full on lines and tris, the identity and
+    one node line per face point on the collocated hex), v(U) and U(v)
+    with the flux variables and logs at each point, and the pairs the data
+    needs at the dim's pair cost (curved tris: 93)."""
+    nf, nh = dim + 2, vhp.shape[0]
+    np_ = ph.shape[0]
+    pair = 93 if curved else PAIR_MODAL[dim]
+    return (2 * nf * (entries(vq) + entries(vhp) + entries(ph))
+            + (10 + 5 * dim) * nq + (30 + 5 * dim) * nh
+            + pair * needed_pairs(q_skew, nq) + nf * np_)
 
 
 def ops_dense_2d(nq, nh, curved):
@@ -471,7 +556,7 @@ def ops_visc(dim, nq, nfq, front, vqlift, ef, drpq):
     geo[r,x]·σ_x once per node, then the D_r Pq products).  front,
     vqlift, ef and drpq are the operators the kernels take."""
     nf = dim + 2
-    sigma = 83 if dim == 2 else 190
+    sigma = {1: 20, 2: 83, 3: 190}[dim]
     front = 2 * entries(front) * nf
     surface = 2 * dim * entries(vqlift) * nf + nfq * nf * (1 + dim)
     node = nf * dim * (2 * dim + 1) + sigma + 3 * dim * nf
@@ -496,7 +581,8 @@ def ptxas_report(log):
     form and type (a line of a curved f64 thread is more than its 255
     registers hold), the split kernels at N=4 and
     N=7 (the projection; the fd in direction 0, diag, general and dense)
-    and K2 at N=7, the tri and CNS kernels and K5.  A spill line counts
+    and K2 at N=7, K3 at every dim and form, the CNS kernels, K5 and the
+    Becker bisection.  A spill line counts
     only under its own entry's "Function properties" (not under a device
     function's, such as libdevice's pow)."""
     out, entry, props = [], None, None
@@ -515,10 +601,10 @@ def ptxas_report(log):
         name = entry.split("'")[1] if "'" in entry else entry
         kind = next((k for k in ("hex_volume", "hex_surface", "hex_lines",
                                  "hex_project", "hex_fd_dir",
-                                 "tri_modal_volume", "dense_fd",
+                                 "modal_volume", "dense_fd",
                                  "cns_surface_viscous", "cns_surface",
-                                 "cns_viscous") if k + "_kernel" in name),
-                    None)
+                                 "cns_viscous", "becker_bisect")
+                     if k + "_kernel" in name), None)
         if kind is None:
             continue
         form = name.split("kernel", 1)[1]
@@ -561,11 +647,469 @@ def ptxas_report(log):
                        f"{'global' if flags[1] else 'shared'} memory: "
                        f"{report}")
         else:
-            dim = "" if kind == "tri_modal_volume" else (
-                " 3D" if "Li3E" in form else " 2D")
-            variant = " curved" if flags and flags[0] else ""
+            dim = re.search(r"Li([123])E", form)
+            dim = f" {dim.group(1)}D" if dim else ""
+            if kind == "modal_volume":      # <T, DIM, CURVED, OPS_GLOBAL>
+                variant = ((" curved" if flags[0] else "")
+                           + (", operators in global memory" if flags[1]
+                              else ""))
+            elif kind in ("cns_surface_viscous", "cns_viscous"):
+                # <T, DIM, PROJ, OPS_SMEM>
+                variant = ((" proj" if flags[0] else " no proj")
+                           + (", operators in shared memory" if flags[1]
+                              else ", operators in global memory"))
+            else:
+                variant = ""
             out.append(f"ptxas {kind}{dim} {prec}{variant}: {report}")
     return out
+
+
+def modal_phases(c):
+    """Phases 27-30: the modal front K3 on lines and hexes and the forms of
+    K4, K7 and K8 it leads to; the 3D cavity's mesh and the 1D Becker tube
+    through make_cns_rhs_affine(volume_impl='fused'); the paper anchor.
+    c: the main phases' helpers (dev, card, zero_counts, read_counts, held,
+    cavity_kernels, dev_ms, kernel_times, path_timing, mass).  Returns the
+    kernels line's rows of the new forms and the bisection's times."""
+    import numpy as np
+    import torch
+
+    from esdg_cns_tpu_torch.cavity_cases import (becker_case, cavity_case,
+                                                 k7_inputs)
+    from esdg_cns_tpu_torch.ops import becker_bisect as bb
+    from esdg_cns_tpu_torch.ops import cns_surface as cs
+    from esdg_cns_tpu_torch.ops import modal_volume as mv
+    from esdg_cns_tpu_torch.ops import surface_viscous as sv
+    from esdg_cns_tpu_torch.presets import (becker_shocktube_1d,
+                                            becker_shocktube_3d,
+                                            lid_driven_cavity_3d)
+    from esdg_cns_tpu_torch.solvers import make_cns_rhs, make_cns_rhs_affine
+    from esdg_cns_tpu_torch.timestepping import dopri45, lsrk45
+    from esdg_cns_tpu_torch.verification import (becker_dt0,
+                                                 becker_shocktube_errors)
+
+    dev, card, held = c.dev, c.card, c.held
+    f32, f64 = torch.float32, torch.float64
+    name_of = lambda dt: str(dt).replace("torch.", "")
+
+    # ---- 27. the kernel forms against their plain versions ----
+    stamp("27")
+
+    def modal_kernels(disc, q, bc, p, tag):
+        """The kernels of the modal front (phase 6's checks with proj, K7
+        in both contract forms), the Becker ghosts at t > 0."""
+        errs, ins, _ = c.cavity_kernels(disc, q, bc, p, tag, t=0.003,
+                                        proj=True, contracts=(True, False))
+        return errs, ins
+
+    # the path shapes: the line at the anchor's K=128 (f64, the path's
+    # type, and f32), the hex cavity at k1d=16 with the modal front (f32)
+    lerrs, lins = modal_kernels(
+        *becker_case(1, LINE_N, LINE_K, f64, dev),
+        f"line N={LINE_N} K={LINE_K} f64 Becker (1D path)")
+    modal_kernels(*becker_case(1, LINE_N, LINE_K, f32, dev),
+                  f"line N={LINE_N} K={LINE_K} f32 Becker")
+    hcase = cavity_case("isothermal", CAV3_N, CAV3_K1D, f32, dev, dim=3)
+    herrs, hins = modal_kernels(
+        *hcase, f"hex N={CAV3_N} k1d={CAV3_K1D} f32 isothermal, modal "
+        "front (3D fused path)")
+    # small f64 cases: every wall kind, the Becker pools, ragged tiles
+    for dt in (f64, f32):
+        modal_kernels(*becker_case(1, LINE_N, 37, dt, dev),
+                      f"line N={LINE_N} K=37 (ragged) {name_of(dt)} Becker")
+        modal_kernels(*becker_case(1, 3, 5, dt, dev, wall=True),
+                      f"line N=3 K=5 {name_of(dt)} walls")
+        modal_kernels(*cavity_case("mixed", CAV3_N, 3, dt, dev, dim=3),
+                      f"hex N={CAV3_N} k1d=3 (K=27, ragged) {name_of(dt)} "
+                      "mixed walls")
+        modal_kernels(*becker_case(3, 2, BECKER3D_FUSED[1], dt, dev),
+                      f"hex N=2 k1d={BECKER3D_FUSED[1]} {name_of(dt)} "
+                      "Becker")
+    modal_kernels(*cavity_case("mixed", CAV3_N, 4, f64, dev, dim=3),
+                  f"hex N={CAV3_N} k1d=4 f64 mixed walls")
+    # K7 contract=False at the cavities' forms, (2, True) and (3, False)
+    uncontracted = {}
+    for dim, k1d in ((2, CAV_K1D), (3, CAV3_K1D)):
+        for case, size, dt in (("isothermal", k1d, f32),
+                               ("mixed", 8 if dim == 2 else 4, f64),
+                               ("mixed", 5 if dim == 2 else 3, f64)):
+            d, q, bc, p = cavity_case(case, 3, size, dt, dev, dim=dim)
+            a7, kw7 = k7_inputs(d, q, bc, p)
+            kw7["contract"] = False
+            err = held(f"K7 cns_viscous ({dim}, {dim == 2}) contract=False",
+                       f"{case} k1d={size} {name_of(dt)}",
+                       sv.cns_viscous(*a7, **kw7),
+                       sv.cns_viscous_plain(*a7, **kw7), TOL[name_of(dt)],
+                       ("s_f", "div", "prod", "vuq"))
+            if size == k1d:
+                uncontracted[dim, dim == 2] = (a7, kw7, err)
+    uncontracted[1, True] = (*lins["k7_components"],
+                             lerrs["k7_components"])
+    uncontracted[3, True] = (*hins["k7_components"],
+                             herrs["k7_components"])
+
+    # the bisection kernel against the eager loop on the tubes' face points
+    bisect_times = {}
+    for label, make, size in (
+            (f"1D N={LINE_N} K={LINE_K}", becker_shocktube_1d,
+             dict(n=LINE_N, k=LINE_K)),
+            (f"3D N={BECKER_N} k1d={BECKER_K1D}", becker_shocktube_3d,
+             dict(n=BECKER_N, k1d=BECKER_K1D))):
+        for dt in (f32, f64):
+            disc, _, _, shock = make(**size, dtype=dt, device=dev)
+            xi = disc.xf[0] - float(shock.v_inf) * 0.037
+            kw = shock.bisection(dt)
+            got, ref = bb.becker_bisect(xi, **kw), bb.becker_bisect_plain(
+                xi, **kw)
+            torch.cuda.synchronize()
+            ne = int((got != ref).sum())
+            ulp = torch.finfo(dt).eps * ref.abs()
+            worst = float(((got - ref).abs() / ulp).max())
+            print(f"Becker bisection {label} {name_of(dt)} ({xi.numel()} "
+                  f"face points): {ne} differ from the eager loop, at most "
+                  f"{worst:.2f} ulp")
+            if worst > 1.0:
+                raise AssertionError("the bisection kernel departs from the "
+                                     "eager loop by more than an ulp")
+            if ne:
+                print("    cause: libdevice's log against PyTorch's, "
+                      "an ulp apart, flips a comparison near the root")
+            if dt == f32:
+                continue
+            k_ms = cuda_ms(lambda: bb.becker_bisect(xi, **kw), 20)
+            e_ms = cuda_ms(lambda: bb.becker_bisect_plain(xi, **kw), 2)
+            g_ms = cuda_ms(lambda: shock.conservative_torch(disc.xf[0],
+                                                            0.037), 20)
+            bisect_times[label] = (k_ms, e_ms, g_ms)
+            print(f"[{card}] Becker ghosts {label} f64, per RHS: bisection "
+                  f"kernel {k_ms:.4f} ms, eager loop {e_ms:.4f} ms "
+                  f"({e_ms / k_ms:.1f}x); the whole exact state "
+                  f"(conservative_torch) {g_ms:.4f} ms; host clock, CUDA "
+                  "events")
+
+    # ---- 28. the 3D hex path through K3 ----
+    stamp("28")
+    hdisc, hq0, hbc, hp = lid_driven_cavity_3d(CAV3_N, CAV3_K1D, dtype=f32,
+                                               device=dev)
+    hflags = dict(mu=hp["mu"], pr=hp["pr"], re=hp["re"], bc=hbc,
+                  inviscid_dissipation=True, viscous_dissipation=True,
+                  compute_rhstest=False)
+    mrhs = make_cns_rhs_affine(hdisc, volume_impl="fused", **hflags)
+    stages = 5 * CAV_STEPS
+    c.zero_counts()
+    mqf, _ = lsrk45(mrhs, hq0, CAV_DT, CAV_STEPS)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in c.read_counts().items() if v}
+    print(f"3D cavity fused path (K3 dim 3, then K4 (3, True)): {CAV_STEPS} "
+          f"LSRK45 steps ({stages} stages) at dt={CAV_DT:g}, launches "
+          f"{counts}")
+    want = {"euler_modal_volume": stages, "cns_surface_viscous": stages}
+    if counts != want:
+        raise AssertionError(f"expected launches {want} on the fused 3D "
+                             "path, K1 none")
+    hex_launches = counts
+    if not bool(torch.isfinite(mqf).all()):
+        raise AssertionError("3D fused-path state not finite")
+    hqt, _ = lsrk45(make_cns_rhs(hdisc, **hflags), hq0, CAV_DT, CAV_STEPS)
+    e_tw, _ = rel_err(mqf, hqt)
+    print(f"3D cavity fused vs twin make_cns_rhs after {CAV_STEPS} steps: "
+          f"rel {e_tw:.3e} (tol {TWIN_TOL_F32:.0e})")
+    if not e_tw <= TWIN_TOL_F32:
+        raise AssertionError("3D fused path disagrees with the twin")
+    del hqt, mqf
+    for cd, tag in ((hcase, f"k1d={CAV3_K1D} f32"),
+                    (cavity_case("isothermal", CAV3_N, 4, f64, dev, dim=3),
+                     "k1d=4 f64")):
+        d, q, bc, p = cd
+        fl = dict(hflags, mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc)
+        a = make_cns_rhs_affine(d, volume_impl="fused", **fl)(q)[0]
+        b = make_cns_rhs_affine(d, volume_impl="fused_hex", **fl)(q)[0]
+        e, _ = rel_err(a, b)
+        tol = FRONT_TOL[name_of(q.dtype)]
+        print(f"3D cavity fused vs fused_hex, one RHS on a moving state, "
+              f"{tag}: rel {e:.3e} (tol {tol:.0e})")
+        if not e <= tol:
+            raise AssertionError("the fused front disagrees with fused_hex")
+        if q.dtype == f32:
+            split = make_cns_rhs_affine(d, volume_impl="fused",
+                                        surface_impl="fused", **fl)
+            c.zero_counts()
+            e, _ = rel_err(split(q)[0], a)
+            counts = {k: v for k, v in c.read_counts().items() if v}
+            print(f"3D cavity fused split path (K8, then K7 (3, True)) vs "
+                  f"merged_tail, one RHS {tag}: rel {e:.3e} (tol "
+                  f"{SPLIT_TOL['float32']:.0e}), launches {counts}")
+            if not (e <= SPLIT_TOL["float32"] and counts.get("cns_viscous")
+                    == 1 and counts.get("cns_surface") == 1):
+                raise AssertionError("3D fused split path disagrees")
+            split_launches = counts
+    d64, q64, bc64, p64 = lid_driven_cavity_3d(CAV3_N, CAV3_K1D, dtype=f64,
+                                               device=dev)
+    q64f, _ = lsrk45(make_cns_rhs_affine(
+        d64, volume_impl="fused", **dict(hflags, bc=bc64)), q64, CAV_DT,
+        CAV_STEPS)
+    drift = abs(c.mass(d64, q64f) - c.mass(d64, q64)) / c.mass(d64, q64)
+    print(f"3D cavity fused path f64 mass |d sum(wJq rho)| / sum(wJq rho) "
+          f"after {CAV_STEPS} steps: {drift:.2e} (tol "
+          f"{CAV_MASS_TOL_F64:.0e})")
+    if not drift <= CAV_MASS_TOL_F64:
+        raise AssertionError("3D fused path does not conserve mass")
+    del d64, q64, q64f
+    hdof = 5 * hdisc.np_ * hdisc.num_elements
+    mstage_ms, _ = c.path_timing(
+        "3D cavity fused path (K3+exchange+K4+exchange+LIFT, LSRK45)", mrhs,
+        hq0, hdof, None)
+    a3, kw3 = hins["front"]
+    h4a, h4t, h4kw = hins["k4"]
+    k3_call = lambda: mv.euler_modal_volume(*a3, **kw3)
+    k4_call = lambda: sv.cns_surface_viscous(*h4a, *h4t, fold_tail=True,
+                                             **h4kw)
+    times = c.kernel_times(f"hex N={CAV3_N} k1d={CAV3_K1D} f32", [
+        ("K3 euler_modal_volume dim=3", k3_call,
+         lambda: mv.euler_modal_volume_plain(*a3, **kw3)),
+        ("K4 cns_surface_viscous (3, True) fold_tail", k4_call,
+         lambda: sv.cns_surface_viscous_plain(*h4a, *h4t, fold_tail=True,
+                                              **h4kw))])
+    # K3's time on the path's own state (the cavity at rest) beside the
+    # moving state's above
+    a3r = (hq0, *a3[1:])
+    rest_ms = c.dev_ms(lambda: mv.euler_modal_volume(*a3r, **kw3), 20)
+    print(f"[{card}] K3 euler_modal_volume dim=3 on the cavity at rest (the "
+          f"path's state): {rest_ms:.4f} ms, device time")
+    mdev_ms = c.dev_ms(lambda: lsrk45(mrhs, hq0, CAV_TIMED_DT, 10), 1) / 50
+    print(f"[{card}] 3D cavity fused stage device time (queued ahead of the "
+          f"device): {mdev_ms:.4f} ms of {mstage_ms:.4f} ms")
+    print_profile(card, "3D cavity fused path", device_profile(
+        lambda: lsrk45(mrhs, hq0, CAV_TIMED_DT, 4), 20))
+    ne = hdisc.num_elements
+    k3o, k4o = k3_call(), k4_call()
+    rows = [("euler_modal_volume_dim3", "modal_volume_dim3.cu",
+             "pallas_modal_volume.py:45", hex_launches["euler_modal_volume"],
+             herrs["front"], *times["K3 euler_modal_volume dim=3"],
+             bound(nbytes(*a3[:6], *k3o),
+                   ops_k3(3, hdisc.vq, hdisc.vhp, hdisc.ph, a3[2],
+                                hdisc.nq) * ne)),
+            ("cns_surface_viscous_dim3_proj", "cns_surface_viscous_dim3.cu",
+             "pallas_viscous.py:152", hex_launches["cns_surface_viscous"],
+             herrs["k4"], *times["K4 cns_surface_viscous (3, True) "
+                                 "fold_tail"],
+             bound(nbytes(*h4a, *h4t, *k4o),
+                   ops_k4(3, hdisc.np_, hdisc.nq, hdisc.nfq, h4a, h4t[1])
+                   * ne))]
+    every = (hdisc.nq * (hdisc.nq - 1) // 2
+             + hdisc.nq * (hdisc.nh - hdisc.nq))
+    print(f"K3 dim=3 bound: {needed_pairs(a3[2], hdisc.nq)} pairs per element "
+          f"carry an operator entry above roundoff (the line-sparse Q_r), "
+          f"bound {rows[0][-1][0]:.4f} ms by {rows[0][-1][1]}; counting "
+          f"every pair of the dense sum ({every}, the TPU kernel's "
+          f"triangular form) at {PAIR_MODAL[3]} operations would give "
+          f"{every * PAIR_MODAL[3] * ne / FP32_OPS_PER_S * 1e3:.4f} ms")
+    a7, kw7 = hins["k7"]
+    k7_ms, k7_pms = c.kernel_times(f"hex N={CAV3_N} k1d={CAV3_K1D} f32", [
+        ("K7 cns_viscous (3, True)", lambda: sv.cns_viscous(*a7, **kw7),
+         lambda: sv.cns_viscous_plain(*a7, **kw7))])["K7 cns_viscous (3, "
+                                                     "True)"]
+    rows.append(("cns_viscous_dim3_proj", "cns_viscous_dim3.cu",
+                 "pallas_viscous.py:131", split_launches["cns_viscous"],
+                 herrs["k7"], k7_ms, k7_pms,
+                 bound(nbytes(*a7, *sv.cns_viscous(*a7, **kw7)),
+                       ops_visc(3, hdisc.nq, hdisc.nfq, *a7[6:10]) * ne)))
+    del k3o, k4o, mrhs
+    # the 3D Becker tube in f64 through 'fused', one RHS
+    bn, bk = BECKER3D_FUSED
+    bdisc, bq0, bbc, bshock = becker_shocktube_3d(bn, bk, dtype=f64,
+                                                  device=dev)
+    bflags = dict(mu=bshock.mu, pr=bshock.pr, bc=bbc,
+                  inviscid_dissipation=True, compute_rhstest=False)
+    got = make_cns_rhs_affine(bdisc, volume_impl="fused", **bflags)(bq0,
+                                                                    0.01)[0]
+    e_tw, _ = rel_err(got, make_cns_rhs(bdisc, **bflags)(bq0, 0.01)[0])
+    e_hex, _ = rel_err(got, make_cns_rhs_affine(
+        bdisc, volume_impl="fused_hex", **bflags)(bq0, 0.01)[0])
+    print(f"Becker 3D N={bn} k1d={bk} f64 'fused', one RHS at t=0.01: vs "
+          f"twin rel {e_tw:.3e} (tol {TWIN_TOL_F64:.0e}), vs fused_hex rel "
+          f"{e_hex:.3e} (tol {FRONT_TOL['float64']:.0e})")
+    if not (e_tw <= TWIN_TOL_F64 and e_hex <= FRONT_TOL["float64"]):
+        raise AssertionError("the 3D Becker tube through 'fused' disagrees")
+
+    # ---- 29. the 1D path ----
+    stamp("29")
+    ldisc, lq0, lbc, lshock = becker_shocktube_1d(LINE_N, LINE_K, dtype=f64,
+                                                  device=dev)
+    lflags = dict(mu=lshock.mu, pr=lshock.pr, bc=lbc,
+                  inviscid_dissipation=True, compute_rhstest=False)
+    lrhs = make_cns_rhs_affine(ldisc, volume_impl="fused", **lflags)
+    ltwin = make_cns_rhs(ldisc, **lflags)
+    c.zero_counts()
+    a = lrhs(lq0, 0.01)[0]
+    counts = {k: v for k, v in c.read_counts().items() if v}
+    e, _ = rel_err(a, ltwin(lq0, 0.01)[0])
+    print(f"1D Becker N={LINE_N} K={LINE_K} f64 'fused' (merged_tail), one "
+          f"RHS at t=0.01 vs twin: rel {e:.3e} (tol {TWIN_TOL_F64:.0e}), "
+          f"launches {counts}")
+    if not (e <= TWIN_TOL_F64 and counts == {"euler_modal_volume": 1,
+                                             "cns_surface_viscous": 1}):
+        raise AssertionError("the 1D fused path disagrees with the twin")
+    c.zero_counts()
+    bb.becker_bisect.launches = 0
+    dt0 = becker_dt0(LINE_N, LINE_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qk, sk = dopri45(lrhs, lq0, LINE_T, dt0, err_tol=ANCHOR_ERR_TOL)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    line_launches = {k: v for k, v in c.read_counts().items() if v}
+    n_bisect = bb.becker_bisect.launches
+    n_steps = sk["n_accepted"] + sk["n_rejected"]
+    n_rhs = 1 + 6 * n_steps
+    qt, st = dopri45(ltwin, lq0, LINE_T, dt0, err_tol=ANCHOR_ERR_TOL)
+    e, _ = rel_err(qk, qt)
+    print(f"1D path dopri45 to t={LINE_T} (err_tol {ANCHOR_ERR_TOL:g}): "
+          f"{sk['n_accepted']} accepted, {sk['n_rejected']} rejected "
+          f"(twin {st['n_accepted']}, {st['n_rejected']}); last step size "
+          f"{sk['dt']:.6e} (twin {st['dt']:.6e}); launches "
+          f"{line_launches}, bisection {n_bisect}; vs twin "
+          f"rel {e:.3e} (tol {TWIN_TOL_F64:.0e})")
+    # at err_tol 1e-11 the error estimate lies a few digits above the two
+    # RHS's difference (about 2e-11 of max |dq|), so their step sizes part
+    # and the last step before t_end can fall either side of it: the
+    # accepted counts may differ by one, the states may not
+    if not (e <= TWIN_TOL_F64
+            and abs(sk["n_accepted"] - st["n_accepted"]) <= DOPRI_STEP_SLACK
+            and line_launches == {"euler_modal_volume": n_rhs,
+                                  "cns_surface_viscous": n_rhs}):
+        raise AssertionError("the 1D dopri45 run disagrees with the twin")
+    print(f"[{card}] 1D path dopri45: {1e3 * wall / n_steps:.4f} ms per "
+          f"step ({n_steps} steps, {n_rhs} RHS: {1e3 * wall / n_rhs:.4f} ms "
+          "per RHS), host clock; one synchronisation per step")
+    ldev = c.dev_ms(lambda: lrhs(lq0, 0.01), 1)
+    print(f"[{card}] 1D RHS queued ahead of the device: {ldev:.4f} ms")
+    c.zero_counts()
+    sa = make_cns_rhs_affine(ldisc, volume_impl="fused", surface_impl="fused",
+                             **lflags)(lq0, 0.01)[0]
+    split_counts = {k: v for k, v in c.read_counts().items() if v}
+    e, _ = rel_err(sa, a)
+    print(f"1D split path (K8, then K7 (1, True)) vs merged_tail, one RHS: "
+          f"rel {e:.3e} (tol {SPLIT_TOL['float64']:.0e}), launches "
+          f"{split_counts}")
+    if not (e <= SPLIT_TOL["float64"] and split_counts.get("cns_surface") == 1
+            and split_counts.get("cns_viscous") == 1):
+        raise AssertionError("the 1D split path disagrees")
+    a3, kw3 = lins["front"]
+    l4a, l4t, l4kw = lins["k4"]
+    a7, kw7 = lins["k7"]
+    a8, kw8 = lins["k8"]
+    ltimes = c.kernel_times(f"line N={LINE_N} K={LINE_K} f64", [
+        ("K3 euler_modal_volume dim=1",
+         lambda: mv.euler_modal_volume(*a3, **kw3),
+         lambda: mv.euler_modal_volume_plain(*a3, **kw3)),
+        ("K4 cns_surface_viscous (1, True) fold_tail",
+         lambda: sv.cns_surface_viscous(*l4a, *l4t, fold_tail=True, **l4kw),
+         lambda: sv.cns_surface_viscous_plain(*l4a, *l4t, fold_tail=True,
+                                              **l4kw)),
+        ("K7 cns_viscous (1, True)", lambda: sv.cns_viscous(*a7, **kw7),
+         lambda: sv.cns_viscous_plain(*a7, **kw7)),
+        ("K8 cns_surface dim=1", lambda: cs.cns_surface(*a8, **kw8),
+         lambda: cs.cns_surface_plain(*a8, **kw8))])
+    lk = ldisc.num_elements
+    rows += [
+        ("euler_modal_volume_dim1", "modal_volume_dim1.cu",
+         "pallas_modal_volume.py:45", line_launches["euler_modal_volume"],
+         lerrs["front"], *ltimes["K3 euler_modal_volume dim=1"],
+         bound(nbytes(*a3[:6], *mv.euler_modal_volume(*a3, **kw3)),
+               ops_k3(1, ldisc.vq, ldisc.vhp, ldisc.ph, a3[2],
+                            ldisc.nq) * lk)),
+        ("cns_surface_viscous_dim1", "cns_surface_viscous_dim1.cu",
+         "pallas_viscous.py:152", line_launches["cns_surface_viscous"],
+         lerrs["k4"], *ltimes["K4 cns_surface_viscous (1, True) fold_tail"],
+         bound(nbytes(*l4a, *l4t, *sv.cns_surface_viscous(
+             *l4a, *l4t, fold_tail=True, **l4kw)),
+             ops_k4(1, ldisc.np_, ldisc.nq, ldisc.nfq, l4a, l4t[1]) * lk)),
+        ("cns_viscous_dim1", "cns_viscous_dim1.cu", "pallas_viscous.py:131",
+         split_counts["cns_viscous"], lerrs["k7"],
+         *ltimes["K7 cns_viscous (1, True)"],
+         bound(nbytes(*a7, *sv.cns_viscous(*a7, **kw7)),
+               ops_visc(1, ldisc.nq, ldisc.nfq, *a7[6:10]) * lk)),
+        ("cns_surface_dim1", "cns_surface.cu", "pallas_cns_surface.py:155",
+         split_counts["cns_surface"], lerrs["k8"],
+         *ltimes["K8 cns_surface dim=1"],
+         bound(nbytes(*a8, *cs.cns_surface(*a8, **kw8)),
+               ops_face(1, False) * ldisc.nfq * lk))]
+    # K7 contract=False: the slowest of its four forms in the line
+    utimes = {}
+    for (dim, proj), (a7, kw7, err) in sorted(uncontracted.items()):
+        label = f"K7 cns_viscous ({dim}, {proj}) contract=False"
+        utimes[dim, proj] = (*c.kernel_times(
+            f"K={a7[0].shape[-1]} {name_of(a7[0].dtype)}",
+            [(label, lambda: sv.cns_viscous(*a7, **kw7),
+              lambda: sv.cns_viscous_plain(*a7, **kw7))])[label], err)
+    (udim, uproj), (ums, upms, uerr) = max(utimes.items(),
+                                           key=lambda kv: kv[1][0])
+    a7, kw7, _ = uncontracted[udim, uproj]
+    d7 = a7[0]
+    rows.append((f"cns_viscous_uncontracted ({udim}, {uproj})",
+                 f"cns_viscous{'' if udim == 2 else f'_dim{udim}'}.cu",
+                 "pallas_viscous.py:131", 0, uerr, ums, upms,
+                 bound(nbytes(*a7, *sv.cns_viscous(*a7, **kw7)),
+                       ops_visc(udim, kw7["nq"], a7[1].shape[1], *a7[6:10])
+                       * d7.shape[-1])))
+    del lrhs, ltwin, qk, qt
+
+    # ---- 30. the paper anchor on the card ----
+    stamp("30")
+    with open(ANCHOR_FILE) as fh:
+        art = {(r["n"], r["k"]): r for r in json.load(fh)["rows"]}
+    got = {}
+    for k in ANCHOR_KS:
+        c.zero_counts()
+        t0 = time.perf_counter()
+        got[k] = becker_shocktube_errors(
+            ANCHOR_N, k, ANCHOR_T, ANCHOR_ERR_TOL, dtype=f64, device=dev,
+            volume_impl="fused")
+        sec = time.perf_counter() - t0
+        ref = art[ANCHOR_N, k]
+        counts = {kk: v for kk, v in c.read_counts().items() if v}
+        rels = {key: abs(got[k][key] - ref[key]) / ref[key]
+                for key in ("l1", "l2", "linf")}
+        print(f"[{card}] paper anchor N={ANCHOR_N} K={k} (K3 dim 1 + K4 (1, "
+              f"True), dopri45 err_tol {ANCHOR_ERR_TOL:g} to "
+              f"T={ANCHOR_T}): l1 {got[k]['l1']:.6e}, l2 {got[k]['l2']:.6e},"
+              f" linf {got[k]['linf']:.6e}; artifact {ref['l1']:.6e}, "
+              f"{ref['l2']:.6e}, {ref['linf']:.6e} (rel "
+              + ", ".join(f"{rels[key]:.2e}" for key in rels)
+              + f", tol {ANCHOR_REL:g}); accepted {got[k]['n_accepted']} "
+              f"(artifact {ref['n_accepted']}); {sec:.1f} s; launches "
+              f"{counts}")
+        if not all(r <= ANCHOR_REL for r in rels.values()):
+            raise AssertionError(f"the anchor row K={k} departs from "
+                                 f"{ANCHOR_FILE}")
+        if set(counts) != {"euler_modal_volume", "cns_surface_viscous"}:
+            raise AssertionError("the anchor did not run on K3 and K4")
+    rates = [float(np.log2(got[a]["l2"] / got[b]["l2"]))
+             for a, b in zip(ANCHOR_KS, ANCHOR_KS[1:])]
+    print(f"paper anchor N={ANCHOR_N} L2 rates "
+          + ", ".join(f"{r:.4f}" for r in rates)
+          + f" (> {ANCHOR_MIN_RATE}); artifact "
+          + ", ".join(f"{art[ANCHOR_N, k]['l2_rate']:.4f}"
+                      for k in ANCHOR_KS[1:]))
+    if not min(rates) > ANCHOR_MIN_RATE:
+        raise AssertionError("the anchor's L2 rates fall short")
+    t0 = time.perf_counter()
+    twin = becker_shocktube_errors(2, 32, ANCHOR_T, ANCHOR_ERR_TOL,
+                                   dtype=f64, device=dev)
+    ref = art[2, 32]
+    rels = {key: abs(twin[key] - ref[key]) / ref[key]
+            for key in ("l1", "l2", "linf")}
+    print(f"[{card}] becker_shocktube_errors(2, 32) (the twin, as JAX runs "
+          f"it): l1 {twin['l1']:.6e}, l2 {twin['l2']:.6e}, linf "
+          f"{twin['linf']:.6e}, accepted {twin['n_accepted']} (artifact "
+          f"{ref['n_accepted']}); rel " + ", ".join(
+              f"{rels[key]:.2e}" for key in rels)
+          + f" (tol {ANCHOR_REL:g}); {time.perf_counter() - t0:.1f} s")
+    if not all(r <= ANCHOR_REL for r in rels.values()):
+        raise AssertionError("the twin's N=2 K=32 row departs from the "
+                             "artifact")
+    return rows, bisect_times
 
 
 def main():
@@ -867,21 +1411,26 @@ def main():
                                  f"({tag})")
         return max(a for _, a in errs)
 
-    def cavity_kernels(disc, q, bc, p, tag):
-        """The cavity's kernels against their plain versions: the volume
-        front (K3 on tris, K1 on hexes), K4 (both fold_tail forms), K8 and
-        K7.  Returns ({kernel: max abs error}, {kernel: arguments}, the
-        front kernel's outputs)."""
+    def cavity_kernels(disc, q, bc, p, tag, t=0.0, proj=None,
+                       contracts=(True,)):
+        """The CNS kernels against their plain versions: the volume front
+        (K3, the modal front, when proj; else K1 on collocated hexes; proj
+        None: K1 on hexes, K3 elsewhere), K4 (both fold_tail forms), K8 and
+        K7 with each of `contracts` (keys "k7" for the contracted
+        traction, "k7_components" for the component traces).  Returns
+        ({kernel: max abs error}, {kernel: arguments}, the front kernel's
+        outputs)."""
         tol = TOL[str(q.dtype).replace("torch.", "")]
         nq = disc.nq
+        proj = disc.dim != 3 if proj is None else proj
         errs, ins = {}, {}
-        if disc.dim == 2:
+        if proj:
             args = (q, disc.geo, torch.stack(disc.q_skew), disc.vq,
                     disc.vhp, disc.ph, gamma)
             kw = dict(nq=nq)
             front_k = mv.euler_modal_volume(*args, **kw)
             errs["front"] = held(
-                "K3 euler_modal_volume", tag, front_k,
+                f"K3 euler_modal_volume dim={disc.dim}", tag, front_k,
                 mv.euler_modal_volume_plain(*args, **kw), tol,
                 ("ph_qf", "traces", "vu_q"))
         else:
@@ -893,7 +1442,8 @@ def main():
                                  fv.euler_volume_plain(*args, **kw), tol,
                                  ("ph_qf", "traces"))
         ins["front"] = (args, kw)
-        k4args, k4tail, k4kw = k4_inputs(disc, q, bc, p)
+        form = f"({disc.dim}, {proj})"
+        k4args, k4tail, k4kw = k4_inputs(disc, q, bc, p, t=t, proj=proj)
         ins["k4"] = (k4args, k4tail, k4kw)
         errs["k4"] = 0.0
         for fold in (False, True):
@@ -901,20 +1451,26 @@ def main():
             names = (("dq_part", "t_f", "prod", "vuq") if fold else
                      ("flux", "pen", "t_f", "div", "prod", "vuq"))
             errs["k4"] = max(errs["k4"], held(
-                "K4 cns_surface_viscous", f"{tag} fold_tail={fold}",
+                f"K4 cns_surface_viscous {form}", f"{tag} fold_tail={fold}",
                 sv.cns_surface_viscous(*k4args, *tail, fold_tail=fold,
                                        **k4kw),
                 sv.cns_surface_viscous_plain(*k4args, *tail, fold_tail=fold,
                                              **k4kw), tol, names))
-        ins["k8"] = k8_inputs(disc, q, bc, p)
-        errs["k8"] = held("K8 cns_surface", tag, cs.cns_surface(
-            *ins["k8"][0], **ins["k8"][1]), cs.cns_surface_plain(
-            *ins["k8"][0], **ins["k8"][1]), tol, ("flux", "dv", "pen"))
-        ins["k7"] = k7_inputs(disc, q, bc, p)
-        errs["k7"] = held("K7 cns_viscous", tag, sv.cns_viscous(
-            *ins["k7"][0], **ins["k7"][1]), sv.cns_viscous_plain(
-            *ins["k7"][0], **ins["k7"][1]), tol,
-            ("t_f", "div", "prod", "vuq"))
+        ins["k8"] = k8_inputs(disc, q, bc, p, t=t, proj=proj)
+        errs["k8"] = held(f"K8 cns_surface dim={disc.dim}", tag,
+                          cs.cns_surface(*ins["k8"][0], **ins["k8"][1]),
+                          cs.cns_surface_plain(*ins["k8"][0],
+                                               **ins["k8"][1]), tol,
+                          ("flux", "dv", "pen"))
+        a7, kw7 = k7_inputs(disc, q, bc, p, t=t, proj=proj)
+        for contract in contracts:
+            key = "k7" if contract else "k7_components"
+            ins[key] = (a7, dict(kw7, contract=contract))
+            errs[key] = held(
+                f"K7 cns_viscous {form} contract={contract}", tag,
+                sv.cns_viscous(*a7, **ins[key][1]),
+                sv.cns_viscous_plain(*a7, **ins[key][1]), tol,
+                ("s_f", "div", "prod", "vuq"))
         return errs, ins, front_k
 
     cdisc, cq, cbc, cp = cavity_case("isothermal", CAV_N, CAV_K1D,
@@ -1077,7 +1633,8 @@ def main():
         lambda: lsrk45(crhs, cq0, CAV_TIMED_DT, 4), 20))
     cne = cdisc.num_elements
     k3_bound = bound(nbytes(*k3args[:6], *k3outs),
-                     ops_k3(cdisc.np_, cdisc.nq, cdisc.nh) * cne)
+                     ops_k3(2, cdisc.vq, cdisc.vhp, cdisc.ph, k3args[2],
+                            cdisc.nq) * cne)
     k4_bound = bound(nbytes(*k4args, *k4tail, *k4out),
                      ops_k4(2, cdisc.np_, cdisc.nq, cdisc.nfq, k4args,
                             k4tail[1]) * cne)
@@ -1513,8 +2070,8 @@ def main():
                      ops_dense_2d(cdisc.nq, cdisc.nh, False) * cne)
     _, _, _, margs, mout = fd_rows["modal"]
     k3c_bound = bound(nbytes(*margs[:6], *mout),
-                      ops_k3(wdisc.np_, wdisc.nq, wdisc.nh, True)
-                      * wdisc.num_elements)
+                      ops_k3(2, wdisc.vq, wdisc.vhp, wdisc.ph, margs[2],
+                             wdisc.nq, curved=True) * wdisc.num_elements)
     del vdisc, vq0, vq, vqf, wdisc, wq
 
     # ---- 17. the cavity twin with the dense kernel (K5) ----
@@ -2102,8 +2659,9 @@ def main():
     if not (errs[BECKER_ACCURACY_MU, BECKER_K1D]
             < errs[BECKER_ACCURACY_MU, BECKER_K1D // 2]):
         raise AssertionError("the Becker error did not fall with the mesh")
-    # the stage is host-bound (the ghosts' bisection is some 1400 small
-    # launches per RHS), so its rate is timed over the twins' 25 stages
+    # the rate over the twins' 25 stages, as before the ghosts' bisection
+    # became one kernel (ops/becker_bisect.py; it was some 1400 small
+    # launches per RHS), so the two read alike
     disc, q0, shock, brhs = becker["float32"]
     bdof = 5 * disc.np_ * disc.num_elements
     bstep_ms = cuda_ms(lambda: lsrk45(brhs, q0, bdt, TWIN_TIMED_STEPS), 1)
@@ -2115,9 +2673,18 @@ def main():
           f"{bdof * 5 * TWIN_TIMED_STEPS / (bstep_ms / 1e3):.4e} "
           f"DOF*RK-stage/s, {bstage_ms:.4f} ms/stage over "
           f"{5 * TWIN_TIMED_STEPS} stages, median of {REPEATS}; stage queued "
-          f"ahead of the device {bdev:.4f} ms; the ghosts' bisection (100 "
-          f"halvings, once per RHS) {ghost_ms:.4f} ms")
+          f"ahead of the device {bdev:.4f} ms; the ghosts' exact state "
+          f"(the bisection kernel, 100 halvings, and the conversions; once "
+          f"per RHS) {ghost_ms:.4f} ms")
     del becker, disc, q0, brhs
+    torch.cuda.empty_cache()
+
+    # ---- 27.-30. the modal front on lines and hexes, the paper anchor ----
+    modal_rows, bisect_times = modal_phases(types.SimpleNamespace(
+        dev=dev, card=card, zero_counts=zero_counts, read_counts=read_counts,
+        held=held, cavity_kernels=cavity_kernels, dev_ms=dev_ms,
+        kernel_times=kernel_times,
+        path_timing=path_timing, mass=mass))
     torch.cuda.empty_cache()
 
     hex_split = split_rows["hex"]
@@ -2183,7 +2750,7 @@ def main():
              ("euler_volume_n8", "hex_volume8.cu", k1_n8["affine"]),
              ("euler_volume_curved_n6", "hex_volume6.cu", k1c_n6),
              ("euler_volume_curved_n8", "hex_volume8.cu",
-              k1_n8["curved"]))]
+              k1_n8["curved"]))] + modal_rows
     for name, *_, ms, pms, (bms, by) in rows:
         print(f"[{card}] {name}: bound {bms:.4f} ms by {by}, kernel "
               f"{ms:.4f} ms ({bms / ms:.1%} of the bound), plain "
@@ -2199,6 +2766,11 @@ def main():
             print(f"[{card}] {key} ({label} split path): bound {bms:.4f} ms "
                   f"by {by}, kernel {sr['times'][key][0]:.4f} ms "
                   f"({bms / sr['times'][key][0]:.1%} of the bound)")
+    # the bisection replaces no TPU kernel: printed apart from the line
+    for label, (k_ms, e_ms, g_ms) in bisect_times.items():
+        print(f"[{card}] Becker bisection {label} f64 (no TPU kernel; not in "
+              f"the kernels line): {k_ms:.4f} ms per RHS against the eager "
+              f"loop's {e_ms:.4f} ms")
     # no single PyTorch call computes any of these: library_ms is null
     kernels_line = [
         {"name": name, "route": "cuda",

@@ -1,8 +1,12 @@
 """Seeded cavity states and boundary-condition cases for holding the
-cavity kernels against their plain versions: the volume fronts K3
-(``ops.modal_volume``, tris) and K1 (``ops.fused_volume``, hexes), the
-merged surface + viscous stage K4 and the split stages K8
-(``ops.cns_surface``) and K7 (``ops.surface_viscous.cns_viscous``).
+CNS kernels against their plain versions: the volume fronts K3
+(``ops.modal_volume``, lines, tris and hexes) and K1
+(``ops.fused_volume``, collocated hexes), the merged surface + viscous
+stage K4 and the split stages K8 (``ops.cns_surface``) and K7
+(``ops.surface_viscous.cns_viscous``), in every form
+``make_cns_rhs_affine`` reaches: the cavities (``cavity_case``) and the
+Becker shock tubes on lines and hexes (``becker_case``), with the modal
+front (proj) or, on collocated hexes, K1's.
 
 ``chip_smoke.py`` and ``tests/test_torch_gpu.py`` build their inputs here,
 so the chip check and the GPU tests hold the kernels against the same
@@ -29,7 +33,8 @@ from .ops.modal_volume import euler_modal_volume_plain
 from .physics import pfun, primitive_to_conservative, v_ufun
 from .core import build_discretization, ref_tri
 from .mesh.generators import uniform_tri_mesh
-from .presets import lid_driven_cavity, lid_driven_cavity_3d, square_warp
+from .presets import (becker_shocktube_1d, becker_shocktube_3d,
+                      lid_driven_cavity, lid_driven_cavity_3d, square_warp)
 from .solvers.euler import entropy_projection, flux_variables
 from .solvers._shared import (adiabatic_mask, entropy_vars_from_flux,
                               flux_to_conservative)
@@ -152,10 +157,41 @@ def cavity_case(case, n, k1d, dtype, device, seed=3, dim=2):
     return disc, q, bc, p
 
 
-def _front_end(disc, q):
-    """(ph_qf, traces, vu_q) of the plain volume front: K3's on tris, K1's
-    (and v(U) at the collocated nodes) on hexes."""
-    if disc.dim == 2:
+def becker_case(dim, n, k, dtype, device, seed=3, wall=False):
+    """(disc, q, bc, params): the Becker shock tube on lines (dim=1, k
+    elements, mu=0.1) or hexes (dim=3, k1d=k, mu=0.01) with its
+    exact-wave Dirichlet ghosts, the wave made a moving fluid in every
+    direction (``moving_state``, velocity 0.1 about its own).  wall=True
+    replaces the ghosts by walls: the x = xl end isothermal with seeded
+    array wall speeds and temperatures, the x = xr end adiabatic."""
+    if dim == 1:
+        disc, q0, bc, shock = becker_shocktube_1d(n=n, k=k, dtype=dtype,
+                                                  device=device)
+    else:
+        disc, q0, bc, shock = becker_shocktube_3d(n=n, k1d=k, dtype=dtype,
+                                                  device=device)
+    rng = np.random.default_rng(seed)
+    q = moving_state(q0, rng, velocity=0.1)
+    if wall:
+        f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        sh = (disc.nfq, disc.num_elements)
+        xf = disc.xf[0]
+        left, right = disc.bmask & (xf < 0), disc.bmask & (xf > 0)
+        bc = make_wall_bc(disc, [
+            Region(mask=left, kind="isothermal",
+                   u_wall=tuple(f(0.1 * rng.standard_normal(sh))
+                                for _ in range(dim)),
+                   theta=f(2 + rng.random(sh))),
+            Region(mask=right, kind="adiabatic", u_wall=(0.0,) * dim)])
+    return disc, q, bc, {"mu": shock.mu, "pr": shock.pr,
+                         "re": 1.0 / shock.mu}
+
+
+def _front_end(disc, q, proj):
+    """(ph_qf, traces, vu_q) of the plain volume front: K3's (the modal
+    front, proj) on any mesh, else K1's (and v(U) at the collocated
+    nodes) on hexes."""
+    if proj:
         return euler_modal_volume_plain(q, disc.geo, disc.q_skew, disc.vq,
                                         disc.vhp, disc.ph, GAMMA, nq=disc.nq)
     ph_qf, tr = euler_volume_plain(q, disc.geo, disc.vhp[disc.nq:],
@@ -172,13 +208,20 @@ def _pool(disc, bc, t):
     return pool, recipe
 
 
-def k4_inputs(disc, q, bc, p, t=0.0):
+def _proj(disc, proj):
+    """The front the cases take by default: K1's on hexes (the cavity),
+    the modal one elsewhere."""
+    return disc.dim != 3 if proj is None else proj
+
+
+def k4_inputs(disc, q, bc, p, t=0.0, proj=None):
     """K4's (positional arguments, fold_tail's extra arguments, keywords),
-    from the plain volume front of q and one exchange."""
+    from the plain volume front of q and one exchange; proj None takes
+    ``_proj``'s default."""
     nq, nf = disc.nq, disc.dim + 2
-    ph_qf, tr, vu_q = _front_end(disc, q)
+    proj = _proj(disc, proj)
+    ph_qf, tr, vu_q = _front_end(disc, q, proj)
     pool, recipe = _pool(disc, bc, t)
-    proj = disc.dim == 2
     front, vqlift, drpq = composed_operators(disc, proj=proj)
     args = (vu_q, tr[:nf], tr[nf:nf + 2], disc.gather_traces(tr),
             torch.stack(disc.nxj), disc.sj, disc.inv_sj, pool, disc.geo,
@@ -190,11 +233,11 @@ def k4_inputs(disc, q, bc, p, t=0.0):
     return args, (ph_qf, disc.lift), kw
 
 
-def k8_inputs(disc, q, bc, p, t=0.0):
+def k8_inputs(disc, q, bc, p, t=0.0, proj=None):
     """K8's (positional arguments, keywords), from the plain volume front
     of q and one exchange; uf and vuf rebuilt from the traces."""
     nf = disc.dim + 2
-    _, tr, _ = _front_end(disc, q)
+    _, tr, _ = _front_end(disc, q, _proj(disc, proj))
     qm, qm_log = tr[:nf], tr[nf:nf + 2]
     pool, recipe = _pool(disc, bc, t)
     args = (qm, flux_to_conservative(qm, GAMMA), qm_log,
@@ -206,13 +249,13 @@ def k8_inputs(disc, q, bc, p, t=0.0):
     return args, kw
 
 
-def k7_inputs(disc, q, bc, p, t=0.0):
+def k7_inputs(disc, q, bc, p, t=0.0, proj=None):
     """K7's (positional arguments, keywords): v(U) of q and the jump dv
     of the plain K8 on ``k8_inputs``."""
-    _, _, vu_q = _front_end(disc, q)
-    args8, kw8 = k8_inputs(disc, q, bc, p, t)
+    proj = _proj(disc, proj)
+    _, _, vu_q = _front_end(disc, q, proj)
+    args8, kw8 = k8_inputs(disc, q, bc, p, t, proj)
     _, dv, _ = cns_surface_plain(*args8, **kw8)
-    proj = disc.dim == 2
     front, vqlift, drpq = composed_operators(disc, proj=proj)
     args = (vu_q, dv, disc.geo, torch.stack(disc.nxj), disc.inv_jac[:1],
             disc.wjq, front, vqlift, disc.vhp[disc.nq:].contiguous(), drpq)

@@ -1,8 +1,10 @@
-// Device stages shared by the affine CNS kernels K4 (cns_surface_viscous.cu),
-// K7 (cns_viscous.cu) and K8 (cns_surface.cu), templated on the dimension
-// DIM (2: tris, 3: collocated hexes).  DIM also fixes the viscous stage's
-// form: kProj (the front operator carries a leading Vq Pq projection
-// block) and kOpsSmem (the operators sit in shared memory).
+// Device stages shared by the affine CNS kernels K4 (cns_surface_viscous.cuh),
+// K7 (cns_viscous.cuh) and K8 (cns_surface.cu), templated on the dimension
+// DIM (1: lines, 2: tris, 3: hexes).  The viscous stage also takes PROJ
+// (the front operator carries a leading Vq Pq projection block: the modal
+// front of lines, tris and hexes; without it the collocated-hex front,
+// where Vq = Pq = I) and OPS_SMEM (the operators sit in shared memory);
+// the launchers choose OPS_SMEM by the operators' size (visc_tile).
 //
 // They mirror the TPU package, where the merged kernel's body is the
 // surface kernel's body followed by _viscous_body
@@ -14,10 +16,11 @@
 //     walked over the region table in region order, the EC face flux +
 //     LF, the entropy BC, the BR1 jump dv and the interface penalty;
 //   * the viscous stage over a tile of elements in shared memory
-//     (visc_quad_node, visc_traction_node, visc_div_node): the front
+//     (visc_quad_node, visc_ef_sigma_node, visc_div_node): the front
 //     product, gradients, sigma = K(v) grad(v) (viscous_flux_nd's formulas
 //     and loop order), the node's share of the entropy production, the
-//     contracted traction t_f = sum_x (Ef sigma_x) nxj_x and the divergence
+//     stress traces Ef sigma_x (contracted with the normal, t_f = sum_x
+//     (Ef sigma_x) nxj_x, or per component) and the divergence
 //     sum_r (D_r Pq)(sum_x geo[r,x] sigma_x).
 // Entropy variables of both face sides come from the same
 // transcendental-free formula (solvers/_shared.entropy_vars_from_flux), so
@@ -66,14 +69,6 @@ struct ViscOps {
   const T *front, *vqlift, *ef, *drpq, *lift;
 };
 
-// The tri form (DIM 2) projects with Vq Pq and keeps its operators in
-// shared memory; the collocated-hex form (DIM 3) has no projection block and
-// reads its operators from global memory, where they stay L1/L2-resident.
-template <int DIM>
-constexpr bool kProj = DIM == 2;
-template <int DIM>
-constexpr bool kOpsSmem = DIM == 2;
-
 template <bool SMEM, typename T>
 __device__ __forceinline__ T ldop(const T* p) {
   if constexpr (SMEM)
@@ -89,6 +84,35 @@ inline int tile_elements_capped(size_t fixed, size_t per_elem, size_t cap) {
   for (int te = 32; te >= 1; te /= 2)
     if ((fixed + per_elem * te) * sizeof(T) <= cap) return te;
   return tile_elements<T>(fixed, per_elem) >= 1 ? 1 : 0;
+}
+
+// The tile of a launch: (elements, whether the operators are in shared
+// memory, bytes of shared memory); te = 0 when not even one element fits.
+struct ViscTile {
+  int te;
+  bool smem_ops;
+  size_t bytes;
+};
+
+// The `ops` operator values sit in shared memory when they fit beside a
+// tile at least as large as the global form's within the same per-block
+// budget (kTileBytesGlobalOps, so that two blocks share an SM either
+// way): the tri and line operators do; the hex ones at N = 3 (37-47k
+// values) do not, and are read through the read-only path from global
+// memory, L1/L2-resident.
+template <typename T>
+inline ViscTile visc_tile(size_t ops, size_t per_elem) {
+  const int te_global =
+      tile_elements_capped<T>(0, per_elem, kTileBytesGlobalOps);
+  int te_smem = 0;
+  for (int te = 32; te >= 1 && te_smem == 0; te /= 2)
+    if ((ops + per_elem * te) * sizeof(T) <= kTileBytesGlobalOps)
+      te_smem = te;
+  ViscTile t;
+  t.smem_ops = te_smem > 0 && te_smem >= te_global;
+  t.te = t.smem_ops ? te_smem : te_global;
+  t.bytes = ((t.smem_ops ? ops : 0) + per_elem * t.te) * sizeof(T);
+  return t;
 }
 
 // (rho, u_1..DIM, beta) -> (rho, m_1..DIM, E), p = rho / (2 beta)
@@ -334,16 +358,15 @@ struct TileRows {
 // gradients, sigma (stored to s_sig [DIM][NF][Nq]) and the node's share of
 // the production (s_prod [Nq]).  vu [NF][Nq], dv [NF][Nfq], nxj
 // [DIM][Nfq] are the element's rows in shared memory; g the element's
-// geo[r * DIM + x], ij its 1/J, wq its wJq at node i.  With kProj the
+// geo[r * DIM + x], ij its 1/J, wq its wJq at node i.  With PROJ the
 // projected entropy variables go to vuq_out (when live).
-template <typename T, int DIM>
+template <typename T, int DIM, bool PROJ, bool OPS_SMEM>
 __device__ __forceinline__ void visc_quad_node(
     int i, int nq, int nfq, const TileRows<T>& S, T* s_vu, T* s_dv,
     T* s_nxj, T* s_sig, T* s_prod, const ViscOps<T>& op, const T* g, T ij,
     T wq, const ViscParams<T>& vp, T* __restrict__ vuq_out, long long K,
     long long k, bool live) {
   constexpr int NF = DIM + 2;
-  constexpr bool PROJ = kProj<DIM>, OPS_SMEM = kOpsSmem<DIM>;
   constexpr int OFF = PROJ ? 1 : 0;   // gradient rows after Vq Pq
   T vq_[NF], vqd[DIM][NF];
 #pragma unroll
@@ -417,16 +440,14 @@ __device__ __forceinline__ void visc_quad_node(
   }
 }
 
-// the contracted traction at face node fp: t[f] = sum_x (Ef sigma_x)[f] nxj_x
-template <typename T, int DIM>
-__device__ __forceinline__ void visc_traction_node(int fp, int nq, int nfq,
+// the stress traces at face node fp: s[x][f] = (Ef sigma_x)[f]
+template <typename T, int DIM, bool OPS_SMEM>
+__device__ __forceinline__ void visc_ef_sigma_node(int fp, int nq,
                                                    const TileRows<T>& S,
-                                                   T* s_sig, T* s_nxj,
+                                                   T* s_sig,
                                                    const ViscOps<T>& op,
-                                                   T* t) {
+                                                   T (*s)[DIM + 2]) {
   constexpr int NF = DIM + 2;
-  constexpr bool OPS_SMEM = kOpsSmem<DIM>;
-  T s[DIM][NF];
 #pragma unroll
   for (int x = 0; x < DIM; ++x)
 #pragma unroll
@@ -438,23 +459,46 @@ __device__ __forceinline__ void visc_traction_node(int fp, int nq, int nfq,
 #pragma unroll
       for (int f = 0; f < NF; ++f) s[x][f] += a * S(s_sig, (x * NF + f) * nq + i);
   }
+}
+
+// The traces of face node fp to out [rows, Nfq, K]: with contract the
+// normal-contracted traction t_f = sum_x (Ef sigma_x)[f] nxj_x (rows f),
+// else the components (rows x NF + f).
+template <typename T, int DIM, bool OPS_SMEM>
+__device__ __forceinline__ void visc_traces_node(int fp, int nq, int nfq,
+                                                 const TileRows<T>& S,
+                                                 T* s_sig, T* s_nxj,
+                                                 const ViscOps<T>& op,
+                                                 bool contract,
+                                                 T* __restrict__ out,
+                                                 long long K, long long k) {
+  constexpr int NF = DIM + 2;
+  T s[DIM][NF];
+  visc_ef_sigma_node<T, DIM, OPS_SMEM>(fp, nq, S, s_sig, op, s);
+  if (!contract) {
+#pragma unroll
+    for (int x = 0; x < DIM; ++x)
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        out[(long long)((x * NF + f) * nfq + fp) * K + k] = s[x][f];
+    return;
+  }
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
     T acc = s[0][f] * S(s_nxj, fp);
 #pragma unroll
     for (int x = 1; x < DIM; ++x) acc = acc + s[x][f] * S(s_nxj, x * nfq + fp);
-    t[f] = acc;
+    out[(long long)(f * nfq + fp) * K + k] = acc;
   }
 }
 
 // the divergence at solution node n: sum_r (D_r Pq)(sum_x geo[r,x] sigma_x)
-template <typename T, int DIM>
+template <typename T, int DIM, bool OPS_SMEM>
 __device__ __forceinline__ void visc_div_node(int n, int np, int nq,
                                               const TileRows<T>& S, T* s_sig,
                                               const ViscOps<T>& op,
                                               const T* g, T* dvg) {
   constexpr int NF = DIM + 2;
-  constexpr bool OPS_SMEM = kOpsSmem<DIM>;
 #pragma unroll
   for (int f = 0; f < NF; ++f) dvg[f] = T(0);
 #pragma unroll

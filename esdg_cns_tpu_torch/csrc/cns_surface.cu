@@ -1,5 +1,5 @@
 // K8: the post-exchange CNS surface stage of the affine CNS RHS alone, in
-// 2D and 3D.
+// 1D, 2D and 3D.
 //
 // Replaces the TPU kernel esdg_cns_tpu/ops/pallas_cns_surface.py::
 // _surface_kernel (wrapper cns_surface_pallas).  One thread per (face
@@ -86,6 +86,9 @@ int dispatch_surface(int dim, const void* const* in, void* const* out,
                      const int* itab, const double* ftab, long long K,
                      int nfq, double gamma, double re, int dissipation,
                      int with_penalty, int has_bc, cudaStream_t st) {
+  if (dim == 1)
+    return launch_surface<T, 1>(in, out, itab, ftab, K, nfq, gamma, re,
+                                dissipation, with_penalty, has_bc, st);
   if (dim == 2)
     return launch_surface<T, 2>(in, out, itab, ftab, K, nfq, gamma, re,
                                 dissipation, with_penalty, has_bc, st);
@@ -97,7 +100,7 @@ int dispatch_surface(int dim, const void* const* in, void* const* out,
 
 }  // namespace esdg
 
-// dtype: 0 = float32, 1 = float64; dim 2 or 3.  in[9] = (qm, uf, qm_log,
+// dtype: 0 = float32, 1 = float64; dim 1, 2 or 3.  in[9] = (qm, uf, qm_log,
 // vuf, nbr, nxj, sj, inv_sj, pool); pool may be any pointer when
 // has_bc = 0.  out[3] = (flux, dv, pen), each [Nf, Nfq, K].  itab / ftab:
 // the region table (device memory), read only when has_bc.  Returns

@@ -145,26 +145,30 @@ def library() -> ctypes.CDLL:
     lib.esdg_hex_fd_dir.argtypes = [_I] * 5 + [_P] * 6 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_fd_dir.restype = _I
-    lib.esdg_tri_modal_volume.argtypes = [_I, _I] + [_P] * 9 + [
+    lib.esdg_modal_volume.argtypes = [_I, _I, _I] + [_P] * 9 + [
         ctypes.c_longlong, _I, _I, _I, ctypes.c_double, _P]
-    lib.esdg_tri_modal_volume.restype = _I
+    lib.esdg_modal_volume.restype = _I
     lib.esdg_hex_lines.argtypes = [_I] * 3 + [_P] * 6 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_lines.restype = _I
     lib.esdg_dense_fd.argtypes = [_I] * 3 + [_P] * 5 + [
         ctypes.c_longlong, _I, _I, ctypes.c_double, _P]
     lib.esdg_dense_fd.restype = _I
-    lib.esdg_cns_surface_viscous.argtypes = [_I, _I] + [_P] * 4 + [
+    lib.esdg_cns_surface_viscous.argtypes = [_I, _I, _I] + [_P] * 4 + [
         ctypes.c_longlong, _I, _I, _I] + [ctypes.c_double] * 5 + [
         _I] * 4 + [_P]
     lib.esdg_cns_surface_viscous.restype = _I
-    lib.esdg_cns_viscous.argtypes = [_I, _I, _P, _P, ctypes.c_longlong, _I,
-                                     _I, _I] + [ctypes.c_double] * 4 + [_P]
+    lib.esdg_cns_viscous.argtypes = [_I, _I, _I, _I, _P, _P,
+                                     ctypes.c_longlong, _I, _I, _I] + [
+        ctypes.c_double] * 4 + [_P]
     lib.esdg_cns_viscous.restype = _I
     lib.esdg_cns_surface.argtypes = [_I, _I] + [_P] * 4 + [
         ctypes.c_longlong, _I, ctypes.c_double, ctypes.c_double] + [
         _I] * 3 + [_P]
     lib.esdg_cns_surface.restype = _I
+    lib.esdg_becker_bisect.argtypes = [_I, _P, _P, ctypes.c_longlong] + [
+        ctypes.c_double] * 7 + [_I, _P]
+    lib.esdg_becker_bisect.restype = _I
     return lib
 
 

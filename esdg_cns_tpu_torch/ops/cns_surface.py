@@ -107,10 +107,10 @@ def cns_surface(qm, uf, qm_log, vuf, nbr, nxj, sj, inv_sj, pool, *, gamma,
         raise ValueError(f"cns_surface: no kernel for device {qm.device}")
     name = "cns_surface"
     nf, nfq, k = qm.shape
-    if dim not in (2, 3) or nf != dim + 2:
+    if dim not in (1, 2, 3) or nf != dim + 2:
         raise NotImplementedError(
-            f"{name}: the CUDA kernel covers dim = 2 and 3 (Nf = dim + 2), "
-            f"got dim={dim} with {nf} fields")
+            f"{name}: the CUDA kernel covers dim = 1, 2 and 3 (Nf = dim + "
+            f"2), got dim={dim} with {nf} fields")
     tensors = {"qm": qm, "uf": uf, "qm_log": qm_log, "vuf": vuf, "nbr": nbr,
                "nxj": nxj, "sj": sj, "inv_sj": inv_sj}
     shapes = {"qm": (nf, nfq, k), "uf": (nf, nfq, k), "qm_log": (2, nfq, k),

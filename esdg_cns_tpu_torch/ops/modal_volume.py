@@ -1,16 +1,19 @@
-"""Fused modal volume stage (K3) of the 2D tri CNS / Euler RHS.
+"""Fused modal volume stage (K3) of the affine CNS / Euler RHS on lines,
+tris and hexes.
 
 Port of ``esdg_cns_tpu/ops/pallas_modal_volume.py``:
-``euler_modal_volume`` (CUDA ``csrc/tri_modal_volume.cu``) replaces
+``euler_modal_volume`` (CUDA ``csrc/modal_volume.cuh``, entry
+``csrc/tri_modal_volume.cu``, one source per dim) replaces
 ``_modal_volume_kernel`` / ``euler_modal_volume_pallas``.  Per element:
 Uq = Vq U, v(Uq), the hybridized projection and U(v_h) at the Nh points,
 flux variables and logs, skew EC flux differencing, Ph QF.
 
 The flux differencing is the dense body K5 shares (``csrc/dense_fd.cuh``),
-on affine and curved metrics.  ``euler_modal_volume_plain`` is the same
-function in plain PyTorch, with the dense all-pairs flux differencing
-(``ops.flux_differencing``).  The wrapper takes it only for CPU tensors;
-for CUDA tensors it launches the kernel or raises.
+on affine metrics at dim 1, 2 and 3 and on curved tris.
+``euler_modal_volume_plain`` is the same function in plain PyTorch, with
+the dense all-pairs flux differencing (``ops.flux_differencing``).  The
+wrapper takes it only for CPU tensors; for CUDA tensors it launches the
+kernel or raises.
 ``euler_modal_volume.launches`` counts the launches.  The TPU ``fd_mode``
 variants ('tri', 'tri8', 'full') are layouts of one sum: the port
 computes that sum once.
@@ -68,8 +71,8 @@ def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
     [dim, Nh, Nh] tensor or a tuple of dim [Nh, Nh]; vq [Nq, Np];
     vhp [Nh, Nq]; ph [Np, Nh].  Returns (ph_qf [Nf, Np, K],
     traces [Nf + 2, Nfq, K] = (rho, u_1..d, beta, log rho, log beta) at
-    the face points, vu_q [Nf, Nq, K] = v(Vq U)).  The CUDA kernel covers
-    dim = 2.
+    the face points, vu_q [Nf, Nq, K] = v(Vq U)), Nf = dim + 2.  The
+    CUDA kernel covers dim = 1, 2, 3 on affine geo and dim = 2 curved.
     """
     if q.device.type == "cpu":
         return euler_modal_volume_plain(q, geo, q_skew, vq, vhp, ph, gamma,
@@ -80,15 +83,18 @@ def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
     qs = q_skew if torch.is_tensor(q_skew) else torch.stack(tuple(q_skew))
     nf, np_, k = q.shape
     nh = vhp.shape[0]
-    if nf != 4:
-        raise NotImplementedError(f"{name}: the CUDA kernel covers 2D "
-                                  "(4 fields) only")
+    dim = nf - 2
+    if dim not in (1, 2, 3):
+        raise ValueError(f"{name}: {nf} fields (dim = 1, 2, 3 take 3, 4, 5)")
     curved = geo.shape[1] != 1
+    if curved and dim != 2:
+        raise NotImplementedError(f"{name}: the CUDA kernel takes a curved "
+                                  "metric on tris (dim = 2) only")
     tensors = {"q": q, "geo": geo, "q_skew": qs, "vq": vq, "vhp": vhp,
                "ph": ph}
     _check_cuda(name, tensors, q.dtype, q.device)
-    for key, shape in (("geo", (4, nh if curved else 1, k)),
-                       ("q_skew", (2, nh, nh)),
+    for key, shape in (("geo", (dim * dim, nh if curved else 1, k)),
+                       ("q_skew", (dim, nh, nh)),
                        ("vq", (nq, np_)), ("vhp", (nh, nq)),
                        ("ph", (np_, nh))):
         _check_shape(name, key, tensors[key], shape)
@@ -102,11 +108,11 @@ def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.esdg_tri_modal_volume(
-            _DTYPE_CODE[q.dtype], int(curved), q.data_ptr(), geo.data_ptr(),
-            qs.data_ptr(), vq.data_ptr(), vhp.data_ptr(), ph.data_ptr(),
-            out.data_ptr(), traces.data_ptr(), vu_q.data_ptr(), k, np_, nq,
-            nh, float(gamma), stream)
+        rc = lib.esdg_modal_volume(
+            _DTYPE_CODE[q.dtype], dim, int(curved), q.data_ptr(),
+            geo.data_ptr(), qs.data_ptr(), vq.data_ptr(), vhp.data_ptr(),
+            ph.data_ptr(), out.data_ptr(), traces.data_ptr(),
+            vu_q.data_ptr(), k, np_, nq, nh, float(gamma), stream)
     _raise_on(name, rc, "the element tile does not fit in shared memory")
     euler_modal_volume.launches += 1
     return out, traces, vu_q

@@ -40,9 +40,9 @@ from .cns_surface import _surface_body
 from .cns_surface_bc import recipe_rows, region_table
 from .fused_volume import _DTYPE_CODE, _check_cuda, _check_shape, _raise_on
 
-# the (dim, proj) forms the CUDA kernels are built for: the tri cavity's
-# and the collocated hex cavity's
-_CUDA_FORMS = ((2, True), (3, False))
+# the (dim, proj) forms the CUDA kernels are built for: the modal front
+# (proj, K3's) on lines, tris and hexes, and the collocated-hex front (K1's)
+_CUDA_FORMS = ((1, True), (2, True), (3, True), (3, False))
 
 
 def _viscous_body(vu, dv, geo, nxj, invj, wjq, front, vqlift, ef, drpq, *,
@@ -101,10 +101,10 @@ def _operator_shapes(nf, nq, nfq, np_, proj):
 
 
 def _check_form(name, dim, proj):
-    if (dim, proj) not in _CUDA_FORMS:
+    if (dim, bool(proj)) not in _CUDA_FORMS:
         raise NotImplementedError(
-            f"{name}: the CUDA kernel covers dim = 2 with proj=True (tris) "
-            f"and dim = 3 with proj=False (collocated hexes), got dim={dim} "
+            f"{name}: the CUDA kernel covers proj=True at dim = 1, 2, 3 and "
+            f"proj=False (collocated hexes) at dim = 3, got dim={dim} "
             f"proj={proj}")
 
 
@@ -163,8 +163,8 @@ def cns_surface_viscous(vu_q, qm, qm_log, nbr, nxj, sj, inv_sj, pool, geo,
     with_penalty; vuq the input vu_q when proj=False), or with
     fold_tail=True, which also takes ph_qf [Nf, Np, K] and lift
     [Np, Nfq], (dq_part, t_f, prod, vuq) with dq = dq_part + LIFT(jump)/J
-    left to the caller.  The CUDA kernel covers dim = 2 with proj=True
-    and dim = 3 with proj=False.
+    left to the caller.  The CUDA kernel covers proj=True at dim = 1, 2,
+    3 and proj=False at dim = 3.
     """
     args = (vu_q, qm, qm_log, nbr, nxj, sj, inv_sj, pool, geo, inv_j, wjq,
             front, vqlift, ef, drpq, ph_qf, lift)
@@ -226,7 +226,7 @@ def cns_surface_viscous(vu_q, qm, qm_log, nbr, nxj, sj, inv_sj, pool, geo,
     with torch.cuda.device(vu_q.device):
         stream = torch.cuda.current_stream(vu_q.device).cuda_stream
         rc = lib.esdg_cns_surface_viscous(
-            _DTYPE_CODE[vu_q.dtype], dim, ins, outs,
+            _DTYPE_CODE[vu_q.dtype], dim, int(proj), ins, outs,
             None if itab is None else itab.data_ptr(),
             None if ftab is None else ftab.data_ptr(), k, np_, nq, nfq,
             float(gamma), float(mu), float(lam_v), float(pr), float(re),
@@ -268,10 +268,10 @@ def cns_viscous(vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef, drpq, *,
     Returns (s_f, div [Nf, Np, K], prod [1, K], vuq [Nf, Nq, K]) with s_f
     the normal-contracted traction t_f = sum_x (Ef sigma_x) nxj_x
     [Nf, Nfq, K] (contract=True) or the component stress traces
-    [dim Nf, Nfq, K] (contract=False); vuq is the input vu_q when
-    proj=False.  The CUDA kernel covers contract=True, with dim = 2 and
-    proj=True or dim = 3 and proj=False; no path of the port calls
-    contract=False, which raises on the card (ROADMAP Queue 2).
+    [dim Nf, Nfq, K] (contract=False, rows x Nf + f = (Ef sigma_x)_f);
+    vuq is the input vu_q when proj=False.  The CUDA kernel covers both
+    contract forms, with proj=True at dim = 1, 2, 3 and proj=False at
+    dim = 3.
     """
     args = (vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef, drpq)
     kw = dict(gamma=gamma, mu=mu, lam=lam, pr=pr, nq=nq, proj=proj,
@@ -284,10 +284,6 @@ def cns_viscous(vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef, drpq, *,
     nf, _, k = vu_q.shape
     dim = nf - 2
     _check_form(name, dim, proj)
-    if not contract:
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel emits the contracted traction only "
-            "(contract=False, the component traces, is ROADMAP Queue 2)")
     nfq = dv.shape[1]
     np_ = drpq.shape[1]
     tensors = {"vu_q": vu_q, "dv": dv, "geo": geo, "nxj": nxj,
@@ -303,25 +299,27 @@ def cns_viscous(vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef, drpq, *,
 
     new = lambda *shape: torch.empty(shape, dtype=vu_q.dtype,
                                      device=vu_q.device)
-    t_f, div, prod = new(nf, nfq, k), new(nf, np_, k), new(1, k)
+    s_f = new(nf if contract else dim * nf, nfq, k)
+    div, prod = new(nf, np_, k), new(1, k)
     vuq = new(nf, nq, k) if proj else vu_q
     if k == 0:
-        return t_f, div, prod, vuq
+        return s_f, div, prod, vuq
     from ..kernels import library, pointer_array
 
     lam_v = -2.0 / 3.0 * mu if lam is None else lam
     ins = pointer_array([vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef,
                          drpq])
-    outs = pointer_array([t_f, div, prod, vuq if proj else None])
+    outs = pointer_array([s_f, div, prod, vuq if proj else None])
     lib = library()
     with torch.cuda.device(vu_q.device):
         stream = torch.cuda.current_stream(vu_q.device).cuda_stream
         rc = lib.esdg_cns_viscous(
-            _DTYPE_CODE[vu_q.dtype], dim, ins, outs, k, np_, nq, nfq,
-            float(gamma), float(mu), float(lam_v), float(pr), stream)
+            _DTYPE_CODE[vu_q.dtype], dim, int(proj), int(contract), ins,
+            outs, k, np_, nq, nfq, float(gamma), float(mu), float(lam_v),
+            float(pr), stream)
     _raise_on(name, rc, "the element tile does not fit in shared memory")
     cns_viscous.launches += 1
-    return t_f, div, prod, vuq
+    return s_f, div, prod, vuq
 
 
 cns_viscous.launches = 0

@@ -14,7 +14,8 @@ forms, used for initial states; ``velocity_torch`` /
 ``conservative_torch`` bisect on a tensor's device and dtype, for the
 time-dependent Dirichlet states a boundary condition evaluates at every
 RHS (the TPU package's ``velocity_jax`` / ``conservative_jax``, a
-``fori_loop`` of the same 100 halvings).
+``fori_loop`` of the same 100 halvings; here one kernel on the card,
+``ops.becker_bisect``).
 """
 
 from __future__ import annotations
@@ -121,30 +122,27 @@ class BeckerShock:
         vel = self.v_inf + u
         return np.stack([rho, rho * vel, rho * (e + 0.5 * vel**2)], axis=0)
 
-    def velocity_torch(self, xi):
-        """``velocity`` on a tensor's device and dtype: 100 halvings of a
-        bracket pulled 4 ulps inside (v1, v0), so both logarithms stay
-        finite in the working type."""
+    def bisection(self, dtype):
+        """The constants of ``velocity_torch``'s bisection in ``dtype``, as
+        ``ops.becker_bisect`` takes them: f(v) = -xi + c2 (a log(v0 - v) -
+        b log(v - v1)), bracketed 4 ulps inside (v1, v0), so both
+        logarithms stay finite in the working type (Python floats: the
+        tensor's dtype carries the arithmetic)."""
         cv = 1.0 / (self.gamma - 1)
-        # Python floats: the tensor's dtype carries the arithmetic
         lk = float(self.kappa / self.m_0 / cv)
         v0, v1 = float(self.v_0), float(self.v_1)
-        a = v0 / (v0 - v1)
-        b = v1 / (v0 - v1)
+        eps = torch.finfo(dtype).eps
+        return dict(a=v0 / (v0 - v1), b=v1 / (v0 - v1),
+                    c2=2 * lk / (self.gamma + 1), v0=v0, v1=v1,
+                    lo=v1 * (1 + 4 * eps), hi=v0 * (1 - 4 * eps))
 
-        def f(v):
-            return -xi + 2 * lk / (self.gamma + 1) * (
-                a * torch.log(v0 - v) - b * torch.log(v - v1)
-            )
+    def velocity_torch(self, xi):
+        """``velocity`` on a tensor's device and dtype: 100 halvings of
+        ``bisection``'s bracket; one kernel on the card
+        (``ops.becker_bisect``), the eager loop on the CPU."""
+        from ..ops.becker_bisect import becker_bisect
 
-        eps = torch.finfo(xi.dtype).eps
-        lo = torch.full_like(xi, v1 * (1 + 4 * eps))
-        hi = torch.full_like(xi, v0 * (1 - 4 * eps))
-        for _ in range(100):
-            mid = 0.5 * (lo + hi)
-            pos = f(mid) > 0
-            lo, hi = torch.where(pos, mid, lo), torch.where(pos, hi, mid)
-        return 0.5 * (lo + hi)
+        return becker_bisect(xi, **self.bisection(xi.dtype))
 
     def conservative_torch(self, x, t):
         """``conservative`` on a tensor's device and dtype, stacked

@@ -7,10 +7,12 @@ at setup time: the front operator [Vq Pq; Vq D_r Pq], Vq LIFT and D_r Pq
 (``composed_operators``).  Per RHS:
 
   1. the volume front end (``volume_impl``):
-     'fused'     K3 ``ops.modal_volume.euler_modal_volume`` (tris):
-                 projection, flux differencing and Ph QF; emits ph_qf,
-                 the face traces (qm | log rho, log beta) and v(U) at
-                 quadrature;
+     'fused'     K3 ``ops.modal_volume.euler_modal_volume`` (any affine
+                 mesh: lines, tris, hexes): projection, flux
+                 differencing and Ph QF; emits ph_qf, the face traces
+                 (qm | log rho, log beta) and v(U) at quadrature; the
+                 viscous kernels then take the projected front
+                 (proj=True) at every dim;
      'fused_hex' K1 ``ops.fused_volume.euler_volume`` (collocated hexes,
                  axis-aligned metric when ``detect_axis_aligned`` says
                  so), or at N = 7 the split path ``euler_volume_split``
@@ -85,9 +87,10 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
 
     volume_impl: 'xla' (the default, as in the TPU package: plain tensor
       code with ``flux_diff_impl``: 'auto', 'xla', 'pallas', 'lines' or
-      'lines_pallas', ``_shared.resolve_flux_diff``), 'fused' (K3, tris)
-      or 'fused_hex' (K1, collocated hexes; ``axis_aligned`` None detects
-      the diagonal metric with ``detect_axis_aligned``).  Any other name
+      'lines_pallas', ``_shared.resolve_flux_diff``), 'fused' (K3, any
+      affine mesh: lines, tris, hexes) or 'fused_hex' (K1, collocated
+      hexes; ``axis_aligned`` None detects the diagonal metric with
+      ``detect_axis_aligned``).  Any other name
       takes the 'xla' front, as the TPU package does (its TGV example
       passes 'auto').  The fused volume kernels hold their own flux
       differencing.

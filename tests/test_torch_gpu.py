@@ -17,6 +17,7 @@ import torch
 
 from esdg_cns_tpu_torch.cavity_cases import (
     CAVITY_BCS,
+    becker_case,
     cavity_case,
     fd_inputs,
     k4_inputs,
@@ -188,16 +189,19 @@ def test_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
     with pytest.raises(ValueError):
         df.flux_differencing_dense(qh, qlog, disc.q_skew, disc.geo, GAMMA,
                                    nq=disc.nq, fd_mode="packed")
-    # the remaining refusals of the cavity kernels: K3 on 3D fields, K7's
-    # contract=False
+    # K3 on five fields (a 3D state) with a 2D disc's metric and
+    # operators: the shape check refuses them; K7's contract=False (its
+    # default) runs on the card and matches its plain version
     cdisc, cq, bc, p = cavity_case("isothermal", 2, 3, torch.float32, cuda)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="shape"):
         mv.euler_modal_volume(torch.cat([cq, cq[:1]]), cdisc.geo,
                               cdisc.q_skew, cdisc.vq, cdisc.vhp, cdisc.ph,
                               GAMMA, nq=cdisc.nq)
     args7, kw7 = k7_inputs(cdisc, cq, bc, p)
-    with pytest.raises(NotImplementedError):
-        sv.cns_viscous(*args7, **dict(kw7, contract=False))
+    kw7 = dict(kw7, contract=False)
+    _match(sv.cns_viscous(*args7, **kw7), sv.cns_viscous_plain(*args7,
+                                                               **kw7),
+           torch.float32, "contract=False")
     # K1 keeps its whole tile in shared memory and is built for N <= 7
     d8, q8 = euler_hex_3d(n=8, k1d=1, dtype=torch.float32, device=cuda)
     with pytest.raises(NotImplementedError, match="N = 1..7"):
@@ -734,10 +738,124 @@ def test_cavity_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
         sv.cns_surface_viscous(*args[:11], args[11][disc.nq:], *args[12:],
                                **dict(kw, proj=False))
     args7, kw7 = k7_inputs(disc, q, bc, p)
-    with pytest.raises(NotImplementedError):
-        sv.cns_viscous(*args7, **dict(kw7, contract=False))
+    # contract=False, the public default, runs on the card
+    kw_c = dict(kw7, contract=False)
+    kern = sv.cns_viscous(*args7, **kw_c)
+    assert kern[0].shape == (2 * 4, disc.nfq, disc.num_elements)
+    _match(kern, sv.cns_viscous_plain(*args7, **kw_c), torch.float32,
+           "contract=False")
     with pytest.raises(TypeError):
         sv.cns_viscous(args7[0].double(), *args7[1:], **kw7)
     args8, kw8 = k8_inputs(disc, q, bc, p)
     with pytest.raises(ValueError):
         cs.cns_surface(*args8[:5], args8[5][:1], *args8[6:], **kw8)
+
+
+# ---- the dim-generic forms that make_cns_rhs_affine(volume_impl='fused')
+# reaches on lines and hexes: K3 at dim 1 and 3, K4 and K7 with the
+# projected front at dim 1 and 3, K7 contract=False at every form, K8 at
+# dim 1; the Becker tubes' Dirichlet pools and wall recipes, ragged K ----
+_FORM_CASES = {
+    "line_becker": lambda dt, dev: becker_case(1, 4, 37, dt, dev),
+    "line_wall": lambda dt, dev: becker_case(1, 3, 5, dt, dev, wall=True),
+    "hex_becker": lambda dt, dev: becker_case(3, 2, 12, dt, dev),
+    "hex_n3_becker": lambda dt, dev: becker_case(3, 3, 12, dt, dev),
+    "hex_wall": lambda dt, dev: cavity_case("mixed", 2, 3, dt, dev, dim=3),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(_FORM_CASES))
+def test_projected_forms_match_plain(cuda, dtype, case):
+    disc, q, bc, p = _FORM_CASES[case](dtype, cuda)
+    t = 0.003
+    a = (q, disc.geo, disc.q_skew, disc.vq, disc.vhp, disc.ph, GAMMA)
+    before = mv.euler_modal_volume.launches
+    kern = mv.euler_modal_volume(*a, nq=disc.nq)
+    plain = mv.euler_modal_volume_plain(*a, nq=disc.nq)
+    torch.cuda.synchronize()
+    assert mv.euler_modal_volume.launches == before + 1
+    _match(kern, plain, dtype, (case, "K3"))
+    args, tail, kw = k4_inputs(disc, q, bc, p, t=t, proj=True)
+    for fold in (False, True):
+        extra = tail if fold else ()
+        kern = sv.cns_surface_viscous(*args, *extra, fold_tail=fold, **kw)
+        plain = sv.cns_surface_viscous_plain(*args, *extra, fold_tail=fold,
+                                             **kw)
+        torch.cuda.synchronize()
+        _match(kern, plain, dtype, (case, "K4", fold))
+    args, kw = k7_inputs(disc, q, bc, p, t=t, proj=True)
+    for contract in (True, False):
+        k = dict(kw, contract=contract)
+        _match(sv.cns_viscous(*args, **k), sv.cns_viscous_plain(*args, **k),
+               dtype, (case, "K7", contract))
+    args, kw = k8_inputs(disc, q, bc, p, t=t, proj=True)
+    _match(cs.cns_surface(*args, **kw), cs.cns_surface_plain(*args, **kw),
+           dtype, (case, "K8"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_uncontracted_traces_match_plain(cuda, dtype, dim):
+    """K7 contract=False at (2, True) and (3, False), the cavities' forms."""
+    disc, q, bc, p = cavity_case("mixed", 3, 5 if dim == 2 else 3, dtype,
+                                 cuda, dim=dim)
+    args, kw = k7_inputs(disc, q, bc, p)
+    kw["contract"] = False
+    kern = sv.cns_viscous(*args, **kw)
+    assert kern[0].shape == (dim * (dim + 2), disc.nfq, disc.num_elements)
+    _match(kern, sv.cns_viscous_plain(*args, **kw), dtype, dim)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_becker_bisection_kernel_matches_eager(cuda, dtype):
+    """The bisection kernel repeats the eager loop's arithmetic: bitwise
+    equal at the 1D and 3D tubes' face points and over the wave."""
+    from esdg_cns_tpu_torch.ops import becker_bisect as bb
+    from esdg_cns_tpu_torch.presets import becker_shocktube_1d
+
+    disc, _, _, shock = becker_shocktube_1d(n=4, k=32, dtype=dtype,
+                                            device=cuda)
+    for xi in (disc.xf[0] - 0.2 * 0.037,
+               torch.linspace(-3.0, 3.0, 4097, dtype=dtype, device=cuda)):
+        before = bb.becker_bisect.launches
+        u = shock.velocity_torch(xi)
+        assert bb.becker_bisect.launches == before + 1
+        ref = bb.becker_bisect_plain(xi, **shock.bisection(dtype))
+        assert torch.equal(u, ref)
+
+
+@pytest.mark.gpu
+def test_fused_rhs_on_line_and_hex_matches_twin(cuda):
+    """make_cns_rhs_affine(volume_impl='fused') raises on no line or hex
+    mesh and agrees with the twin; dopri45 on the kernel path matches the
+    twin's step count."""
+    from esdg_cns_tpu_torch.presets import (becker_shocktube_1d,
+                                            becker_shocktube_3d)
+    from esdg_cns_tpu_torch.timestepping import dopri45
+
+    for make, size in ((becker_shocktube_1d, dict(n=4, k=32)),
+                       (becker_shocktube_3d, dict(n=2, k1d=4))):
+        disc, q0, bc, shock = make(**size, dtype=torch.float64, device=cuda)
+        flags = dict(mu=shock.mu, pr=shock.pr, bc=bc,
+                     inviscid_dissipation=True)
+        twin, _ = make_cns_rhs(disc, **flags)(q0, 0.01)
+        for kw in (dict(), dict(compute_rhstest=False),
+                   dict(surface_impl="fused")):
+            got, _ = make_cns_rhs_affine(disc, volume_impl="fused",
+                                         **kw, **flags)(q0, 0.01)
+            assert _rel(got, twin) <= 1e-10, (make.__name__, kw)
+    disc, q0, bc, shock = becker_shocktube_1d(n=4, k=32,
+                                              dtype=torch.float64,
+                                              device=cuda)
+    flags = dict(mu=shock.mu, pr=shock.pr, bc=bc, inviscid_dissipation=True,
+                 compute_rhstest=False)
+    qk, sk = dopri45(make_cns_rhs_affine(disc, volume_impl="fused", **flags),
+                     q0, 2e-3, 1e-4, err_tol=1e-9)
+    qt, st = dopri45(make_cns_rhs(disc, **flags), q0, 2e-3, 1e-4,
+                     err_tol=1e-9)
+    assert sk["n_accepted"] == st["n_accepted"]
+    assert _rel(qk, qt) <= 1e-10

@@ -85,6 +85,25 @@ a, _ = make_euler_rhs_fused(disc)(q0)
 b, _ = make_euler_rhs(disc, flux_diff_impl="lines", compute_rhstest=False)(q0)
 rel = float((a - b).abs().max() / b.abs().max())
 assert rel < 1e-11, rel
+for m in ("ops.becker_bisect", "timestepping.adaptive", "verification"):
+    assert "esdg_cns_tpu_torch." + m in sys.modules, m
+from esdg_cns_tpu_torch.presets import becker_shocktube_1d
+from esdg_cns_tpu_torch.timestepping import dopri45
+from esdg_cns_tpu_torch.verification import becker_shocktube_errors
+disc, q0, bc, shock = becker_shocktube_1d(n=4, k=8, dtype=torch.float64,
+                                          device="cpu")
+flags = dict(mu=shock.mu, pr=shock.pr, bc=bc, inviscid_dissipation=True,
+             compute_rhstest=False)
+fused = make_cns_rhs_affine(disc, volume_impl="fused", **flags)
+a, _ = fused(q0, 0.01)
+b, _ = make_cns_rhs(disc, **flags)(q0, 0.01)
+rel = float((a - b).abs().max() / b.abs().max())
+assert rel < 1e-10, rel
+qf, stats = dopri45(fused, q0, 2e-3, 1e-4, err_tol=1e-8)
+assert bool(torch.isfinite(qf).all()) and stats["n_accepted"] > 0
+errs = becker_shocktube_errors(2, 8, t_end=2e-3, dtype=torch.float64,
+                               device="cpu")
+assert 0.0 < errs["l2"] < 1.0, errs
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "esdg_cns_tpu" or m.startswith("esdg_cns_tpu.")]
 assert loaded == ["jax"], loaded
@@ -105,9 +124,11 @@ def test_port_runs_with_jax_blocked():
     'lines_pallas' flux differencing), the split volume path (N=4 in its
     three split modes, N=7 as 'auto' picks it), the cavity RHS on the 2D
     merged and split paths and on the 3D fused_hex path, the 3D Becker
-    shock tube at N=5 on the fused_hex path and the Euler RHS at N=5 as
-    'auto' picks it (K1), with no JAX; no module of the JAX package is
-    loaded."""
+    shock tube at N=5 on the fused_hex path, the Euler RHS at N=5 as
+    'auto' picks it (K1), and the 1D Becker tube's 'fused' RHS (K3 at
+    dim 1, K4 at (1, True)), stepped by dopri45 and scored by
+    verification.becker_shocktube_errors, with no JAX; no module of the
+    JAX package is loaded."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        env=_env(), capture_output=True, text=True,
                        timeout=300)
