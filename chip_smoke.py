@@ -183,19 +183,33 @@ Phases (each raises on failure; nothing is caught):
      results/paper_anchor_r05.json's row and the L2 rates above 4.5; the
      readings, accepted steps beside the artifact's and seconds per row;
      then verification.becker_shocktube_errors(2, 32) (the twin, as JAX
-     runs it) against its row.
+     runs it) against its row;
+ 31. the probes and the flux-differencing section (esdg_cns_tpu_torch/
+     probes): each probe kernel against its plain version (the FMA chains
+     to iters 2^-24, the other chains to 1e-5) and K1's fd section, its
+     joint body and the split path's three hex_fd_dir launches, against
+     the plain version at N+1 = 5, 6, 7 (f32 at the study's K = 13824,
+     8000, 4096, diag and general; f64 at K=45); then, with the probes'
+     counters at 0, the FMA rate at the TPU probes' defaults (refused
+     outside 50-105% of 67 TFLOP/s), the divide's and every chain kind's
+     cost in FMA issue slots, each probe's device time beside its plain
+     version's, and the fd section's A/B: the joint body against the
+     three launches and their assembly.
 A kernel's time is its device time: the timed calls are queued behind a
 sleeping kernel, so the host's dispatch does not enter it.
 The Becker bisection's time per RHS is printed apart: it replaces no TPU
 kernel.  The line before the last is {"kernels": [...]} with each
-kernel's bound
-(the larger of its bytes over 3.35 TB/s and its operations over 67
-TFLOP/s, from this run's shapes and the entries of its operators that
-the function needs); the last line is {"ok": true, "device": {...}}.
+kernel's bound (the larger of its bytes over 3.35 TB/s and its operations,
+an FMA two, over 67 TFLOP/s in f32 or 34 in f64, from this run's shapes
+and the entries of its operators that the function needs) and, for the
+f32 rows, its priced bound (the operations by kind at the costs phase 31
+measured: the larger of the bytes leg and sum n_kind slots_kind over the
+FMA rate); the last line is {"ok": true, "device": {...}}.
 The elapsed time at each phase goes to stderr.  Without a CUDA device it exits non-zero and prints no
 result: there is no CPU path.
 """
 
+import collections
 import json
 import re
 import statistics
@@ -306,12 +320,29 @@ BECKER3D_FUSED = (2, 8)
 ANCHOR_FILE = "results/paper_anchor_r05.json"
 ANCHOR_N, ANCHOR_KS, ANCHOR_T, ANCHOR_ERR_TOL = 4, (32, 64, 128), 0.1, 1e-11
 ANCHOR_REL, ANCHOR_MIN_RATE = 0.01, 4.5
-# the card's published peaks (H100 SXM data sheet): HBM bytes/s and FP32
-# operations/s outside the tensor cores
+# the card's published peaks (H100 SXM data sheet): HBM bytes/s, and
+# operations/s outside the tensor cores in float32 and float64
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-
-
+FP64_OPS_PER_S = 34e12
+# phase 31, the probes at the TPU probes' defaults (examples/vpu_peak.py
+# ITERS, BLOCKS, REPS, INNER_LO, INNER_HI)
+PROBE_ITERS, PROBE_BLOCKS, PROBE_REPS, PROBE_INNER = 512, 64, 3, (4, 24)
+# the FMA probe reads between these shares of FP32_OPS_PER_S or it is
+# refused: under half it measures latency, not throughput; above the
+# data sheet it measures nothing real
+FMA_SHARE = (0.50, 1.05)
+# row 11 kernel vs plain, max |kernel - plain| / max |plain|: the map's
+# factor 0.999998 keeps the chain's roundings (fmaf rounds once, the plain
+# multiply and add twice), so they add up over the chain: iters 2^-24.
+# The contracting chains (factor 0.97, div, log, exp, rsqrt, sqrt, mul)
+# and add (the same f32 additions in the same order): TOL["float32"]
+PEAK_TOL_PER_ITER = 2.0 ** -24
+# row 14's A/B at the study's size (N=4 at k1d=24) and at the orders of
+# the 'split' question (N=5 at k1d=20, N=6 at k1d=16): (N+1, K)
+FD_SECTION_CASES = ((5, 13824), (6, 8000), (7, 4096))
+# its f64 check, at a small K with a ragged tile
+FD_SECTION_F64_K = 45
 def becker_dt(n, k1d, cfl=0.5):
     """The time step of esdg_cns_tpu/config.py's estimate_dt for a CNS run
     on hexes: cfl h / C_N with C_N = 3 (N+1)(N+2)/2 and h = 2 / k1d,
@@ -419,22 +450,20 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def bound(n_bytes, n_ops):
-    """(bound_ms, bound_by): the larger of bytes over the HBM peak and
-    operations over the FP32 peak."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # Operations per element, counted by hand from the sources at the shapes
-# they are given: an FMA is two operations, a division, log, exp, pow or
-# sqrt one (so the bound is a floor); an operator product over the
-# operator's entries that the function needs (entries(op)): all of them on
-# the tri, one node line per point on the Gauss-collocated hex (N+1 of each
-# row of Ef, of each column of LIFT, of each row of a derivative); each
-# two-point flux pair counted ONCE (the triangular form, the least work).
-# Pair costs: the 3D EC pair with one metric direction (diag) 74; the
+# they are given, by kind (Ops).  The data-sheet bound weighs an FMA two
+# operations and every other kind one (so the bound is a floor); an
+# operator product over the operator's entries that the function needs
+# (entries(op)): all of them on the tri, one node line per point on the
+# Gauss-collocated hex (N+1 of each row of Ef, of each column of LIFT, of
+# each row of a derivative); each two-point flux pair counted ONCE (the
+# triangular form, the least work).  Each pointwise count (split) keeps
+# its hand total in that weighing, with the divisions, logs, exps, powers
+# and square roots the source does and the FMAs and multiplies it shows;
+# add takes the rest of the total.
+# Pair costs: the 3D EC pair with one metric direction (diag) 74, seven
+# of them divisions (ec_pair_n: the two logarithmic means' v and series
+# term, rho's mean, beta's reciprocal mean, the pressure average); the
 # general 3-term contraction adds the two other directional fluxes (12)
 # and two more metric terms per field (20): 106; a curved metric adds the
 # pairwise average of the three terms (6): 112.  The 2D EC pair with both
@@ -442,8 +471,86 @@ def bound(n_bytes, n_ops):
 # curved metric adds the average of the four operator-metric terms (8).
 # The 1D pair (two logarithmic means, one direction, one metric term, both
 # rows' accumulation) 55.
-PAIR_3D = {"diag": 74, "general": 106, "curved": 112}
-PAIR_MODAL = {1: 55, 2: 85, 3: PAIR_3D["general"]}
+KINDS = ("fma", "mul", "add", "div", "log", "exp", "sqrt", "rsqrt", "pow")
+
+
+class Ops(dict):
+    """Operation counts by kind (KINDS); + adds, * scales by an integer."""
+
+    def __init__(self, **counts):
+        unknown = set(counts) - set(KINDS)
+        if unknown:
+            raise ValueError(f"unknown operation kinds {sorted(unknown)}")
+        super().__init__({k: counts.get(k, 0) for k in KINDS})
+
+    def __add__(self, other):
+        return Ops(**{k: self[k] + other[k] for k in KINDS})
+
+    def __mul__(self, n):
+        return Ops(**{k: self[k] * n for k in KINDS})
+
+    __rmul__ = __mul__
+
+    def flops(self):
+        """The data-sheet count: an FMA two operations, any other one."""
+        return sum(self.values()) + self["fma"]
+
+
+def split(total, fma=0, mul=0, **special):
+    """A hand total by kind: the special functions and FMAs given, then
+    the multiplies given as far as the total allows, add the rest."""
+    rest = total - 2 * fma - sum(special.values())
+    if rest < 0:
+        raise ValueError(f"the kinds exceed the hand total {total}")
+    mul = min(mul, rest)
+    return Ops(fma=fma, mul=mul, add=rest - mul, **special)
+
+
+PAIR_3D = {"diag": split(74, fma=11, mul=27, div=7),
+           "general": split(106, fma=23, mul=35, div=7),
+           "curved": split(112, fma=23, mul=38, div=7)}
+PAIR_MODAL = {1: split(55, fma=15, mul=14, div=7),
+              2: split(85, fma=29, mul=20, div=7),
+              3: PAIR_3D["general"]}
+PAIR_TRI_CURVED = split(93, fma=29, mul=24, div=7)
+# pow is libdevice's expansion, exp(y log x) with corrections: priced as a
+# log, an exp and a multiply
+POW_PARTS = ("log", "exp", "mul")
+
+
+Bound = collections.namedtuple("Bound", "ms by n_bytes ops dtype")
+
+
+def bound(n_bytes, ops, dtype):
+    """The data-sheet floor: the larger of bytes over the HBM peak and
+    operations (FMA two, every other kind one) over the peak of the dtype
+    (FP32_OPS_PER_S or FP64_OPS_PER_S).  Keeps what priced_bound needs."""
+    name = str(dtype).replace("torch.", "")
+    if name not in ("float32", "float64"):
+        raise ValueError(f"bound: dtype {dtype}")
+    peak = FP64_OPS_PER_S if name == "float64" else FP32_OPS_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops.flops() / peak * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return Bound(max(t_bytes, t_ops), by, n_bytes, ops, name)
+
+
+def priced_ms(ops, slots, fma_per_s):
+    """The operations' time at the card's measured costs: sum of n_kind
+    slots_kind over the FMA rate (FMA/s); an FMA is one slot, pow a log,
+    an exp and a multiply."""
+    price = dict(slots, fma=1.0)
+    price["pow"] = sum(price[k] for k in POW_PARTS)
+    return sum(n * price[k] for k, n in ops.items() if n) / fma_per_s * 1e3
+
+
+def priced_bound(b, slots, fma_per_s):
+    """The larger of the bytes leg and the priced operation time; None
+    for float64 (the probes are f32, as the TPU ones are)."""
+    if b.dtype != "float32":
+        return None
+    return max(b.n_bytes / HBM_BYTES_PER_S * 1e3,
+               priced_ms(b.ops, slots, fma_per_s))
 
 
 def line_pairs(n1):
@@ -461,24 +568,36 @@ def entries(op):
 
 
 def ops_project(n1, ef_entries):
-    """The entropy projection of K1 and row 3: v(U) at the volume nodes,
-    Ef v, and U(v_f) with the flux variables and logs at the face points."""
+    """The entropy projection of K1 and row 3: v(U) at the volume nodes
+    (ten divisions, three logs), Ef v, and U(v_f) with the flux variables
+    and logs at the face points (two pows, an exp, eight divisions, two
+    logs)."""
     nq, nfq = n1 ** 3, 6 * n1 * n1
-    return 27 * nq + 2 * ef_entries * 5 + 40 * nfq
+    return (split(27, fma=3, mul=9, div=10, log=3) * nq
+            + Ops(fma=ef_entries * 5)
+            + split(40, fma=4, mul=12, div=8, log=2, exp=1, pow=2) * nfq)
 
 
 def ops_k1(n1, ef_entries, lift_entries, form="diag"):
+    """K1: the projection, the pairs at the form's cost, the face rows'
+    1/wf, LIFT over each point's lines and 2 (1/wq) acc + 2 LIFT."""
     nq, nfq = n1 ** 3, 6 * n1 * n1
     return (ops_project(n1, ef_entries) + PAIR_3D[form] * line_pairs(n1)
-            + 5 * nfq + 2 * lift_entries * 5 + 15 * nq)
+            + Ops(mul=5) * nfq + Ops(fma=lift_entries * 5)
+            + split(15, fma=5, mul=6) * nq)
 
 
 def ops_k2(n1, lift_entries, diag=True):
-    """The general form adds the two other directional fluxes (12), two
-    more normal terms per field (20) and the 3-component normal velocity
-    of both sides (8) at every face node."""
+    """At every face node the EC pair, both sides' conservative states,
+    both wave speeds (three divisions and a square root each) and LF; the
+    general form adds the two other directional fluxes (12), two more
+    normal terms per field (20) and the 3-component normal velocity of
+    both sides (8), and reads 1/sj where diag divides."""
     nq, nfq = n1 ** 3, 6 * n1 * n1
-    return (120 if diag else 160) * nfq + 2 * lift_entries * 5 + 15 * nq
+    face = (split(120, fma=22, mul=50, div=16, sqrt=2) if diag
+            else split(160, fma=38, mul=58, div=15, sqrt=2))
+    return (face * nfq + Ops(fma=lift_entries * 5)
+            + split(15, mul=5) * nq)
 
 
 def ops_lines(n1, curved):
@@ -486,7 +605,7 @@ def ops_lines(n1, curved):
     variables, and the doubling of 2 QF."""
     nh = n1 ** 3 + 6 * n1 * n1
     return (PAIR_3D["curved" if curved else "general"] * line_pairs(n1)
-            + 5 * nh)
+            + Ops(mul=5) * nh)
 
 
 def tri_pairs(nq, nh):
@@ -507,21 +626,26 @@ def needed_pairs(q_skew, nq):
 def ops_k3(dim, vq, vhp, ph, q_skew, nq, curved=False):
     """K3 per element: the three operator products over the entries they
     need (Vq, Vh Pq and Ph: each full on lines and tris, the identity and
-    one node line per face point on the collocated hex), v(U) and U(v)
-    with the flux variables and logs at each point, and the pairs the data
-    needs at the dim's pair cost (curved tris: 93)."""
+    one node line per face point on the collocated hex), v(U) (3 + dim
+    divisions, two logs) and U(v) (4 + dim divisions, two pows, an exp,
+    two logs) with the flux variables and logs at each point, and the
+    pairs the data needs at the dim's pair cost (curved tris: 93)."""
     nf, nh = dim + 2, vhp.shape[0]
     np_ = ph.shape[0]
-    pair = 93 if curved else PAIR_MODAL[dim]
-    return (2 * nf * (entries(vq) + entries(vhp) + entries(ph))
-            + (10 + 5 * dim) * nq + (30 + 5 * dim) * nh
-            + pair * needed_pairs(q_skew, nq) + nf * np_)
+    pair = PAIR_TRI_CURVED if curved else PAIR_MODAL[dim]
+    return (Ops(fma=nf * (entries(vq) + entries(vhp) + entries(ph)))
+            + split(10 + 5 * dim, fma=dim, mul=5 + dim, div=3 + dim,
+                    log=2) * nq
+            + split(30 + 5 * dim, fma=2 * dim - 2, mul=11, div=4 + dim,
+                    log=2, exp=1, pow=2) * nh
+            + pair * needed_pairs(q_skew, nq) + Ops(mul=nf) * np_)
 
 
 def ops_dense_2d(nq, nh, curved):
     """K5 in 2D: K3's pair cost on the triangular pair count, and the
     doubling of 2 QF."""
-    return (93 if curved else 85) * tri_pairs(nq, nh) + 4 * nh
+    pair = PAIR_TRI_CURVED if curved else PAIR_MODAL[2]
+    return pair * tri_pairs(nq, nh) + Ops(mul=4) * nh
 
 
 def line_metric_bytes(n1, k, itemsize):
@@ -533,17 +657,22 @@ def line_metric_bytes(n1, k, itemsize):
 
 def ops_face(dim, rebuild_local):
     """One face node of the CNS surface stage: the traces rebuilt (the
-    neighbour's conservative and entropy ones, with rebuild_local the
-    local ones too), the BC ghosts and ghost logs, the EC pair and its dim
-    directions contracted with the normal, LF, the entropy BC, the jump and
-    the penalty rows."""
+    neighbour's conservative (one division) and entropy ones, with
+    rebuild_local the local ones too), the BC ghosts and ghost logs, the
+    EC pair and its dim directions contracted with the normal, LF (two
+    wave speeds: two divisions and a square root each), the entropy BC,
+    the jump and the penalty rows (two divisions)."""
     nf = dim + 2
-    cons, evars = 3 * dim + 4, 3 * dim + 7
-    rebuild = cons + evars + (cons + evars if rebuild_local else 0)
-    ghosts = 4 * dim + 2 + 3 * dim
-    pair = 34 + 4 * dim + dim * (2 * dim + 2 + 2 * nf)
-    lf = 4 * dim + 19 + 3 * nf
-    return rebuild + ghosts + pair + lf + nf + 4 * dim + 6 + nf
+    cons = split(3 * dim + 4, fma=dim, mul=dim + 4, div=1)
+    evars = split(3 * dim + 7, fma=dim + 1, mul=dim + 3)
+    rebuild = (cons + evars) * (2 if rebuild_local else 1)
+    ghosts = split(7 * dim + 2, fma=2 * dim - 1, log=2)
+    pair = split(34 + 4 * dim + dim * (2 * dim + 2 + 2 * nf),
+                 fma=7 + 2 * dim + (dim - 1) * nf, div=7)
+    lf = split(4 * dim + 19 + 3 * nf, fma=2 * (dim - 1) + nf, div=4,
+               sqrt=2)
+    return (rebuild + ghosts + pair + lf + Ops(add=nf)
+            + split(4 * dim + 6, div=2) + Ops(add=nf))
 
 
 def ops_visc(dim, nq, nfq, front, vqlift, ef, drpq):
@@ -551,26 +680,30 @@ def ops_visc(dim, nq, nfq, front, vqlift, ef, drpq):
     once (the kernels repeat some per node; the bound counts what the
     function needs): the front product; the surface gradient term
     (0.5·dv·nxj once per face node, then its lift); per quadrature node
-    the gradients, K(v) (83 operations in 2D, 190 in 3D) and the
-    production; the contracted traction; the divergence (g_r = Σ_x
-    geo[r,x]·σ_x once per node, then the D_r Pq products).  front,
+    the gradients, K(v) (83 operations in 2D, 190 in 3D; two divisions)
+    and the production; the contracted traction; the divergence (g_r =
+    Σ_x geo[r,x]·σ_x once per node, then the D_r Pq products).  front,
     vqlift, ef and drpq are the operators the kernels take."""
     nf = dim + 2
     sigma = {1: 20, 2: 83, 3: 190}[dim]
-    front = 2 * entries(front) * nf
-    surface = 2 * dim * entries(vqlift) * nf + nfq * nf * (1 + dim)
-    node = nf * dim * (2 * dim + 1) + sigma + 3 * dim * nf
-    traction = 2 * dim * nf * entries(ef) + nfq * 2 * dim * nf
-    div = dim * nq * nf * (2 * dim - 1) + 2 * entries(drpq) * nf
-    return front + surface + nq * node + traction + div
+    front = Ops(fma=entries(front) * nf)
+    surface = (Ops(fma=dim * entries(vqlift) * nf)
+               + Ops(mul=nfq * nf * (1 + dim)))
+    node = (Ops(fma=nf * dim * (dim - 1), mul=2 * nf * dim, add=nf * dim)
+            + split(sigma, div=2) + split(3 * dim * nf, fma=dim * nf))
+    traction = Ops(fma=dim * nf * entries(ef) + nfq * dim * nf)
+    div = (Ops(fma=dim * (dim - 1) * nf * nq, mul=dim * nf * nq)
+           + Ops(fma=entries(drpq) * nf))
+    return front + surface + node * nq + traction + div
 
 
 def ops_k4(dim, np_, nq, nfq, k4args, lift):
     """The tail-folded form (merged_tail), as the cavity paths run it;
     k4args are K4's positional arguments (the operators are the last
     four), lift the tail's LIFT."""
-    fold = 4 * (dim + 2) * entries(lift) + 6 * (dim + 2) * np_
-    return (nfq * ops_face(dim, True)
+    fold = (Ops(fma=2 * (dim + 2) * entries(lift))
+            + Ops(add=6 * (dim + 2) * np_))
+    return (ops_face(dim, True) * nfq
             + ops_visc(dim, nq, nfq, *k4args[-4:]) + fold)
 
 
@@ -582,7 +715,8 @@ def ptxas_report(log):
     registers hold), the split kernels at N=4 and
     N=7 (the projection; the fd in direction 0, diag, general and dense)
     and K2 at N=7, K3 at every dim and form, the CNS kernels, K5 and the
-    Becker bisection.  A spill line counts
+    Becker bisection, the fd section at N+1 = 5, 6, 7 and the probes.  A
+    spill line counts
     only under its own entry's "Function properties" (not under a device
     function's, such as libdevice's pow)."""
     out, entry, props = [], None, None
@@ -603,7 +737,8 @@ def ptxas_report(log):
                                  "hex_project", "hex_fd_dir",
                                  "modal_volume", "dense_fd",
                                  "cns_surface_viscous", "cns_surface",
-                                 "cns_viscous", "becker_bisect")
+                                 "cns_viscous", "becker_bisect",
+                                 "fd_section", "probe_peak", "probe_chain")
                      if k + "_kernel" in name), None)
         if kind is None:
             continue
@@ -612,6 +747,14 @@ def ptxas_report(log):
         flags = [b == "1" for b in re.findall(r"Lb([01])E", form)]
         ints = re.findall(r"Li(\d+)E", form)
         n_of = {"5": 4, "8": 7}.get(ints[0]) if ints else None
+        if kind == "fd_section":
+            out.append(f"ptxas N+1={ints[0]} {kind} {prec} "
+                       f"{'diag' if flags[0] else 'general'}: {report}")
+            continue
+        if kind.startswith("probe_"):
+            out.append(f"ptxas {kind}" + (f" kind {ints[0]}" if ints else "")
+                       + f": {report}")
+            continue
         if kind in ("hex_project", "hex_fd_dir"):
             # the split kernels at N=4 and N=7; the fd in direction 0
             if n_of is None or (kind == "hex_fd_dir" and ints[1] != "0"):
@@ -888,22 +1031,25 @@ def modal_phases(c):
              herrs["front"], *times["K3 euler_modal_volume dim=3"],
              bound(nbytes(*a3[:6], *k3o),
                    ops_k3(3, hdisc.vq, hdisc.vhp, hdisc.ph, a3[2],
-                                hdisc.nq) * ne)),
+                                hdisc.nq) * ne,
+                   a3[0].dtype)),
             ("cns_surface_viscous_dim3_proj", "cns_surface_viscous_dim3.cu",
              "pallas_viscous.py:152", hex_launches["cns_surface_viscous"],
              herrs["k4"], *times["K4 cns_surface_viscous (3, True) "
                                  "fold_tail"],
              bound(nbytes(*h4a, *h4t, *k4o),
                    ops_k4(3, hdisc.np_, hdisc.nq, hdisc.nfq, h4a, h4t[1])
-                   * ne))]
+                   * ne,
+                   h4a[0].dtype))]
     every = (hdisc.nq * (hdisc.nq - 1) // 2
              + hdisc.nq * (hdisc.nh - hdisc.nq))
+    every_ms = every * PAIR_MODAL[3].flops() * ne / FP32_OPS_PER_S * 1e3
     print(f"K3 dim=3 bound: {needed_pairs(a3[2], hdisc.nq)} pairs per element "
           f"carry an operator entry above roundoff (the line-sparse Q_r), "
-          f"bound {rows[0][-1][0]:.4f} ms by {rows[0][-1][1]}; counting "
+          f"bound {rows[0][-1].ms:.4f} ms by {rows[0][-1].by}; counting "
           f"every pair of the dense sum ({every}, the TPU kernel's "
-          f"triangular form) at {PAIR_MODAL[3]} operations would give "
-          f"{every * PAIR_MODAL[3] * ne / FP32_OPS_PER_S * 1e3:.4f} ms")
+          f"triangular form) at {PAIR_MODAL[3].flops()} operations would "
+          f"give {every_ms:.4f} ms")
     a7, kw7 = hins["k7"]
     k7_ms, k7_pms = c.kernel_times(f"hex N={CAV3_N} k1d={CAV3_K1D} f32", [
         ("K7 cns_viscous (3, True)", lambda: sv.cns_viscous(*a7, **kw7),
@@ -913,7 +1059,8 @@ def modal_phases(c):
                  "pallas_viscous.py:131", split_launches["cns_viscous"],
                  herrs["k7"], k7_ms, k7_pms,
                  bound(nbytes(*a7, *sv.cns_viscous(*a7, **kw7)),
-                       ops_visc(3, hdisc.nq, hdisc.nfq, *a7[6:10]) * ne)))
+                       ops_visc(3, hdisc.nq, hdisc.nfq, *a7[6:10]) * ne,
+                       a7[0].dtype)))
     del k3o, k4o, mrhs
     # the 3D Becker tube in f64 through 'fused', one RHS
     bn, bk = BECKER3D_FUSED
@@ -1018,23 +1165,27 @@ def modal_phases(c):
          lerrs["front"], *ltimes["K3 euler_modal_volume dim=1"],
          bound(nbytes(*a3[:6], *mv.euler_modal_volume(*a3, **kw3)),
                ops_k3(1, ldisc.vq, ldisc.vhp, ldisc.ph, a3[2],
-                            ldisc.nq) * lk)),
+                            ldisc.nq) * lk,
+               a3[0].dtype)),
         ("cns_surface_viscous_dim1", "cns_surface_viscous_dim1.cu",
          "pallas_viscous.py:152", line_launches["cns_surface_viscous"],
          lerrs["k4"], *ltimes["K4 cns_surface_viscous (1, True) fold_tail"],
          bound(nbytes(*l4a, *l4t, *sv.cns_surface_viscous(
              *l4a, *l4t, fold_tail=True, **l4kw)),
-             ops_k4(1, ldisc.np_, ldisc.nq, ldisc.nfq, l4a, l4t[1]) * lk)),
+             ops_k4(1, ldisc.np_, ldisc.nq, ldisc.nfq, l4a, l4t[1]) * lk,
+               l4a[0].dtype)),
         ("cns_viscous_dim1", "cns_viscous_dim1.cu", "pallas_viscous.py:131",
          split_counts["cns_viscous"], lerrs["k7"],
          *ltimes["K7 cns_viscous (1, True)"],
          bound(nbytes(*a7, *sv.cns_viscous(*a7, **kw7)),
-               ops_visc(1, ldisc.nq, ldisc.nfq, *a7[6:10]) * lk)),
+               ops_visc(1, ldisc.nq, ldisc.nfq, *a7[6:10]) * lk,
+               a7[0].dtype)),
         ("cns_surface_dim1", "cns_surface.cu", "pallas_cns_surface.py:155",
          split_counts["cns_surface"], lerrs["k8"],
          *ltimes["K8 cns_surface dim=1"],
          bound(nbytes(*a8, *cs.cns_surface(*a8, **kw8)),
-               ops_face(1, False) * ldisc.nfq * lk))]
+               ops_face(1, False) * ldisc.nfq * lk,
+               a8[0].dtype))]
     # K7 contract=False: the slowest of its four forms in the line
     utimes = {}
     for (dim, proj), (a7, kw7, err) in sorted(uncontracted.items()):
@@ -1052,7 +1203,8 @@ def modal_phases(c):
                  "pallas_viscous.py:131", 0, uerr, ums, upms,
                  bound(nbytes(*a7, *sv.cns_viscous(*a7, **kw7)),
                        ops_visc(udim, kw7["nq"], a7[1].shape[1], *a7[6:10])
-                       * d7.shape[-1])))
+                       * d7.shape[-1],
+                       a7[0].dtype)))
     del lrhs, ltwin, qk, qt
 
     # ---- 30. the paper anchor on the card ----
@@ -1110,6 +1262,280 @@ def modal_phases(c):
         raise AssertionError("the twin's N=2 K=32 row departs from the "
                              "artifact")
     return rows, bisect_times
+
+
+def probe_phases(c):
+    """Phase 31: the throughput probes (rows 11-13) and K1's
+    flux-differencing section in its two bodies (row 14).  Each kernel is
+    first held against its plain version (those launches are not
+    counted); then, with the probes' counters at 0, the probes measure
+    the FMA rate and the slots of every kind at the TPU probes' defaults
+    and row 14's A/B times both bodies: the launches of that run are the
+    rows' launches.  c: dev, card, dev_ms.  Returns (rows, slots,
+    fma_per_s): the kernels line's rows and the prices of priced_bound."""
+    import numpy as np
+    import torch
+
+    from esdg_cns_tpu_torch.ops import fused_volume as fv
+    from esdg_cns_tpu_torch.probes import divide, peak
+    from esdg_cns_tpu_torch.probes import fd_section as fs
+    from esdg_cns_tpu_torch.probes import transcendental as tr
+    from esdg_cns_tpu_torch.probes.timing import spread
+
+    stamp("31")
+    dev, card, dev_ms = c.dev, c.card, c.dev_ms
+    iters, blocks, reps = PROBE_ITERS, PROBE_BLOCKS, PROBE_REPS
+    lo, hi = PROBE_INNER
+    f32, f64 = torch.float32, torch.float64
+    probes = {"fma_peak": peak.fma_peak, "divide.chain": divide.chain,
+              "transcendental.chain": tr.chain,
+              "fd_section": fs.fd_section, "hex_fd_dir": fv.hex_fd_dir}
+
+    # ---- kernel vs plain, on seeded inputs (launches not counted) ----
+    rng = np.random.default_rng(31)
+    seeded = lambda rows: torch.as_tensor(
+        1.0 + 0.5 * rng.random((blocks * rows, 1024)), dtype=f32, device=dev)
+    errs = {}
+
+    def check(label, kern, plain, tol):
+        torch.cuda.synchronize()
+        e, a = rel_err(kern, plain)
+        print(f"{label}: kernel vs plain rel {e:.3e} (tol {tol:.1e})")
+        if not e <= tol:
+            raise AssertionError(f"{label} disagrees with its plain version")
+        errs[label] = a
+
+    x = seeded(peak.BS[0])
+    check(f"row 11 fma_peak iters={iters}", peak.fma_peak(x, iters),
+          peak.fma_peak_plain(x, iters), iters * PEAK_TOL_PER_ITER)
+    for kind in divide.DIVIDE_KINDS:
+        check(f"row 12 divide.chain {kind}", divide.chain(x, kind, iters),
+              divide.chain_plain(x, kind, iters), TOL["float32"])
+    x = seeded(tr.BS[0])
+    for kind in tr.KINDS:
+        check(f"row 13 transcendental.chain {kind}",
+              tr.chain(x, kind, iters), tr.chain_plain(x, kind, iters),
+              TOL["float32"])
+    del x
+    fd_cases = {}
+    for n1, k in FD_SECTION_CASES:
+        for diag in (True, False):
+            args = fs.as_tensors(fs.study_inputs(n1, k, diag), dev)
+            kw = dict(n1=n1, diag=diag)
+            plain = fs.fd_section_plain(*args, 1.4, **kw)
+            form = "diag" if diag else "general"
+            for body, fn in (("joint", fs.fd_section),
+                             ("split", fs.fd_section_split)):
+                check(f"row 14 fd_section {body} N+1={n1} K={k} f32 {form}",
+                      fn(*args, 1.4, **kw), plain, TOL["float32"])
+            fd_cases[n1, k, diag] = args
+            del plain
+    for n1, _ in FD_SECTION_CASES:
+        for diag in (True, False):
+            args = fs.as_tensors(fs.study_inputs(n1, FD_SECTION_F64_K, diag,
+                                                 dtype=np.float64), dev)
+            kw = dict(n1=n1, diag=diag)
+            plain = fs.fd_section_plain(*args, 1.4, **kw)
+            for body, fn in (("joint", fs.fd_section),
+                             ("split", fs.fd_section_split)):
+                check(f"row 14 fd_section {body} N+1={n1} "
+                      f"K={FD_SECTION_F64_K} (ragged) f64 "
+                      f"{'diag' if diag else 'general'}",
+                      fn(*args, 1.4, **kw), plain, TOL["float64"])
+
+    # ---- the probes' run: counters at 0 before, read after ----
+    for w in probes.values():
+        w.launches = 0
+    r_peak = peak.rates(iters, blocks, reps, lo, hi, dev)
+    flops = float(np.median(r_peak))
+    share = flops / FP32_OPS_PER_S
+    print(f"[{card}] row 11 FMA f32 (ITERS={iters} BLOCKS={blocks} "
+          f"REPS={reps} INNER={lo}->{hi}): median {flops / 1e12:.3f} "
+          f"TFLOP/s (best {r_peak.max() / 1e12:.3f}, spread "
+          f"{spread(r_peak):.1%}), {share:.1%} of the data sheet's "
+          f"{FP32_OPS_PER_S / 1e12:.0f} TFLOP/s (required "
+          f"{FMA_SHARE[0]:.0%}-{FMA_SHARE[1]:.0%})")
+    if not FMA_SHARE[0] <= share <= FMA_SHARE[1]:
+        raise AssertionError("the FMA probe reads outside its range: under "
+                             "half it measures latency, not throughput")
+    r_div = divide.rates(iters, blocks, reps, lo, hi, dev)
+    for kind, r in r_div.items():
+        print(f"[{card}] row 12 {kind:>5} chain: "
+              f"{float(np.median(r)) / 1e12:.4f} T iters/s (spread "
+              f"{spread(r):.1%})")
+    print(f"[{card}] row 12 divide cost: {divide.slots(r_div)['div']:.2f} "
+          "FMA-issue slots (chain iter = 1 add + 1 div vs 1 FMA)")
+    r_tr = tr.rates(tr.KINDS, iters, blocks, reps, lo, hi, dev)
+    slots = tr.slots(r_tr)
+    for kind, r in r_tr.items():
+        print(f"[{card}] row 13 {kind:>5} chain: "
+              f"{float(np.median(r)) / 1e12:.4f} T iters/s (spread "
+              f"{spread(r):.1%})" + (f", {slots[kind]:.2f} FMA-issue slots"
+                                     if kind in slots else ""))
+    print(json.dumps({"fma_T_iters_per_s": float(np.median(r_tr["fma"]))
+                      / 1e12, "slots": {k: round(v, 2)
+                                        for k, v in slots.items()}}))
+    # the prices: a mul or an add is R_fma / R_kind slots (its chain has
+    # no companion add), the others the slots above; the FMA rate is row
+    # 11's (two flops an FMA)
+    prices = dict(slots, mul=slots["mul"] + 1.0, add=slots["add"] + 1.0)
+    fma_per_s = flops / 2.0
+
+    # device times per launch, kernel and plain, at the probes' inputs
+    times = {}
+    x = peak.probe_input(blocks, peak.BS[0], dev)
+    times["fma_peak"] = (dev_ms(lambda: peak.fma_peak(x, iters), 5),
+                         dev_ms(lambda: peak.fma_peak_plain(x, iters), 1))
+    n_peak = x.numel()
+    for kind in divide.DIVIDE_KINDS:
+        times["divide", kind] = (
+            dev_ms(lambda: divide.chain(x, kind, iters), 5),
+            dev_ms(lambda: divide.chain_plain(x, kind, iters), 1))
+    x = peak.probe_input(blocks, tr.BS[0], dev)
+    n_tr = x.numel()
+    for kind in tr.KINDS:
+        times["tr", kind] = (dev_ms(lambda: tr.chain(x, kind, iters), 5),
+                             dev_ms(lambda: tr.chain_plain(x, kind, iters),
+                                    1))
+    del x
+    for key, (ms, pms) in times.items():
+        label = (key if isinstance(key, str) else
+                 f"{'divide' if key[0] == 'divide' else 'transcendental'}"
+                 f".chain {key[1]}")
+        print(f"[{card}] {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms "
+              f"({pms / ms:.1f}x), device times")
+
+    # row 14's A/B: K1's joint line body against the split path's three
+    # launches and their assembly, on the same inputs
+    fd_times = {}
+    for (n1, k, diag), args in fd_cases.items():
+        kw = dict(n1=n1, diag=diag)
+        lo_ = fs.line_ops(n1)
+        fd = lambda d: fv.hex_fd_dir(args[0], args[1], args[2], 1.4,
+                                     line_ops=lo_, d=d, diag=diag,
+                                     coeffs=args[3:])
+        parts = [fd(d) for d in range(3)]
+        joint = dev_ms(lambda: fs.fd_section(*args, 1.4, **kw), 20)
+        split3 = dev_ms(lambda: [fd(d) for d in range(3)], 20)
+        asm = dev_ms(lambda: fs.assemble(parts, n1 ** 3), 20)
+        fd_times[n1, k, diag] = (joint, split3, asm)
+        print(f"[{card}] row 14 fd section N+1={n1} K={k} f32 "
+              f"{'diag' if diag else 'general'}: joint (K1's line body) "
+              f"{joint:.4f} ms; split 3 x hex_fd_dir {split3:.4f} ms + "
+              f"assembly {asm:.4f} ms = {split3 + asm:.4f} ms "
+              f"({(split3 + asm) / joint:.2f}x the joint; the launches "
+              f"alone {split3 / joint:.2f}x), device times")
+        del parts
+    n1, k = FD_SECTION_CASES[0]
+    args = fd_cases[n1, k, True]
+    fd_ms = fd_times[n1, k, True][0]
+    fd_plain_ms = dev_ms(lambda: fs.fd_section_plain(*args, 1.4, n1=n1,
+                                                     diag=True), 1)
+    fd_bytes = nbytes(*args) + 5 * args[0].shape[1] * k * 4
+    launches = {name: w.launches for name, w in probes.items()}
+    print(f"phase 31 launches (the probes' run and the A/B): {launches}")
+    if not all(launches[name] for name in ("fma_peak", "divide.chain",
+                                           "transcendental.chain",
+                                           "fd_section")):
+        raise AssertionError("a probe kernel was not launched in its run")
+
+    # the rows: ops per element of each probe (the chain frame: four
+    # starts, three sums and the scaling)
+    frame = Ops(fma=4, add=3, mul=1)
+    step = {"fma": Ops(fma=1), "mul": Ops(mul=1), "add": Ops(add=1),
+            "div": Ops(add=1, div=1), "log": Ops(log=1, add=1),
+            "exp": Ops(exp=1, add=1), "rsqrt": Ops(add=1, rsqrt=1),
+            "sqrt": Ops(add=2, sqrt=1)}
+    slowest = max(tr.KINDS, key=lambda kd: times["tr", kd][0])
+    rows = [
+        ("fma_peak", "probes.cu", "examples/vpu_peak.py:62",
+         launches["fma_peak"], errs[f"row 11 fma_peak iters={iters}"],
+         *times["fma_peak"],
+         bound(8 * n_peak, (Ops(fma=iters + 1, add=1, mul=1)) * n_peak,
+               f32)),
+        ("probe_divide (div)", "probes.cu", "examples/vpu_divide.py:53",
+         launches["divide.chain"], errs["row 12 divide.chain div"],
+         *times["divide", "div"],
+         bound(8 * n_peak, (step["div"] * iters + frame) * n_peak, f32)),
+        (f"probe_transcendental ({slowest}, the slowest kind)", "probes.cu",
+         "examples/vpu_transcendental.py:78",
+         launches["transcendental.chain"],
+         errs[f"row 13 transcendental.chain {slowest}"],
+         *times["tr", slowest],
+         bound(8 * n_tr, (step[slowest] * iters + frame) * n_tr, f32)),
+        ("fd_section", "fd_section.cuh", "examples/r5_packed_fd_study.py:54",
+         launches["fd_section"],
+         errs[f"row 14 fd_section joint N+1={n1} K={k} f32 diag"], fd_ms,
+         fd_plain_ms,
+         bound(fd_bytes, PAIR_3D["diag"] * (line_pairs(n1) * k), f32))]
+    return rows, prices, fma_per_s
+
+
+def report(card, rows, prices, fma_per_s, split_rows, bisect_times):
+    """Print every kernel's time beside its data-sheet and priced bounds,
+    the f64 rows' operation legs, the order of the perf work and the
+    kernels slower than their plain versions; return the kernels line."""
+    priced = [priced_bound(b, prices, fma_per_s) for *_, b in rows]
+    print(f"[{card}] prices of the priced bounds (FMA issue slots; row 13's "
+          "chains, the FMA rate row 11's "
+          f"{2 * fma_per_s / 1e12:.3f} TFLOP/s): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in prices.items())
+          + "; pow as log + exp + mul")
+    for (name, *_, ms, pms, b), pb in zip(rows, priced):
+        at_price = ("f64: not priced (the probes are f32)" if pb is None
+                    else f"priced {pb:.4f} ms ({pb / ms:.1%} of the kernel's"
+                    " time)")
+        print(f"[{card}] {name}: bound {b.ms:.4f} ms by {b.by} "
+              f"({b.ms / ms:.1%}), {at_price}; kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms ({pms / ms:.2f}x the kernel's time)")
+    # the float64 rows' operation leg at the f64 peak, beside the f32 peak
+    # it was divided by before
+    for name, *_, b in rows:
+        if b.dtype == "float64":
+            t_bytes = b.n_bytes / HBM_BYTES_PER_S * 1e3
+            print(f"f64 row {name}: bytes {t_bytes:.7f} ms, operations "
+                  f"{b.ops.flops() / FP64_OPS_PER_S * 1e3:.7f} ms at 34 "
+                  f"TFLOP/s (at 67: "
+                  f"{b.ops.flops() / FP32_OPS_PER_S * 1e3:.7f}); bound "
+                  f"{b.ms:.7f} ms by {b.by}")
+    # the order of the perf work: launches x (time - priced bound)
+    # (the study kernels of examples/ are no perf work)
+    rank = sorted(((n * (ms - pb), name, n, ms, pb)
+                   for (name, _, rep, n, _, ms, _, _), pb in zip(rows, priced)
+                   if pb is not None and not rep.startswith("examples/")),
+                  reverse=True)
+    print(f"[{card}] launches x (ms - priced bound), largest first: "
+          + "; ".join(f"{name} {loss:.2f} ({n} x ({ms:.4f} - {pb:.4f}))"
+                      for loss, name, n, ms, pb in rank))
+    slower = [name for name, *_, ms, pms, _ in rows if ms > pms]
+    print(f"[{card}] kernels slower than their plain version: "
+          f"{', '.join(slower) if slower else 'none'}")
+    for label in ("tri",):
+        sr = split_rows[label]
+        for key, bkey in (("K8 cns_surface", "k8_bound"),
+                          ("K7 cns_viscous", "k7_bound")):
+            b = sr[bkey]
+            pb = priced_bound(b, prices, fma_per_s)
+            print(f"[{card}] {key} ({label} split path): bound {b.ms:.4f} ms "
+                  f"by {b.by}, priced {pb:.4f} ms, kernel "
+                  f"{sr['times'][key][0]:.4f} ms "
+                  f"({b.ms / sr['times'][key][0]:.1%} of the bound)")
+    # the bisection replaces no TPU kernel: printed apart from the line
+    for label, (k_ms, e_ms, g_ms) in bisect_times.items():
+        print(f"[{card}] Becker bisection {label} f64 (no TPU kernel; not in "
+              f"the kernels line): {k_ms:.4f} ms per RHS against the eager "
+              f"loop's {e_ms:.4f} ms")
+    # no single PyTorch call computes any of these: library_ms is null
+    kernels_line = [
+        {"name": name, "route": "cuda",
+         "source": f"esdg_cns_tpu_torch/csrc/{src}",
+         "replaces": rep if "/" in rep else f"esdg_cns_tpu/ops/{rep}",
+         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": pms,
+         "bound_ms": b.ms, "bound_by": b.by, "priced_bound_ms": pb,
+         "library_ms": None}
+        for (name, src, rep, n, err, ms, pms, b), pb in zip(rows, priced)
+    ]
+    return kernels_line
 
 
 def main():
@@ -1386,9 +1812,11 @@ def main():
     # traces; traces, neighbour traces, compact nxj, 1/J, LIFT, ph_qf -> dq
     k1_bound = bound(nbytes(q0, disc.geo, vargs[2], disc.lift, k_out, k_tr),
                      ops_k1(N + 1, entries(vargs[2]), entries(vargs[3]))
-                     * ne)
+                     * ne,
+                     q0.dtype)
     k2_bound = bound(nbytes(*sargs[:3], sargs[5], disc.lift, sargs[7], k_s),
-                     ops_k2(N + 1, entries(disc.lift)) * ne)
+                     ops_k2(N + 1, entries(disc.lift)) * ne,
+                     q0.dtype)
     udisc = disc      # the uniform mesh, for row 10 (phase 16)
     del rhs, twin, qf, vargs, sargs, kouts, k_out, k_tr, k_s, disc, q0
     torch.cuda.empty_cache()
@@ -1634,10 +2062,12 @@ def main():
     cne = cdisc.num_elements
     k3_bound = bound(nbytes(*k3args[:6], *k3outs),
                      ops_k3(2, cdisc.vq, cdisc.vhp, cdisc.ph, k3args[2],
-                            cdisc.nq) * cne)
+                            cdisc.nq) * cne,
+                     k3args[0].dtype)
     k4_bound = bound(nbytes(*k4args, *k4tail, *k4out),
                      ops_k4(2, cdisc.np_, cdisc.nq, cdisc.nfq, k4args,
-                            k4tail[1]) * cne)
+                            k4tail[1]) * cne,
+                     k4args[0].dtype)
     del ctwin, k4out
 
     # ---- 9. 3D cavity kernels against their plain versions ----
@@ -1765,7 +2195,8 @@ def main():
     hne = hdisc.num_elements
     h4_bound = bound(nbytes(*h4args, *h4tail, *h4out),
                      ops_k4(3, hdisc.np_, hdisc.nq, hdisc.nfq, h4args,
-                            h4tail[1]) * hne)
+                            h4tail[1]) * hne,
+                     h4args[0].dtype)
     del htwin, h4out
 
     # ---- 12. the split path (K8 then K7) on both cavities ----
@@ -1827,10 +2258,12 @@ def main():
         split_rows[label] = dict(
             launches=counts, times=stimes,
             k8_bound=bound(nbytes(*a8, *o8),
-                           ops_face(disc.dim, False) * disc.nfq * ne),
+                           ops_face(disc.dim, False) * disc.nfq * ne,
+                           a8[0].dtype),
             k7_bound=bound(nbytes(*a7, *(o7 if proj else o7[:3])),
                            ops_visc(disc.dim, disc.nq, disc.nfq, *a7[6:10])
-                           * ne))
+                           * ne,
+                           a7[0].dtype))
         del split, merged, sqf, o8, o7
 
 
@@ -1962,9 +2395,11 @@ def main():
     k1c_bound = bound(nbytes(cvargs[0], cvargs[2], cvargs[3], *ckouts[:2])
                       + line_metric_bytes(N + 1, vne, 4),
                       ops_k1(N + 1, entries(cvargs[2]), entries(cvargs[3]),
-                             "curved") * vne)
+                             "curved") * vne,
+                      cvargs[0].dtype)
     k2c_bound = bound(nbytes(*csargs[:8], ckouts[2]),
-                      ops_k2(N + 1, entries(csargs[6]), diag=False) * vne)
+                      ops_k2(N + 1, entries(csargs[6]), diag=False) * vne,
+                      csargs[0].dtype)
     del vrhs, ckouts, csargs
 
     # ---- 16. the flux-differencing kernels against their plain versions --
@@ -2064,14 +2499,17 @@ def main():
     _, _, _, largs, lout = fd_rows["lines"]
     r10_bound = bound(nbytes(*largs[:2], *lout)
                       + line_metric_bytes(N + 1, vne, 4),
-                      ops_lines(N + 1, True) * vne)
+                      ops_lines(N + 1, True) * vne,
+                      largs[0].dtype)
     _, _, _, dargs, dout = fd_rows["dense"]
     k5_bound = bound(nbytes(*dargs[:4], *dout),
-                     ops_dense_2d(cdisc.nq, cdisc.nh, False) * cne)
+                     ops_dense_2d(cdisc.nq, cdisc.nh, False) * cne,
+                     dargs[0].dtype)
     _, _, _, margs, mout = fd_rows["modal"]
     k3c_bound = bound(nbytes(*margs[:6], *mout),
                       ops_k3(2, wdisc.vq, wdisc.vhp, wdisc.ph, margs[2],
-                             wdisc.nq, curved=True) * wdisc.num_elements)
+                             wdisc.nq, curved=True) * wdisc.num_elements,
+                      margs[0].dtype)
     del vdisc, vq0, vq, vqf, wdisc, wq
 
     # ---- 17. the cavity twin with the dense kernel (K5) ----
@@ -2347,18 +2785,22 @@ def main():
     itemsize = 4
     proj_bound = bound(nbytes(n7_io["q"], n7_io["ef"], n7_io["qh"],
                               n7_io["qlog"], n7_io["tr"]),
-                       ops_project(N7 + 1, entries(n7_io["ef"])) * ne7)
+                       ops_project(N7 + 1, entries(n7_io["ef"])) * ne7,
+                       n7_io["q"].dtype)
     # one direction reads its volume points and its two faces' points of
     # qh and qlog (7 rows), one metric row (diag; three for the dense
     # form's contraction) and writes [5, Nq + 2 Nfp, K]
     fd_in = 7 * (nq7 + 2 * nfp7) * ne7 * itemsize
     fd_bound = bound(fd_in + ne7 * itemsize + nbytes(n7_io["out"]),
-                     PAIR_3D["diag"] * line_pairs(N7 + 1) // 3 * ne7)
+                     PAIR_3D["diag"] * (line_pairs(N7 + 1) // 3 * ne7),
+                     n7_io["out"].dtype)
     dense_bound = bound(fd_in + 3 * ne7 * itemsize + nbytes(n7_io["out"]),
-                        PAIR_3D["general"] * line_pairs(N7 + 1) // 3 * ne7)
+                        PAIR_3D["general"] * (line_pairs(N7 + 1) // 3 * ne7),
+                        n7_io["out"].dtype)
     sa = n7_io["sargs"]
     k2n8_bound = bound(nbytes(*sa[:3], sa[5], sa[6], sa[7], n7_io["dq"]),
-                       ops_k2(N7 + 1, entries(sa[6])) * ne7)
+                       ops_k2(N7 + 1, entries(sa[6])) * ne7,
+                       n7_io["dq"].dtype)
     fd_avg = fd_ms / 3
     fd_plain_avg = sum(n7_times[f"fd{d}"][1] for d in range(3)) / 3
     dense_avg = sum(n7_times[f"dense{d}"][0] for d in range(3)) / 3
@@ -2463,7 +2905,8 @@ def main():
         ne_ = disc.num_elements
         b = bound(nbytes(vargs[0], disc.geo, vargs[2], disc.lift, k_out,
                          k_tr),
-                  ops_k1(n + 1, entries(vargs[2]), entries(vargs[3])) * ne_)
+                  ops_k1(n + 1, entries(vargs[2]), entries(vargs[3])) * ne_,
+                  vargs[0].dtype)
         return dict(launches=counts["euler_volume"], err=abs_v, ms=k1n_ms,
                     plain_ms=k1n_plain_ms, bound=b)
 
@@ -2498,7 +2941,8 @@ def main():
                  if curved else nbytes(vargs[1]))
         b = bound(nbytes(vargs[0], vargs[2], vargs[3], *kouts[:2]) + extra,
                   ops_k1(n1, entries(vargs[2]), entries(vargs[3]), form)
-                  * ne_)
+                  * ne_,
+                  vargs[0].dtype)
         return dict(launches=launches, err=err, ms=ms, plain_ms=pms, bound=b)
 
     # ---- 24. K1 at N+1 = 8: curved (K1c) and affine volume_mode='joint' ----
@@ -2751,35 +3195,12 @@ def main():
              ("euler_volume_curved_n6", "hex_volume6.cu", k1c_n6),
              ("euler_volume_curved_n8", "hex_volume8.cu",
               k1_n8["curved"]))] + modal_rows
-    for name, *_, ms, pms, (bms, by) in rows:
-        print(f"[{card}] {name}: bound {bms:.4f} ms by {by}, kernel "
-              f"{ms:.4f} ms ({bms / ms:.1%} of the bound), plain "
-              f"{pms:.4f} ms ({pms / ms:.2f}x the kernel's time)")
-    slower = [name for name, *_, ms, pms, _ in rows if ms > pms]
-    print(f"[{card}] kernels slower than their plain version: "
-          f"{', '.join(slower) if slower else 'none'}")
-    for label in ("tri",):
-        sr = split_rows[label]
-        for key, bkey in (("K8 cns_surface", "k8_bound"),
-                          ("K7 cns_viscous", "k7_bound")):
-            bms, by = sr[bkey]
-            print(f"[{card}] {key} ({label} split path): bound {bms:.4f} ms "
-                  f"by {by}, kernel {sr['times'][key][0]:.4f} ms "
-                  f"({bms / sr['times'][key][0]:.1%} of the bound)")
-    # the bisection replaces no TPU kernel: printed apart from the line
-    for label, (k_ms, e_ms, g_ms) in bisect_times.items():
-        print(f"[{card}] Becker bisection {label} f64 (no TPU kernel; not in "
-              f"the kernels line): {k_ms:.4f} ms per RHS against the eager "
-              f"loop's {e_ms:.4f} ms")
-    # no single PyTorch call computes any of these: library_ms is null
-    kernels_line = [
-        {"name": name, "route": "cuda",
-         "source": f"esdg_cns_tpu_torch/csrc/{src}",
-         "replaces": f"esdg_cns_tpu/ops/{rep}", "launches": n,
-         "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-         "bound_by": by, "library_ms": None}
-        for name, src, rep, n, err, ms, pms, (bms, by) in rows
-    ]
+    # ---- 31. the probes and the fd section; the priced bounds ----
+    probe_rows, prices, fma_per_s = probe_phases(types.SimpleNamespace(
+        dev=dev, card=card, dev_ms=dev_ms))
+    rows += probe_rows
+    kernels_line = report(card, rows, prices, fma_per_s, split_rows,
+                          bisect_times)
     print(json.dumps({"kernels": kernels_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -169,6 +169,13 @@ def library() -> ctypes.CDLL:
     lib.esdg_becker_bisect.argtypes = [_I, _P, _P, ctypes.c_longlong] + [
         ctypes.c_double] * 7 + [_I, _P]
     lib.esdg_becker_bisect.restype = _I
+    lib.esdg_probe_peak.argtypes = [_P, _P, ctypes.c_longlong, _I, _P]
+    lib.esdg_probe_peak.restype = _I
+    lib.esdg_probe_chain.argtypes = [_I, _P, _P, ctypes.c_longlong, _I, _P]
+    lib.esdg_probe_chain.restype = _I
+    lib.esdg_fd_section.argtypes = [_I, _I, _I] + [_P] * 6 + [
+        ctypes.c_longlong, ctypes.c_double, _P]
+    lib.esdg_fd_section.restype = _I
     return lib
 
 

@@ -426,16 +426,24 @@ def hex_project(q, ef, gamma):
 hex_project.launches = 0
 
 
-def _fd_dir_plain(qh, qlog, geo, gamma, line_ops, d, diag, dense):
+def _fd_coeffs(line_ops, qh, coeffs):
+    """(cvol, cface): the given tables, or line_ops' on qh's device."""
+    if coeffs is not None:
+        return coeffs
+    return _volume_consts(line_ops, qh.dtype, qh.device)[:2]
+
+
+def _fd_dir_plain(qh, qlog, geo, gamma, line_ops, d, diag, dense,
+                  coeffs=None):
     """One direction of the line-sparse fd, triangular or dense (mirror of
     ``_fd_dir_kernel`` / ``_fd_dir_dense_kernel``): [5, Nq + 2 Nfp, K] =
     the volume rows, then the face rows of faces 2d and 2d+1 (not scaled
-    by 1/wf)."""
+    by 1/wf).  coeffs: (cvol, cface) in place of line_ops' tables."""
     if geo.shape[1] != 1:
         raise ValueError("split volume path is affine-only")
     n1 = line_ops.n1d
     nq, nfp, k = n1 ** 3, n1 * n1, qh.shape[2]
-    cvol, cface, _, _ = _volume_consts(line_ops, qh.dtype, qh.device)
+    cvol, cface = _fd_coeffs(line_ops, qh, coeffs)
     shape, axis = _dir_layout(3, n1, d)
     vshape = (*shape, k)
     vol = [qh[f, :nq].reshape(vshape) for f in range(5)]
@@ -493,7 +501,8 @@ def _fd_dir_plain(qh, qlog, geo, gamma, line_ops, d, diag, dense):
                                    face_rows[1][f]]) for f in range(5)])
 
 
-def _fd_dir_launch(name, qh, qlog, geo, gamma, line_ops, d, diag, dense):
+def _fd_dir_launch(name, qh, qlog, geo, gamma, line_ops, d, diag, dense,
+                   coeffs=None):
     if qh.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {qh.device}")
     if geo.shape[1] != 1:
@@ -503,15 +512,21 @@ def _fd_dir_launch(name, qh, qlog, geo, gamma, line_ops, d, diag, dense):
     n1 = line_ops.n1d
     nq, nfp, k = n1 ** 3, n1 * n1, qh.shape[2]
     nh = nq + 6 * nfp
-    tensors = {"qh": qh, "qlog": qlog, "geo": geo}
+    cvol, cface = _fd_coeffs(line_ops, qh, coeffs)
+    tensors = {"qh": qh, "qlog": qlog, "geo": geo, "cvol": cvol,
+               "cface": cface}
     _check_cuda(name, tensors, qh.dtype, qh.device)
     for key, shape in (("qh", (5, nh, k)), ("qlog", (2, nh, k)),
                        ("geo", (9, 1, k))):
         _check_shape(name, key, tensors[key], shape)
+    for key, rows in (("cvol", 3 * n1), ("cface", 6)):
+        if tensors[key].numel() != rows * nq:
+            raise ValueError(f"{name}: {key} has shape "
+                             f"{tuple(tensors[key].shape)}, expected "
+                             f"{rows} x {nq} values")
     out = torch.empty((5, nq + 2 * nfp, k), dtype=qh.dtype, device=qh.device)
     if k == 0:
         return out
-    cvol, cface, _, _ = _volume_consts(line_ops, qh.dtype, qh.device)
     from ..kernels import library
 
     lib = library()
@@ -526,24 +541,27 @@ def _fd_dir_launch(name, qh, qlog, geo, gamma, line_ops, d, diag, dense):
 
 
 def hex_fd_dir_plain(qh, qlog, geo, gamma, *, line_ops: LineOps, d: int,
-                     diag: bool = False):
+                     diag: bool = False, coeffs=None):
     """Plain PyTorch version of ``hex_fd_dir``."""
-    return _fd_dir_plain(qh, qlog, geo, gamma, line_ops, d, diag, False)
+    return _fd_dir_plain(qh, qlog, geo, gamma, line_ops, d, diag, False,
+                         coeffs)
 
 
 def hex_fd_dir(qh, qlog, geo, gamma, *, line_ops: LineOps, d: int,
-               diag: bool = False):
+               diag: bool = False, coeffs=None):
     """Direction d of the triangular line-sparse flux differencing (row 4a):
     every vol-vol pair of a line once, the vol-face pairs of faces 2d and
     2d+1; diag (axis-aligned mesh) one metric term, else the 3-term affine
     contraction.  qh [5, Nh, K], qlog [2, Nh, K], geo [9, 1, K] ->
     [5, Nq + 2 Nfp, K]: the volume rows, then the face rows of faces 2d
-    and 2d+1, not scaled by 1/wf."""
+    and 2d+1, not scaled by 1/wf.  coeffs: (cvol [3 N1, Nq], cface
+    [6, Nq]) in place of line_ops' tables (the fd-section study's random
+    ones, ``probes.fd_section``); line_ops then gives N+1 alone."""
     if qh.device.type == "cpu":
         return hex_fd_dir_plain(qh, qlog, geo, gamma, line_ops=line_ops, d=d,
-                                diag=diag)
+                                diag=diag, coeffs=coeffs)
     out = _fd_dir_launch("hex_fd_dir", qh, qlog, geo, gamma, line_ops, d,
-                         diag, False)
+                         diag, False, coeffs)
     hex_fd_dir.launches += 1
     return out
 

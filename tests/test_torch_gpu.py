@@ -859,3 +859,91 @@ def test_fused_rhs_on_line_and_hex_matches_twin(cuda):
                      err_tol=1e-9)
     assert sk["n_accepted"] == st["n_accepted"]
     assert _rel(qk, qt) <= 1e-10
+
+
+# -----------------------------------------------------------------------------
+# The probes (rows 11-13) and the flux-differencing section (row 14)
+# -----------------------------------------------------------------------------
+
+PROBE_ITERS = 64
+
+
+def _probe_input(cuda, rows=256):
+    rng = np.random.default_rng(5)
+    return torch.as_tensor(1.0 + 0.5 * rng.random((rows, 1024)),
+                           dtype=torch.float32, device=cuda)
+
+
+@pytest.mark.gpu
+def test_fma_peak_kernel_matches_plain(cuda):
+    """Row 11: the kernel's fmaf rounds once where the plain multiply and
+    add round twice, and the map's factor 0.999998 keeps those roundings:
+    iters 2^-24 of max |plain|."""
+    from esdg_cns_tpu_torch.probes import peak
+
+    x = _probe_input(cuda)
+    got = peak.fma_peak(x, PROBE_ITERS)
+    torch.cuda.synchronize()
+    assert _rel(got, peak.fma_peak_plain(x, PROBE_ITERS)) <= (
+        PROBE_ITERS * 2.0 ** -24)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fma", "mul", "add", "div", "log", "exp",
+                                  "rsqrt", "sqrt"])
+def test_chain_kernels_match_plain(cuda, kind):
+    """Rows 12, 13: every kind's chains against the plain version."""
+    from esdg_cns_tpu_torch.probes import divide, transcendental
+
+    x = _probe_input(cuda)
+    plain = transcendental.chain_plain(x, kind, PROBE_ITERS)
+    got = transcendental.chain(x, kind, PROBE_ITERS)
+    torch.cuda.synchronize()
+    assert _rel(got, plain) <= TOL[torch.float32], kind
+    if kind in divide.DIVIDE_KINDS:
+        assert _rel(divide.chain(x, kind, PROBE_ITERS), plain) <= TOL[
+            torch.float32], kind
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n1", [5, 6, 7])
+@pytest.mark.parametrize("diag", [True, False])
+def test_fd_section_kernels_match_plain(cuda, dtype, n1, diag):
+    """Row 14: the joint body (K1's line body) and the split body (three
+    hex_fd_dir launches with the study's tables) against the plain
+    version on the study's non-skew inputs, at a ragged K."""
+    from esdg_cns_tpu_torch.probes import fd_section as fs
+
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    args = fs.as_tensors(fs.study_inputs(n1, 37, diag, dtype=npdt), cuda)
+    kw = dict(n1=n1, diag=diag)
+    plain = fs.fd_section_plain(*args, GAMMA, **kw)
+    n0 = fs.fd_section.launches
+    joint = fs.fd_section(*args, GAMMA, **kw)
+    split = fs.fd_section_split(*args, GAMMA, **kw)
+    torch.cuda.synchronize()
+    assert fs.fd_section.launches == n0 + 1
+    assert _rel(joint, plain) <= TOL[dtype]
+    assert _rel(split, plain) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_probe_wrappers_refuse_what_they_do_not_cover(cuda):
+    from esdg_cns_tpu_torch.probes import divide, peak, transcendental
+    from esdg_cns_tpu_torch.probes import fd_section as fs
+
+    x = _probe_input(cuda, 8)
+    with pytest.raises(TypeError):
+        peak.fma_peak(x.double(), 8)
+    with pytest.raises(ValueError):
+        divide.chain(x, "log", 8)
+    with pytest.raises(ValueError):
+        transcendental.chain(x, "tanh", 8)
+    args = fs.as_tensors(fs.study_inputs(4, 8, True), cuda)
+    with pytest.raises(NotImplementedError, match="5, 6, 7"):
+        fs.fd_section(*args, GAMMA, n1=4, diag=True)
+    args = fs.as_tensors(fs.study_inputs(5, 8, True), cuda)
+    with pytest.raises(ValueError):
+        fs.fd_section(args[0][:, :-1].contiguous(), *args[1:], GAMMA, n1=5,
+                      diag=True)

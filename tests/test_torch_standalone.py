@@ -104,6 +104,14 @@ assert bool(torch.isfinite(qf).all()) and stats["n_accepted"] > 0
 errs = becker_shocktube_errors(2, 8, t_end=2e-3, dtype=torch.float64,
                                device="cpu")
 assert 0.0 < errs["l2"] < 1.0, errs
+for m in ("peak", "divide", "transcendental", "fd_section", "timing"):
+    assert "esdg_cns_tpu_torch.probes." + m in sys.modules, m
+from esdg_cns_tpu_torch.probes import fd_section, transcendental
+x = torch.ones(4, 8)
+assert bool(torch.isfinite(transcendental.chain(x, "log", 8)).all())
+args = fd_section.as_tensors(fd_section.study_inputs(3, 4, False), "cpu")
+out = fd_section.fd_section(*args, 1.4, n1=3, diag=False)
+assert out.shape == (5, 27 + 6 * 9, 4) and bool(torch.isfinite(out).all())
 loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
           or m == "esdg_cns_tpu" or m.startswith("esdg_cns_tpu.")]
 assert loaded == ["jax"], loaded
@@ -127,8 +135,10 @@ def test_port_runs_with_jax_blocked():
     shock tube at N=5 on the fused_hex path, the Euler RHS at N=5 as
     'auto' picks it (K1), and the 1D Becker tube's 'fused' RHS (K3 at
     dim 1, K4 at (1, True)), stepped by dopri45 and scored by
-    verification.becker_shocktube_errors, with no JAX; no module of the
-    JAX package is loaded."""
+    verification.becker_shocktube_errors, and the probes (every module
+    of esdg_cns_tpu_torch.probes imported, a chain and the fd section on
+    their plain versions), with no JAX; no module of the JAX package is
+    loaded."""
     r = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
                        env=_env(), capture_output=True, text=True,
                        timeout=300)
