@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port's paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Phases (each raises on failure; nothing is caught):
   1. device: the card's name and power limit (nvidia-smi) and the TF32
@@ -10,7 +10,11 @@ Phases (each raises on failure; nothing is caught):
      build time and ptxas' register/spill report of the N=3 hex kernels
      (K1 diag, general and curved; K2; row 10), of K1 and row 10 curved
      at N=4 in f64, of K3 and the CNS kernels in every form, of K5 and of
-     the Becker bisection;
+     the Becker bisection; then one line per K1 instantiation (N+1 =
+     2..8, three forms, two types) and for K3 at each dim (and curved
+     tris) on the paths' operator lists: the blocks and warps resident
+     per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, exported by
+     the library) beside the registers and spills;
   3. Euler kernels: K1 (euler_volume) and K2 (euler_surface) against their
      plain PyTorch versions on the card, at the main-path shapes (N=3,
      k1d=32, f32, axis-aligned) and at N=3, k1d=8 in f64 (axis-aligned and
@@ -164,7 +168,9 @@ Phases (each raises on failure; nothing is caught):
      K1 never), finite and within 1e-5 of the twin; one RHS against
      fused_hex (f32 1e-5; f64 k1d=4 1e-9), the split form (K8, K7 at (3,
      True)) against merged_tail; f64 mass over 20 steps; the rate over 1200
-     stages, K3's, K4's and K7's device times, the profiler; the 3D Becker
+     stages, K3's, K4's and K7's device times (K3 also on the cavity at
+     rest, beside row 12's divide chain on zero dividends and on x = 1),
+     the profiler; the 3D Becker
      tube (N=2, k1d=8, f64) through 'fused' on one RHS against the twin
      (1e-10) and fused_hex (1e-9);
  29. the 1D path: becker_shocktube_1d(4, 128, f64) ->
@@ -194,7 +200,18 @@ Phases (each raises on failure; nothing is caught):
      outside 50-105% of 67 TFLOP/s), the divide's and every chain kind's
      cost in FMA issue slots, each probe's device time beside its plain
      version's, and the fd section's A/B: the joint body against the
-     three launches and their assembly.
+     three launches and their assembly;
+ 32. with --parent DIR only (a checkout of the parent commit in a folder
+     .gitignore lists): the parent tree's kernels and stages against this
+     tree's on the same card, in turns (parent, new, new, parent): K1 in
+     every form at the paths' shapes, K3 at each dim (the 3D cavity moving
+     and at rest), rows 4a, 4b, 10, 14 and K5, each pair held to each
+     other; the device-bound stages (Euler N=3, N=4 'auto', N=5, N=6,
+     curved, N=7, the 3D cavity's 'fused' form, Becker 3D) over 300
+     stages and the host-bound ones' device busy time, torch.profiler
+     over 100 stages (both cavities' default forms, the 1D anchor path),
+     their wall clock beside it; a line names each one more than 2%
+     slower than the parent's.
 A kernel's time is its device time: the timed calls are queued behind a
 sleeping kernel, so the host's dispatch does not enter it.
 The Becker bisection's time per RHS is printed apart: it replaces no TPU
@@ -1004,7 +1021,8 @@ def modal_phases(c):
         hq0, hdof, None)
     a3, kw3 = hins["front"]
     h4a, h4t, h4kw = hins["k4"]
-    k3_call = lambda: mv.euler_modal_volume(*a3, **kw3)
+    kl3 = k3_lists(mv, a3, kw3)
+    k3_call = lambda: mv.euler_modal_volume(*a3, **kw3, lists=kl3)
     k4_call = lambda: sv.cns_surface_viscous(*h4a, *h4t, fold_tail=True,
                                              **h4kw)
     times = c.kernel_times(f"hex N={CAV3_N} k1d={CAV3_K1D} f32", [
@@ -1016,9 +1034,22 @@ def modal_phases(c):
     # K3's time on the path's own state (the cavity at rest) beside the
     # moving state's above
     a3r = (hq0, *a3[1:])
-    rest_ms = c.dev_ms(lambda: mv.euler_modal_volume(*a3r, **kw3), 20)
+    rest_ms = c.dev_ms(lambda: mv.euler_modal_volume(*a3r, **kw3,
+                                                     lists=kl3), 20)
     print(f"[{card}] K3 euler_modal_volume dim=3 on the cavity at rest (the "
           f"path's state): {rest_ms:.4f} ms, device time")
+    # the gap's cause (PERF.md §7): an f32 IEEE division with a zero
+    # dividend leaves the divider's fast path.  The chain a <- x / (a + c)
+    # divides zero at every step when x = 0 (row 12's kernel)
+    from esdg_cns_tpu_torch.probes import transcendental as tr
+    xs = {x0: torch.full((8 * 512, 1024), x0, dtype=f32, device=dev)
+          for x0 in (0.0, 1.0)}
+    div_ms = {x0: c.dev_ms(lambda x=x: tr.chain(x, "div", PROBE_ITERS), 5)
+              for x0, x in xs.items()}
+    print(f"[{card}] the div chain ({PROBE_ITERS} steps, 8 x 512 x 1024 "
+          f"f32): zero dividends {div_ms[0.0]:.4f} ms, x = 1 "
+          f"{div_ms[1.0]:.4f} ms ({div_ms[0.0] / div_ms[1.0]:.2f}x)")
+    del xs
     mdev_ms = c.dev_ms(lambda: lsrk45(mrhs, hq0, CAV_TIMED_DT, 10), 1) / 50
     print(f"[{card}] 3D cavity fused stage device time (queued ahead of the "
           f"device): {mdev_ms:.4f} ms of {mstage_ms:.4f} ms")
@@ -1146,9 +1177,10 @@ def modal_phases(c):
     l4a, l4t, l4kw = lins["k4"]
     a7, kw7 = lins["k7"]
     a8, kw8 = lins["k8"]
+    kl3 = k3_lists(mv, a3, kw3)
     ltimes = c.kernel_times(f"line N={LINE_N} K={LINE_K} f64", [
         ("K3 euler_modal_volume dim=1",
-         lambda: mv.euler_modal_volume(*a3, **kw3),
+         lambda: mv.euler_modal_volume(*a3, **kw3, lists=kl3),
          lambda: mv.euler_modal_volume_plain(*a3, **kw3)),
         ("K4 cns_surface_viscous (1, True) fold_tail",
          lambda: sv.cns_surface_viscous(*l4a, *l4t, fold_tail=True, **l4kw),
@@ -1163,7 +1195,8 @@ def modal_phases(c):
         ("euler_modal_volume_dim1", "modal_volume_dim1.cu",
          "pallas_modal_volume.py:45", line_launches["euler_modal_volume"],
          lerrs["front"], *ltimes["K3 euler_modal_volume dim=1"],
-         bound(nbytes(*a3[:6], *mv.euler_modal_volume(*a3, **kw3)),
+         bound(nbytes(*a3[:6], *mv.euler_modal_volume(*a3, **kw3,
+                                                      lists=kl3)),
                ops_k3(1, ldisc.vq, ldisc.vhp, ldisc.ph, a3[2],
                             ldisc.nq) * lk,
                a3[0].dtype)),
@@ -1471,6 +1504,437 @@ def probe_phases(c):
     return rows, prices, fma_per_s
 
 
+def k3_lists(mv, args, kw):
+    """K3's operator lists for its positional arguments (q, geo, q_skew,
+    vq, vhp, ph, gamma), built once, as make_cns_rhs_affine builds them:
+    the timed calls pass them."""
+    return mv.modal_lists(*args[2:6], kw["nq"])
+
+
+def ptxas_entries(log):
+    """{entry function (mangled): (registers, spill stores, spill loads)}
+    from the build log's ptxas report."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, props = m.group(1), None
+            out[entry] = [0, 0, 0]
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props == entry:
+            out[entry][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry][0] = int(m.group(1))
+    return out
+
+
+def ptxas_of(entries, kind, prec, ints, flags):
+    """ptxas' (registers, spill stores, spill loads) of one instantiation
+    of esdg::<kind>_kernel: its type, integer and bool template arguments,
+    in order; None when the log does not hold it."""
+    form = ("If" if prec == "f32" else "Id") + "".join(
+        f"Li{i}E" for i in ints) + "".join(f"Lb{int(b)}E" for b in flags)
+    for name, v in entries.items():
+        if f"{kind}_kernel{form}" in name:
+            return tuple(v)
+    return None
+
+
+def shape_line(label, occ, ptx):
+    """One launch shape: blocks and warps resident per SM beside the
+    registers and spills."""
+    blocks, threads, smem, regs, local, te = occ
+    warps = blocks * ((threads + 31) // 32)
+    ptx_s = ("ptxas: not in the log" if ptx is None else
+             f"ptxas {ptx[0]} registers, spill stores {ptx[1]} B, loads "
+             f"{ptx[2]} B")
+    return (f"shape {label}: {blocks} blocks x {threads} threads "
+            f"({te} elements a block, {smem} B shared) -> {warps} warps "
+            f"resident per SM; {regs} registers, {local} B local; {ptx_s}")
+
+
+def kernel_shapes(dev, log):
+    """The launch shape of every K1 instantiation (N+1 = 2..8, diag,
+    general, curved, f32 and f64) and of K3 at each dim (and curved tris)
+    at the paths' operators, as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    and cudaFuncGetAttributes give them, beside ptxas' report; returns
+    {(kernel, N+1 or dim, form, type): warps resident per SM}."""
+    import torch
+    from esdg_cns_tpu_torch.cavity_cases import warped_tri_case
+    from esdg_cns_tpu_torch.ops import fused_volume as fv
+    from esdg_cns_tpu_torch.ops import modal_volume as mv
+    from esdg_cns_tpu_torch.presets import (becker_shocktube_1d,
+                                            lid_driven_cavity,
+                                            lid_driven_cavity_3d)
+    entries = ptxas_entries(log)
+    warps = {}
+    for n1 in range(2, 9):
+        for prec, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            for form in ("diag", "general", "curved"):
+                occ = fv.euler_volume_shape(dtype, n1, diag=form == "diag",
+                                            curved=form == "curved")[:6]
+                ptx = ptxas_of(entries, "hex_volume", prec, [n1],
+                               [form == "diag", form == "curved"])
+                print(shape_line(f"K1 N+1={n1} {form} {prec}", occ, ptx))
+                warps[("K1", n1, form, prec)] = (
+                    occ[0] * ((occ[1] + 31) // 32))
+    cases = (("hex N=3", lambda dt: lid_driven_cavity_3d(3, 2, dtype=dt,
+                                                         device=dev)[0]),
+             ("tri N=3", lambda dt: lid_driven_cavity(3, 2, dtype=dt,
+                                                      device=dev)[0]),
+             ("line N=4", lambda dt: becker_shocktube_1d(4, 8, dtype=dt,
+                                                         device=dev)[0]),
+             ("curved tri N=3", lambda dt: warped_tri_case(3, 2, dt,
+                                                          dev)[0]))
+    for label, make in cases:
+        for prec, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            disc = make(dtype)
+            curved = disc.geo.shape[1] != 1
+            lists = mv.modal_lists(torch.stack(disc.q_skew), disc.vq,
+                                   disc.vhp, disc.ph, disc.nq)
+            occ, ops_global = mv.euler_modal_volume_shape(
+                dtype, disc.dim, curved, disc.np_, disc.nq, disc.nh, lists)
+            ptx = ptxas_of(entries, "modal_volume", prec, [disc.dim],
+                           [curved, ops_global])
+            print(shape_line(f"K3 dim {disc.dim} {label} {prec} (lists: "
+                             f"{lists.pairs} partners, "
+                             f"{'global' if ops_global else 'shared'} "
+                             "memory)", occ, ptx))
+            warps[("K3", disc.dim, "curved" if curved else "affine",
+                   prec)] = occ[0] * ((occ[1] + 31) // 32)
+    return warps
+
+
+def load_parent(parent_dir):
+    """The parent tree's port, PARENT_DIR/esdg_cns_tpu_torch, imported as
+    the package esdg_parent beside this tree's (its imports are relative):
+    its wrappers launch its own kernels, built from its own sources into
+    its own build folder."""
+    import importlib
+    import importlib.util
+    from pathlib import Path
+
+    init = Path(parent_dir).resolve() / "esdg_cns_tpu_torch" / "__init__.py"
+    if not init.exists():
+        raise FileNotFoundError(f"--parent: no {init}")
+    spec = importlib.util.spec_from_file_location(
+        "esdg_parent", init, submodule_search_locations=[str(init.parent)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules["esdg_parent"] = pkg
+    spec.loader.exec_module(pkg)
+    return lambda name: importlib.import_module(f"esdg_parent.{name}")
+
+
+# the A/B's turns: parent, this tree, this tree, parent
+AB_TURNS = ("parent", "new", "new", "parent")
+# a kernel or stage of this tree slower than the parent's by more than
+# this share is printed as a regression
+AB_SLOWER = 0.02
+
+
+def ab_phase(card, dev, dev_ms, parent_dir):
+    """32. The parent tree against this one on one card, in turns (parent,
+    new, new, parent): K1 in every form at the paths' shapes, K3 at each
+    dim on moving states and the 3D cavity at rest, the split fd (rows 4a,
+    4b), row 10, the fd section (row 14) and K5, each pair of calls on the
+    same inputs (outputs held to each other); then the stages of the
+    device-bound paths (ms per stage over 300 stages) and, on the
+    host-bound ones, the stage's device busy time (torch.profiler).
+    Returns the rows [(name, parent ms, new ms)]."""
+    import numpy as np
+    import torch
+
+    par = load_parent(parent_dir)
+    pkernels = par("kernels")
+    info = pkernels.build()
+    pkernels.library()
+    print(f"A/B: the parent tree {parent_dir} built in {info.seconds:.1f} s")
+    from esdg_cns_tpu_torch import presets as npre, solvers as nsol
+    from esdg_cns_tpu_torch.cavity_cases import (fd_inputs, moving_state,
+                                                 warped_tri_case)
+    from esdg_cns_tpu_torch.ops import dense_fd as ndf
+    from esdg_cns_tpu_torch.ops import fused_volume as nfv
+    from esdg_cns_tpu_torch.ops import modal_volume as nmv
+    from esdg_cns_tpu_torch.ops import tensor_product_fd as ntp
+    from esdg_cns_tpu_torch.probes import fd_section as nfs
+    from esdg_cns_tpu_torch.timestepping import lsrk45 as nlsrk45
+    pfv, pmv = par("ops.fused_volume"), par("ops.modal_volume")
+    ptp, pdf = par("ops.tensor_product_fd"), par("ops.dense_fd")
+    pfs = par("probes.fd_section")
+    ppre, psol = par("presets"), par("solvers")
+    plsrk45 = par("timestepping").lsrk45
+    f32, f64 = torch.float32, torch.float64
+    rows = []
+
+    def turns(name, calls, n_calls=20):
+        """Time calls['parent'] and calls['new'] in turns; print and keep
+        the means."""
+        t = {"parent": [], "new": []}
+        for who in AB_TURNS:
+            t[who].append(dev_ms(calls[who], n_calls))
+        p_ms, n_ms = (statistics.mean(t["parent"]),
+                      statistics.mean(t["new"]))
+        flag = ("  SLOWER" if n_ms > p_ms * (1 + AB_SLOWER) else "")
+        print(f"[{card}] A/B {name}: parent {p_ms:.4f} ms, new {n_ms:.4f} "
+              f"ms ({n_ms / p_ms:.3f}x; turns {t['parent'][0]:.4f} "
+              f"{t['new'][0]:.4f} {t['new'][1]:.4f} {t['parent'][1]:.4f})"
+              f"{flag}")
+        rows.append((name, p_ms, n_ms))
+
+    def agree(name, a, b):
+        a = a if isinstance(a, (tuple, list)) else (a,)
+        b = b if isinstance(b, (tuple, list)) else (b,)
+        tol = TOL[str(a[0].dtype).replace("torch.", "")]
+        e = max(rel_err(x, y)[0] for x, y in zip(a, b))
+        if not e <= tol:
+            raise AssertionError(f"A/B {name}: parent and new disagree "
+                                 f"({e:.2e})")
+
+    def rstate(disc, seed):
+        rng = np.random.default_rng(seed)
+        sh = (disc.np_, disc.num_elements)
+        t = lambda a: torch.as_tensor(a, dtype=disc.wq.dtype, device=dev)
+        from esdg_cns_tpu_torch.physics import primitive_to_conservative
+        return primitive_to_conservative(
+            t(2 + 0.1 * rng.random(sh)),
+            t(0.3 * rng.standard_normal((3, *sh))),
+            t(2 + 0.1 * rng.random(sh)))
+
+    # ---- kernels: K1 in every form at the paths' shapes (f64: the
+    # 3D cavity's and the 3D Becker tube's K) ----
+    for label, n, k1d, curved, form, dtype in (
+            ("K1 N+1=4 diag k1d=32 (main path)", 3, 32, False, "diag", f32),
+            ("K1 N+1=4 general k1d=32", 3, 32, False, "general", f32),
+            ("K1 N+1=4 k1d=16 diag (3D cavity, fused_hex)", 3, 16, False,
+             "diag", f32),
+            ("K1c N+1=4 k1d=32", 3, 32, True, "curved", f32),
+            ("K1 N+1=5 k1d=24 diag (N=4 'auto')", 4, 24, False, "diag",
+             f32),
+            ("K1 N+1=6 k1d=20 diag (N=5 'auto')", 5, 20, False, "diag",
+             f32),
+            ("K1 N+1=6 k1d=20 general", 5, 20, False, "general", f32),
+            ("K1 N+1=7 k1d=16 diag (N=6 force_fused)", 6, 16, False,
+             "diag", f32),
+            ("K1 N+1=8 k1d=8 diag", 7, 8, False, "diag", f32),
+            ("K1c N+1=6 k1d=16", 5, 16, True, "curved", f32),
+            ("K1c N+1=8 k1d=8", 7, 8, True, "curved", f32),
+            ("K1 N+1=4 k1d=16 diag f64", 3, 16, False, "diag", f64),
+            ("K1 N+1=6 k1d=13 diag f64 (K=2197)", 5, 13, False, "diag",
+             f64)):
+        disc, _ = npre.euler_hex_3d(n=n, k1d=k1d, curved=curved,
+                                    dtype=dtype, device=dev)
+        q = rstate(disc, 5)
+        vargs = (q, disc.geo, disc.vhp[disc.nq:], disc.lift, 1.4)
+        vkw = dict(line_ops=disc.line_ops, diag=form == "diag")
+        calls = {"new": lambda: nfv.euler_volume(*vargs, **vkw),
+                 "parent": lambda: pfv.euler_volume(*vargs, **vkw)}
+        agree(label, calls["new"](), calls["parent"]())
+        turns(label, calls)
+        del disc, q, vargs
+        torch.cuda.empty_cache()
+
+    # ---- K3 at each dim ----
+    hdisc, hq0, _, _ = npre.lid_driven_cavity_3d(3, 16, dtype=f32,
+                                                 device=dev)
+    tdisc, tq0, _, _ = npre.lid_driven_cavity(3, 128, dtype=f32, device=dev)
+    ldisc, lq0, _, _ = npre.becker_shocktube_1d(4, 128, dtype=f64,
+                                                device=dev)
+    cdisc, cq = warped_tri_case(3, 128, f32, dev)
+    for label, disc, q in (
+            ("K3 dim 3 hex N=3 k1d=16, moving", hdisc,
+             moving_state(hq0, np.random.default_rng(3))),
+            ("K3 dim 3 hex N=3 k1d=16, at rest", hdisc, hq0),
+            ("K3 dim 2 tri N=3 k1d=128, moving", tdisc,
+             moving_state(tq0, np.random.default_rng(3))),
+            ("K3 dim 1 line N=4 K=128 f64", ldisc, lq0),
+            ("K3c curved tri N=3 k1d=128", cdisc, cq)):
+        qs = torch.stack(disc.q_skew)
+        margs = (q, disc.geo, qs, disc.vq, disc.vhp, disc.ph, 1.4)
+        lists = nmv.modal_lists(qs, disc.vq, disc.vhp, disc.ph, disc.nq)
+        calls = {"new": lambda: nmv.euler_modal_volume(*margs, nq=disc.nq,
+                                                       lists=lists),
+                 "parent": lambda: pmv.euler_modal_volume(*margs,
+                                                          nq=disc.nq)}
+        agree(label, calls["new"](), calls["parent"]())
+        turns(label, calls)
+
+    # ---- K5 on the cavity's tri, row 10, the split fd, the fd section ----
+    qh, qlog = fd_inputs(tdisc, moving_state(tq0, np.random.default_rng(4)))
+    dargs = (qh, qlog, torch.stack(tdisc.q_skew), tdisc.geo, 1.4)
+    calls = {"new": lambda: ndf.flux_differencing_dense(*dargs,
+                                                        nq=tdisc.nq),
+             "parent": lambda: pdf.flux_differencing_dense(*dargs,
+                                                           nq=tdisc.nq)}
+    agree("K5", calls["new"](), calls["parent"]())
+    turns("K5 tri N=3 k1d=128", calls)
+    del hdisc, tdisc, ldisc, cdisc, qh, qlog, dargs
+    for label, curved in (("row 10 N=3 k1d=32", False),
+                          ("row 10 curved N=3 k1d=32", True)):
+        disc, q = npre.euler_hex_3d(n=3, k1d=32, curved=curved, dtype=f32,
+                                    device=dev)
+        qh, qlog = fd_inputs(disc, q)
+        largs = (qh, qlog, disc.geo, 1.4)
+        lkw = dict(elem_type="hex", line_ops=disc.line_ops, nq=disc.nq)
+        calls = {"new": lambda: ntp.flux_differencing_lines_fused(*largs,
+                                                                  **lkw),
+                 "parent": lambda: ptp.flux_differencing_lines_fused(
+                     *largs, **lkw)}
+        agree(label, calls["new"](), calls["parent"]())
+        turns(label, calls)
+        del disc, q, qh, qlog, largs
+        torch.cuda.empty_cache()
+    for label, n, k1d, dense in (("row 4a N=7 k1d=16", 7, 16, False),
+                                 ("row 4a N=4 k1d=24", 4, 24, False),
+                                 ("row 4b N=4 k1d=24", 4, 24, True)):
+        disc, _ = npre.euler_hex_3d(n=n, k1d=k1d, dtype=f32, device=dev)
+        qh, qlog = fd_inputs(disc, rstate(disc, 6))
+        for d in range(3):
+            kw = dict(line_ops=disc.line_ops, d=d)
+            if not dense:
+                kw["diag"] = True
+            nf_ = nfv.hex_fd_dir_dense if dense else nfv.hex_fd_dir
+            pf_ = pfv.hex_fd_dir_dense if dense else pfv.hex_fd_dir
+            calls = {"new": lambda: nf_(qh, qlog, disc.geo, 1.4, **kw),
+                     "parent": lambda: pf_(qh, qlog, disc.geo, 1.4, **kw)}
+            agree(label, calls["new"](), calls["parent"]())
+            turns(f"{label} d={d}", calls)
+        del disc, qh, qlog
+        torch.cuda.empty_cache()
+    for n1, k in FD_SECTION_CASES:
+        for diag in (True, False):
+            args = nfs.as_tensors(nfs.study_inputs(n1, k, diag), dev)
+            kw = dict(n1=n1, diag=diag)
+            calls = {"new": lambda: nfs.fd_section(*args, 1.4, **kw),
+                     "parent": lambda: pfs.fd_section(*args, 1.4, **kw)}
+            label = f"row 14 N+1={n1} K={k} {'diag' if diag else 'general'}"
+            agree(label, calls["new"](), calls["parent"]())
+            turns(label, calls)
+
+    # ---- the stages ----
+    def euler_case(pkg_pre, pkg_sol, n, k1d, curved=False, **kw):
+        disc, q0 = pkg_pre.euler_hex_3d(n=n, k1d=k1d, curved=curved,
+                                        dtype=f32, device=dev)
+        return pkg_sol.make_euler_rhs_fused(disc, dissipation=True, **kw), q0
+
+    def cavity3_case(pkg_pre, pkg_sol, impl):
+        disc, q0, bc, p = pkg_pre.lid_driven_cavity_3d(3, 16, dtype=f32,
+                                                       device=dev)
+        return pkg_sol.make_cns_rhs_affine(
+            disc, volume_impl=impl, mu=p["mu"], pr=p["pr"], re=p["re"],
+            bc=bc, inviscid_dissipation=True, viscous_dissipation=True,
+            compute_rhstest=False), q0
+
+    def cavity2_case(pkg_pre, pkg_sol):
+        disc, q0, bc, p = pkg_pre.lid_driven_cavity(3, 128, dtype=f32,
+                                                    device=dev)
+        return pkg_sol.make_cns_rhs_affine(
+            disc, volume_impl="fused", surface_impl="auto", mu=p["mu"],
+            pr=p["pr"], re=p["re"], bc=bc, inviscid_dissipation=True,
+            viscous_dissipation=True, compute_rhstest=False), q0
+
+    def becker3_case(pkg_pre, pkg_sol):
+        disc, q0, bc, shock = pkg_pre.becker_shocktube_3d(
+            n=BECKER_N, k1d=BECKER_K1D, dtype=f32, device=dev)
+        return pkg_sol.make_cns_rhs_affine(
+            disc, volume_impl="fused_hex", mu=shock.mu, pr=shock.pr, bc=bc,
+            inviscid_dissipation=True, compute_rhstest=False), q0
+
+    def becker1_case(pkg_pre, pkg_sol):
+        disc, q0, bc, shock = pkg_pre.becker_shocktube_1d(
+            LINE_N, LINE_K, dtype=f64, device=dev)
+        return pkg_sol.make_cns_rhs_affine(
+            disc, volume_impl="fused", mu=shock.mu, pr=shock.pr, bc=bc,
+            inviscid_dissipation=True, compute_rhstest=False), q0
+
+    steps = 60
+    for label, make, dt, host_bound in (
+            ("Euler N=3 k1d=32", lambda pp, ps: euler_case(pp, ps, 3, 32),
+             DT, False),
+            ("Euler N=4 k1d=24 'auto'",
+             lambda pp, ps: euler_case(pp, ps, 4, 24), N5_DT, False),
+            ("Euler N=5 k1d=20 'auto'",
+             lambda pp, ps: euler_case(pp, ps, 5, 20), N5_DT, False),
+            ("Euler N=6 k1d=16 force_fused",
+             lambda pp, ps: euler_case(pp, ps, 6, 16, force_fused=True),
+             N6_DT, False),
+            ("curved Euler N=3 k1d=32",
+             lambda pp, ps: euler_case(pp, ps, 3, 32, curved=True), DT,
+             False),
+            ("Euler N=7 k1d=16 split",
+             lambda pp, ps: euler_case(pp, ps, 7, 16, force_fused=True),
+             N7_DT, False),
+            ("3D cavity 'fused' (K3)",
+             lambda pp, ps: cavity3_case(pp, ps, "fused"), CAV_TIMED_DT,
+             False),
+            ("Becker 3D N=5 k1d=32 f32", becker3_case,
+             becker_dt(BECKER_N, BECKER_K1D), False),
+            ("2D cavity (K3 dim 2)", cavity2_case, CAV_TIMED_DT, True),
+            ("3D cavity fused_hex (K1)",
+             lambda pp, ps: cavity3_case(pp, ps, "fused_hex"),
+             CAV_TIMED_DT, True),
+            ("1D Becker anchor path (K3 dim 1, f64)", becker1_case, 1e-5,
+             True)):
+        runs = {}
+        for who, pp, ps, ls in (("new", npre, nsol, nlsrk45),
+                                ("parent", ppre, psol, plsrk45)):
+            rhs, q0 = make(pp, ps)
+            n_steps = 20 if host_bound else steps
+            runs[who] = (lambda rhs=rhs, q0=q0, ls=ls, n=n_steps:
+                         ls(rhs, q0, dt, n))
+        if host_bound:
+            # the stage's device time: the profiler's busy time over 100
+            # stages (a path whose host synchronises or falls behind the
+            # sleeping kernel leaves the device idle inside a queued-ahead
+            # window; over 20 stages the two trees' readings on the 2D
+            # cavity came out in the other order than over 100, and the
+            # anchor's turns spread 8%); the wall clock beside it moves
+            # with the host
+            t = {"parent": [], "new": []}
+            for who in AB_TURNS:
+                prof = device_profile(runs[who], 100)
+                if prof is None:
+                    raise AssertionError("A/B: the profiler recorded no "
+                                         "device activity")
+                t[who].append(prof[0])
+            wall = {who: cuda_ms(runs[who], 1, repeats=3) / 100
+                    for who in ("parent", "new")}
+            p_ms, n_ms = (statistics.mean(t["parent"]),
+                          statistics.mean(t["new"]))
+            kind = (f"device busy, ms/stage (torch.profiler, 100 stages); "
+                    f"wall clock parent {wall['parent']:.4f}, new "
+                    f"{wall['new']:.4f} ms/stage, not held")
+        else:
+            t = {"parent": [], "new": []}
+            for who in AB_TURNS:
+                t[who].append(cuda_ms(runs[who], 1, repeats=3)
+                              / (5 * steps))
+            p_ms, n_ms = (statistics.mean(t["parent"]),
+                          statistics.mean(t["new"]))
+            kind = f"ms/stage over {5 * steps} stages"
+        flag = "  SLOWER" if n_ms > p_ms * (1 + AB_SLOWER) else ""
+        print(f"[{card}] A/B stage {label} ({kind}): parent {p_ms:.4f}, "
+              f"new {n_ms:.4f} ({n_ms / p_ms:.3f}x; turns "
+              f"{t['parent'][0]:.4f} {t['new'][0]:.4f} {t['new'][1]:.4f} "
+              f"{t['parent'][1]:.4f}){flag}")
+        rows.append((f"stage {label}", p_ms, n_ms))
+        del runs
+        torch.cuda.empty_cache()
+    slower = [name for name, p_ms, n_ms in rows
+              if n_ms > p_ms * (1 + AB_SLOWER)]
+    print(f"[{card}] A/B: slower than the parent by more than "
+          f"{AB_SLOWER:.0%}: {', '.join(slower) if slower else 'none'}")
+    return rows
+
+
 def report(card, rows, prices, fma_per_s, split_rows, bisect_times):
     """Print every kernel's time beside its data-sheet and priced bounds,
     the f64 rows' operation legs, the order of the perf work and the
@@ -1538,7 +2002,7 @@ def report(card, rows, prices, fma_per_s, split_rows, bisect_times):
     return kernels_line
 
 
-def main():
+def main(parent=None):
     import numpy as np
     import torch
 
@@ -1611,6 +2075,9 @@ def main():
             f"{name} {sec:.1f} s" for name, sec in secs))
     for line in ptxas_report(info.log):
         print(line)
+    # K1's and K3's launch shapes: warps resident per SM beside ptxas'
+    # registers and spills
+    kernel_shapes(dev, info.log)
 
     gamma = 1.4
 
@@ -2032,7 +2499,8 @@ def main():
         cdof, ctwin)
     k3args, k3kw = cins["front"]
     k4args, k4tail, k4kw = cins["k4"]
-    k3_call = lambda: mv.euler_modal_volume(*k3args, **k3kw)
+    k3l = k3_lists(mv, k3args, k3kw)
+    k3_call = lambda: mv.euler_modal_volume(*k3args, **k3kw, lists=k3l)
     k4_call = lambda: sv.cns_surface_viscous(*k4args, *k4tail,
                                              fold_tail=True, **k4kw)
     ctimes = kernel_times(f"tri N=3 k1d={CAV_K1D} f32", [
@@ -2412,7 +2880,9 @@ def main():
         if kind == "modal":
             args = (q, disc.geo, torch.stack(disc.q_skew), disc.vq,
                     disc.vhp, disc.ph, gamma)
-            call = lambda: mv.euler_modal_volume(*args, nq=disc.nq)
+            lists = mv.modal_lists(*args[2:6], disc.nq)
+            call = lambda: mv.euler_modal_volume(*args, nq=disc.nq,
+                                                 lists=lists)
             plain = lambda: mv.euler_modal_volume_plain(*args, nq=disc.nq)
             name, names = "K3c euler_modal_volume", ("ph_qf", "traces",
                                                      "vu_q")
@@ -3199,6 +3669,10 @@ def main():
     probe_rows, prices, fma_per_s = probe_phases(types.SimpleNamespace(
         dev=dev, card=card, dev_ms=dev_ms))
     rows += probe_rows
+    # ---- 32. the parent tree against this one (--parent DIR only) ----
+    if parent is not None:
+        stamp("32")
+        ab_phase(card, dev, dev_ms, parent)
     kernels_line = report(card, rows, prices, fma_per_s, split_rows,
                           bisect_times)
     print(json.dumps({"kernels": kernels_line}))
@@ -3208,7 +3682,15 @@ def main():
     return 0
 
 if __name__ == "__main__":
-    rc = main()
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the port's paths on one "
+                                 "NVIDIA GPU (see the module docstring).")
+    ap.add_argument("--parent", metavar="DIR", default=None,
+                    help="a checkout of the parent commit (git archive "
+                    "into a folder .gitignore lists): phase 32 times its "
+                    "kernels and stages against this tree's, in turns")
+    rc = main(ap.parse_args().parent)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s",
           file=sys.stderr)
     sys.exit(rc)

@@ -5,6 +5,21 @@
 //
 // Built without --use_fast_math: log, exp, pow, sqrt and division are the
 // IEEE/libdevice versions, which the entropy identities need.
+//
+// Two rewrites lighten the pair body that K1, K3, K5 and the split and
+// line kernels share (the function is unchanged; the roundoff is not):
+//   * the series term v / 448 of each logarithmic mean is v * (1/448),
+//     the reciprocal rounded once from double: two of the pair's seven
+//     IEEE divisions, each about 14.5 FMA issue slots on the H100 (PERF.md
+//     §6, row 12), and with them the divider's slow path that a zero v
+//     (equal states: a fluid at rest) takes;
+//   * the metric-contracted flux sum_x g_x F_x is formed from the
+//     contracted velocity vn = sum_x g_x u_x (ec_contract): 5 + DIM
+//     multiply-adds for the whole sum where forming each directional
+//     flux and contracting took 5 DIM + 5 (DIM - 1) more.  It is the same
+//     sum in another order, symmetric in (L, R) as the flux is, so the
+//     entropy identities hold to roundoff.
+// Their effect on each kernel's time is in PERF.md §6.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,7 +57,7 @@ __device__ __forceinline__ void logmean_parts(T al, T ar, T logl, T logr,
   const T v = (da * da) / (aavg * aavg);
   const bool series = v < cutoff;
   const T poly =
-      T(1.0) + v * (T(1.0 / 12.0) + v * (T(1.0 / 80.0) + v / T(448.0)));
+      T(1.0) + v * (T(1.0 / 12.0) + v * (T(1.0 / 80.0) + v * T(1.0 / 448.0)));
   num = series ? aavg : da;
   den = series ? poly : (logr - logl);
 }
@@ -102,6 +117,21 @@ __device__ __forceinline__ void ec_dir_n(const EcPairN<T, DIM>& p, int d,
   f[DIM + 1] = p.e_plus_p * vd;
 }
 
+// sum_x g[x] F_x of one pair in DIM dimensions: with vn = sum_x g_x u_x,
+// (rholog vn, rholog vn u_j + g_j pa, (e + p) vn).
+template <typename T, int DIM>
+__device__ __forceinline__ void ec_contract(const EcPairN<T, DIM>& p,
+                                            const T* g, T* out) {
+  T vn = g[0] * p.velavg[0];
+#pragma unroll
+  for (int x = 1; x < DIM; ++x) vn = vn + g[x] * p.velavg[x];
+  const T f1 = p.rholog * vn;
+  out[0] = f1;
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) out[1 + j] = f1 * p.velavg[j] + g[j] * p.pa;
+  out[DIM + 1] = p.e_plus_p * vn;
+}
+
 // Metric-contracted 3D EC flux sum_x g[x] F_x(L, R).  DIAG: axis-aligned
 // mesh, only direction d's flux with the single metric term g[0].
 template <typename T, bool DIAG>
@@ -116,13 +146,7 @@ __device__ __forceinline__ void contracted_flux(const T* L, const T* R,
 #pragma unroll
     for (int i = 0; i < 5; ++i) out[i] = g[0] * f[i];
   } else {
-    T f0[5], f1[5], f2[5];
-    ec_dir_n<T, 3>(p, 0, f0);
-    ec_dir_n<T, 3>(p, 1, f1);
-    ec_dir_n<T, 3>(p, 2, f2);
-#pragma unroll
-    for (int i = 0; i < 5; ++i)
-      out[i] = g[0] * f0[i] + g[1] * f1[i] + g[2] * f2[i];
+    ec_contract<T, 3>(p, g, out);
   }
 }
 
@@ -183,6 +207,30 @@ __device__ __forceinline__ void lift_lines(const T* __restrict__ lift, int i,
       for (int f = 0; f < 5; ++f) s[f] += a * x(f, fp);
     }
   }
+}
+
+// A kernel's launch shape on this card (the kernels' occ argument, when
+// not null, receives it instead of a launch):
+// {resident blocks per SM, threads per block, dynamic shared memory bytes,
+// registers per thread, local (spill) bytes per thread, elements per
+// block, a flag of the kernel's own (0 here)}.
+template <typename Kern>
+int launch_shape(Kern kern, int threads, size_t smem, int te, int* occ) {
+  int blocks = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, kern, threads, smem);
+  if (err != cudaSuccess) return int(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kern);
+  if (err != cudaSuccess) return int(err);
+  occ[0] = blocks;
+  occ[1] = threads;
+  occ[2] = int(smem);
+  occ[3] = attr.numRegs;
+  occ[4] = int(attr.localSizeBytes);
+  occ[5] = te;
+  occ[6] = 0;
+  return 0;
 }
 
 // Largest tile of elements (32, 16, 8, 4, 2 or 1) whose shared memory,

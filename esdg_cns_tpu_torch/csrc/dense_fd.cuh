@@ -13,11 +13,16 @@
 //
 // One thread owns one row i of one element and sums it over its partners,
 // so each pair is evaluated from both sides: no cross-thread reduction, no
-// atomics, a deterministic result (halving the pair work, the TPU's
-// triangular form, is later work).  Point values sit in shared memory in
-// the tile layout [row][TE]; the operators Q_r [DIM][Nh][Nh] sit in
-// shared memory where they fit (OPS_GLOBAL false) and are read through the
-// read-only path from global memory otherwise (L1/L2-resident).
+// atomics, a deterministic result.  dense_fd_row (K5) runs over every
+// partner; list_fd_row (K3) over a list of the partners whose operator
+// entry is above roundoff, which on the Gauss-collocated hex is the
+// points of the row's node lines: 1,344 ordered pairs an element at N=3
+// against dense_fd_row's 16,320.  The metric-contracted flux is formed
+// from the contracted velocity (common.cuh's ec_contract).  Point values
+// sit in shared memory in the tile layout [row][TE]; the operators (Q_r
+// [DIM][Nh][Nh], or the list) sit in shared memory where they fit
+// (OPS_GLOBAL false) and are read through the read-only path from global
+// memory otherwise (L1/L2-resident).
 #pragma once
 
 #include "common.cuh"
@@ -78,13 +83,63 @@ __device__ __forceinline__ void dense_fd_row(int i, const T* h, const T* gc,
       b[x] = t;
     }
     const EcPairN<T, DIM> p = ec_pair_n<T, DIM>(L, R, c);
+    T fc[NF];
+    ec_contract<T, DIM>(p, b, fc);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) acc[f] += fc[f];
+  }
+}
+
+// Row i of one element over its partner list (K3): the partners j of row
+// i in ascending order, cols[n] for n in rp[i]..rp[i+1]-1, with their
+// operator entries qv[n DIM + r] = Q_r[i, j]; the list holds the pairs
+// whose entry is above roundoff in some direction (ops/modal_volume.
+// modal_lists), so the sum is dense_fd_row's over the pairs the operator
+// needs.  h, gc, ga, acc as in dense_fd_row.
+template <typename T, int DIM, bool CURVED, bool OPS_GLOBAL>
+__device__ __forceinline__ void list_fd_row(int i, const T* h, const T* gc,
+                                            const T* ga, const int* rp,
+                                            const int* cols, const T* qv,
+                                            int nh, int te,
+                                            const Consts<T>& c,
+                                            T acc[DIM + 2]) {
+  constexpr int NF = DIM + 2, NV = DIM + 4, G = DIM * DIM;
+  T L[NV];
+#pragma unroll
+  for (int r = 0; r < NV; ++r) L[r] = h[(r * nh + i) * te];
+  T gi[G];
+#pragma unroll
+  for (int rx = 0; rx < G; ++rx)
+    gi[rx] = CURVED ? gc[(rx * nh + i) * te] : ga[rx];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) acc[f] = T(0);
+  const int n1 = load_op<OPS_GLOBAL>(rp + i + 1);
+  for (int n = load_op<OPS_GLOBAL>(rp + i); n < n1; ++n) {
+    const int j = load_op<OPS_GLOBAL>(cols + n);
+    T R[NV];
+#pragma unroll
+    for (int r = 0; r < NV; ++r) R[r] = h[(r * nh + j) * te];
+    T a[DIM];
+#pragma unroll
+    for (int r = 0; r < DIM; ++r) a[r] = load_op<OPS_GLOBAL>(qv + n * DIM + r);
+    T b[DIM];
 #pragma unroll
     for (int x = 0; x < DIM; ++x) {
-      T fx[NF];
-      ec_dir_n<T, DIM>(p, x, fx);
+      T t = T(0);
 #pragma unroll
-      for (int f = 0; f < NF; ++f) acc[f] += b[x] * fx[f];
+      for (int r = 0; r < DIM; ++r) {
+        const T g = CURVED ? T(0.5) * (gi[r * DIM + x] +
+                                       gc[((r * DIM + x) * nh + j) * te])
+                           : gi[r * DIM + x];
+        t += a[r] * g;
+      }
+      b[x] = t;
     }
+    const EcPairN<T, DIM> p = ec_pair_n<T, DIM>(L, R, c);
+    T fc[NF];
+    ec_contract<T, DIM>(p, b, fc);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) acc[f] += fc[f];
   }
 }
 

@@ -26,18 +26,16 @@
 //
 // What bounds it on this card: at N+1 = 5, K = 13824 it reads qh and
 // qlog (106 MB in f32) and writes 76 MB, and evaluates 3 x 25 x (10 + 10)
-// = 1500 two-point fluxes per element, each with seven IEEE divisions;
+// = 1500 two-point fluxes per element, each with five IEEE divisions;
 // chip_smoke.py prints both the data-sheet bound and the bound priced at
 // the divisions' measured cost.
 //
-// Simple design: K1's tile.  A block owns TE elements (threadIdx.x, so
-// the K-last loads and stores coalesce over TE consecutive elements) and
-// 256 / TE workers; the element's 7 x Nh flux variables and a 5 x Nq
-// accumulator live in shared memory, each direction's lines are split
-// over the workers and the directions are separated by barriers
-// (line_fd).  line_fd leaves each face row, unscaled, in rows 0..4 of its
-// face point's slot of the tile; the kernel then writes the accumulator
-// and the face rows once.  Lanes past K compute on the quiescent state
+// Design: K1's tile (line_fd.cuh's VolumeTile: TE elements, one thread per
+// (element, direction, line), the element's 7 x Nh flux variables in
+// shared memory) and K1's line body, line_fd, which runs every line of
+// the three directions at once and leaves each volume sum and each face
+// row, unscaled, in rows 0..4 of its point's slot of the tile; the kernel
+// then writes them once.  Lanes past K compute on the quiescent state
 // (rho = 1, u = 0, beta = 1, logs 0) and store nothing.  Summation order
 // differs from the plain version: f32 agrees to ~1e-6 of max|out|, f64 to
 // ~1e-14.
@@ -52,56 +50,49 @@
 namespace esdg {
 
 template <typename T, int N1, bool DIAG>
-__global__ void __launch_bounds__(kVolumeThreads)
+__global__ void __launch_bounds__(VolumeTile<T, N1>::THREADS,
+                                  VolumeTile<T, N1>::MIN_BLOCKS)
     fd_section_kernel(const T* __restrict__ qh, const T* __restrict__ qlog,
                       const T* __restrict__ geo, const T* __restrict__ cvol,
                       const T* __restrict__ cface, T* __restrict__ out,
                       long long K, double gamma) {
   using Tile = VolumeTile<T, N1>;
-  constexpr int NQ = Tile::NQ, NFQ = Tile::NFQ, NH = Tile::NH;
-  constexpr int TE = Tile::TE, NW = Tile::NW;
+  constexpr int NH = Tile::NH;
+  constexpr int TE = Tile::TE, THREADS = Tile::THREADS;
   const Consts<T> c(gamma);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sh = reinterpret_cast<T*>(smem_raw);  // [7][NH][TE] flux variables
-  T* acc = sh + 7 * NH * TE;               // [5][NQ][TE]
-  const int e = threadIdx.x;               // element of the tile
-  const int w = threadIdx.y;               // worker of the element
-  const long long k = (long long)blockIdx.x * TE + e;
-  const bool live = k < K;
-  auto SH = [&](int r, int node) -> T& { return sh[(r * NH + node) * TE + e]; };
-  auto ACC = [&](int f, int node) -> T& { return acc[(f * NQ + node) * TE + e]; };
+  T* sh = reinterpret_cast<T*>(smem_raw);  // the tile: 7 x Nh per element
+  const long long k0 = (long long)blockIdx.x * TE;
+  auto at = [&](int e, int r, int node) -> T& {
+    return sh[Tile::slot(r, node) * TE + e];
+  };
 
-  for (int node = w; node < NH; node += NW) {
+  for (int t = threadIdx.x; t < TE * NH; t += THREADS) {
+    const int e = t % TE, node = t / TE;
+    const long long k = k0 + e;
 #pragma unroll
     for (int r = 0; r < 7; ++r) {
       // quiescent past K: rho = beta = 1, u = 0, logs 0
       T v = (r == 0 || r == 4) ? T(1) : T(0);
-      if (live)
+      if (k < K)
         v = r < 5 ? qh[((long long)r * NH + node) * K + k]
                   : qlog[((long long)(r - 5) * NH + node) * K + k];
-      SH(r, node) = v;
+      at(e, r, node) = v;
     }
-  }
-  for (int i = w; i < NQ; i += NW) {
-#pragma unroll
-    for (int f = 0; f < 5; ++f) ACC(f, i) = T(0);
   }
   __syncthreads();
 
-  line_fd<T, N1, DIAG, false>(sh, acc, geo, cvol, cface, nullptr, K, k,
-                              live, c);
+  line_fd<T, N1, DIAG, false>(sh, geo, cvol, cface, nullptr, K, k0, c);
 
-  if (!live) return;  // no barrier below
-  for (int i = w; i < NQ; i += NW) {
+  // rows 0..4 of every point: its volume sum or its (unscaled) face row
+  for (int t = threadIdx.x; t < TE * NH; t += THREADS) {
+    const int e = t % TE, node = t / TE;
+    const long long k = k0 + e;
+    if (k >= K) continue;
 #pragma unroll
     for (int f = 0; f < 5; ++f)
-      out[((long long)f * NH + i) * K + k] = ACC(f, i);
-  }
-  for (int fp = w; fp < NFQ; fp += NW) {
-#pragma unroll
-    for (int f = 0; f < 5; ++f)
-      out[((long long)f * NH + NQ + fp) * K + k] = SH(f, NQ + fp);
+      out[((long long)f * NH + node) * K + k] = at(e, f, node);
   }
 }
 
@@ -114,9 +105,8 @@ int launch_fd_section(const void* qh, const void* qlog, const void* geo,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tile::SMEM));
   if (err != cudaSuccess) return int(err);
-  const dim3 block(Tile::TE, Tile::NW);
   const dim3 grid(unsigned((K + Tile::TE - 1) / Tile::TE));
-  kern<<<grid, block, Tile::SMEM, stream>>>(
+  kern<<<grid, Tile::THREADS, Tile::SMEM, stream>>>(
       static_cast<const T*>(qh), static_cast<const T*>(qlog),
       static_cast<const T*>(geo), static_cast<const T*>(cvol),
       static_cast<const T*>(cface), static_cast<T*>(out), K, gamma);

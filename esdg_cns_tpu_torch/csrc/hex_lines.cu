@@ -21,64 +21,60 @@
 // operations'); those cost far more than an FMA, so in practice the pair
 // loop bounds it, as it binds K1.
 //
-// Simple design: K1's tile (TE elements x 256 threads, the element's
-// 7 x Nh flux variables and a 5 x Nq accumulator in shared memory, one
-// thread per node line of one direction).  Lanes past K compute on a
-// quiescent state (rho=1, u=0, beta=1, logs 0) and store nothing.
+// Design: K1's tile and line body (line_fd.cuh: TE elements, the
+// element's 7 x Nh flux variables in shared memory, one thread per
+// (element, direction, line), every line of the three directions at once;
+// the sums come back in rows 0..4 of each point's slot).  Lanes past K
+// compute on a quiescent state (rho=1, u=0, beta=1, logs 0) and store
+// nothing.
 #include "line_fd.cuh"
 
 namespace esdg {
 
 template <typename T, int N1, bool CURVED>
-__global__ void __launch_bounds__(kVolumeThreads)
+__global__ void __launch_bounds__(VolumeTile<T, N1>::THREADS,
+                                  VolumeTile<T, N1>::MIN_BLOCKS)
     hex_lines_kernel(const T* __restrict__ qh, const T* __restrict__ qlog,
                      const T* __restrict__ geo, const T* __restrict__ cvol,
                      const T* __restrict__ cface, T* __restrict__ out,
                      long long K, double gamma) {
   using Tile = VolumeTile<T, N1>;
-  constexpr int NQ = Tile::NQ, NFQ = Tile::NFQ, NH = Tile::NH;
-  constexpr int TE = Tile::TE, NW = Tile::NW;
+  constexpr int NH = Tile::NH;
+  constexpr int TE = Tile::TE, THREADS = Tile::THREADS;
   const Consts<T> c(gamma);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sh = reinterpret_cast<T*>(smem_raw);  // [7][NH][TE] flux variables
-  T* acc = sh + 7 * NH * TE;               // [5][NQ][TE]
-  const int e = threadIdx.x;
-  const int w = threadIdx.y;
-  const long long k = (long long)blockIdx.x * TE + e;
-  const bool live = k < K;
-  auto SH = [&](int r, int node) -> T& { return sh[(r * NH + node) * TE + e]; };
+  T* sh = reinterpret_cast<T*>(smem_raw);  // the tile: 7 x Nh per element
+  const long long k0 = (long long)blockIdx.x * TE;
+  auto at = [&](int e, int r, int node) -> T& {
+    return sh[Tile::slot(r, node) * TE + e];
+  };
 
-  for (int i = w; i < NH; i += NW) {
+  for (int t = threadIdx.x; t < TE * NH; t += THREADS) {
+    const int e = t % TE, i = t / TE;
+    const long long k = k0 + e;
     T v[7] = {T(1), T(0), T(0), T(0), T(1), T(0), T(0)};  // quiescent
-    if (live) {
+    if (k < K) {
 #pragma unroll
       for (int r = 0; r < 5; ++r) v[r] = qh[(long long)(r * NH + i) * K + k];
       v[5] = qlog[(long long)i * K + k];
       v[6] = qlog[(long long)(NH + i) * K + k];
     }
 #pragma unroll
-    for (int r = 0; r < 7; ++r) SH(r, i) = v[r];
-  }
-  for (int i = w; i < NQ; i += NW) {
-#pragma unroll
-    for (int f = 0; f < 5; ++f) acc[(f * NQ + i) * TE + e] = T(0);
+    for (int r = 0; r < 7; ++r) at(e, r, i) = v[r];
   }
   __syncthreads();
 
-  line_fd<T, N1, false, CURVED>(sh, acc, geo, cvol, cface, nullptr, K, k,
-                                live, c);
+  line_fd<T, N1, false, CURVED>(sh, geo, cvol, cface, nullptr, K, k0, c);
 
-  if (!live) return;  // no barrier below
-  for (int i = w; i < NQ; i += NW) {
+  // rows 0..4 of every point: its volume sum or its face row
+  for (int t = threadIdx.x; t < TE * NH; t += THREADS) {
+    const int e = t % TE, i = t / TE;
+    const long long k = k0 + e;
+    if (k >= K) continue;
 #pragma unroll
     for (int f = 0; f < 5; ++f)
-      out[(long long)(f * NH + i) * K + k] = T(2) * acc[(f * NQ + i) * TE + e];
-  }
-  for (int fp = w; fp < NFQ; fp += NW) {
-#pragma unroll
-    for (int f = 0; f < 5; ++f)
-      out[(long long)(f * NH + NQ + fp) * K + k] = T(2) * SH(f, NQ + fp);
+      out[(long long)(f * NH + i) * K + k] = T(2) * at(e, f, i);
   }
 }
 
@@ -91,9 +87,8 @@ int launch_lines(const void* qh, const void* qlog, const void* geo,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tile::SMEM));
   if (err != cudaSuccess) return int(err);
-  const dim3 block(Tile::TE, Tile::NW);
   const dim3 grid(unsigned((K + Tile::TE - 1) / Tile::TE));
-  kern<<<grid, block, Tile::SMEM, stream>>>(
+  kern<<<grid, Tile::THREADS, Tile::SMEM, stream>>>(
       static_cast<const T*>(qh), static_cast<const T*>(qlog),
       static_cast<const T*>(geo), static_cast<const T*>(cvol),
       static_cast<const T*>(cface), static_cast<T*>(out), K, gamma);

@@ -1,6 +1,7 @@
-// The entropy projection of collocated hex elements, shared by K1
-// (hex_volume.cu) and the split path's projection kernel (hex_split.cu),
-// so the two cannot drift.  It replaces
+// The entropy projection of collocated hex elements: its pointwise steps
+// are shared by K1 (hex_volume.cuh, on K1's own tile) and the split path's
+// projection kernel (hex_split.cu, entropy_project below), so the two
+// cannot drift.  It replaces
 // esdg_cns_tpu/ops/pallas_volume.py::_entropy_project_hex, the projection
 // both TPU kernels (_volume_kernel, _proj_kernel) run:
 //   1. entropy variables v(U) at the Nq collocated volume nodes;
@@ -10,16 +11,65 @@
 //   3. U(v_f) at the Nfq face points (pow/exp of the inverse map);
 //   4. flux variables (rho, u, beta) and (log rho, log beta) at all
 //      Nh = Nq + Nfq points, handed to the caller.
-// A block owns TE elements (threadIdx.x, so the K-last loads and stores
-// coalesce) and NW workers (threadIdx.y) per element.  v at the volume
-// nodes is staged in vbuf [5][NQ][TE] (shared memory: a face point reads
-// its line's nodes, which other workers wrote).  Lanes past K compute on the
-// quiescent state (rho=1, m=0, E=1) and store nothing.
+// entropy_project: a block owns TE elements (threadIdx.x, so the K-last
+// loads and stores coalesce) and NW workers (threadIdx.y) per element.
+// v at the volume nodes is staged in vbuf [5][NQ][TE] (shared memory: a
+// face point reads its line's nodes, which other workers wrote).  Lanes
+// past K compute on the quiescent state (rho=1, m=0, E=1) and store
+// nothing.
 #pragma once
 
 #include "common.cuh"
 
 namespace esdg {
+
+// The pointwise steps, shared by this projection and K1's
+// (hex_volume.cuh).  Volume node: u = (rho, m1, m2, m3, E) -> the entropy
+// variables v[5] and the flux variables vals[7].
+template <typename T>
+__device__ __forceinline__ void project_volume_point(const T u[5],
+                                                     const Consts<T>& c,
+                                                     T v[5], T vals[7]) {
+  const T rho = u[0], E = u[4];
+  const T rhou2 = u[1] * u[1] + u[2] * u[2] + u[3] * u[3];
+  const T p = c.gm1 * (E - (T(0.5) * rhou2) / rho);
+  const T s = log(p) - c.gamma * log(rho);
+  v[0] = (c.gamma_p1 - s) - (c.gm1 * E) / p;
+#pragma unroll
+  for (int j = 1; j < 4; ++j) v[j] = (c.gm1 * u[j]) / p;
+  v[4] = (-c.gm1 * rho) / p;
+  const T beta = rho / (T(2) * p);
+  vals[0] = rho;
+#pragma unroll
+  for (int j = 1; j < 4; ++j) vals[j] = u[j] / rho;
+  vals[4] = beta;
+  vals[5] = log(rho);
+  vals[6] = log(beta);
+}
+
+// Face point: v_f = (Ef v)[5] -> U(v_f) -> the flux variables vals[7].
+template <typename T>
+__device__ __forceinline__ void project_face_point(const T fv[5],
+                                                   const Consts<T>& c,
+                                                   T vals[7]) {
+  const T vnorm = fv[1] * fv[1] + fv[2] * fv[2] + fv[3] * fv[3];
+  const T sf = (c.gamma - fv[0]) + vnorm / (T(2) * fv[4]);
+  const T rhoe =
+      pow(c.gm1 / pow(-fv[4], c.gamma), c.inv_gm1) * exp(-sf / c.gm1);
+  const T frho = rhoe * (-fv[4]);
+  const T fm1 = rhoe * fv[1], fm2 = rhoe * fv[2], fm3 = rhoe * fv[3];
+  const T fe = rhoe * (T(1) - vnorm / (T(2) * fv[4]));
+  const T fpress =
+      c.gm1 * (fe - (T(0.5) * (fm1 * fm1 + fm2 * fm2 + fm3 * fm3)) / frho);
+  const T fbeta = frho / (T(2) * fpress);
+  vals[0] = frho;
+  vals[1] = fm1 / frho;
+  vals[2] = fm2 / frho;
+  vals[3] = fm3 / frho;
+  vals[4] = fbeta;
+  vals[5] = log(frho);
+  vals[6] = log(fbeta);
+}
 
 // put(r, node, value) receives row r (0..6) of the flux variables at
 // hybridized point node (volume nodes first, then face point fp at
@@ -45,21 +95,12 @@ __device__ __forceinline__ void entropy_project(const T* __restrict__ q,
 #pragma unroll
       for (int f = 0; f < 5; ++f) u[f] = q[(long long)(f * NQ + i) * K + k];
     }
-    const T rho = u[0], E = u[4];
-    const T rhou2 = u[1] * u[1] + u[2] * u[2] + u[3] * u[3];
-    const T p = c.gm1 * (E - (T(0.5) * rhou2) / rho);
-    const T s = log(p) - c.gamma * log(rho);
-    V(0, i) = (c.gamma_p1 - s) - (c.gm1 * E) / p;
+    T v[5], vals[7];
+    project_volume_point(u, c, v, vals);
 #pragma unroll
-    for (int j = 1; j < 4; ++j) V(j, i) = (c.gm1 * u[j]) / p;
-    V(4, i) = (-c.gm1 * rho) / p;
-    const T beta = rho / (T(2) * p);
-    put(0, i, rho);
+    for (int f = 0; f < 5; ++f) V(f, i) = v[f];
 #pragma unroll
-    for (int j = 1; j < 4; ++j) put(j, i, u[j] / rho);
-    put(4, i, beta);
-    put(5, i, log(rho));
-    put(6, i, log(beta));
+    for (int r = 0; r < 7; ++r) put(r, i, vals[r]);
   }
   __syncthreads();
 
@@ -67,18 +108,8 @@ __device__ __forceinline__ void entropy_project(const T* __restrict__ q,
   for (int fp = w; fp < NFQ; fp += NW) {
     T fv[5] = {T(0), T(0), T(0), T(0), T(0)};
     ef_line<T, N1>(ef, fp, V, fv);
-    const T vnorm = fv[1] * fv[1] + fv[2] * fv[2] + fv[3] * fv[3];
-    const T sf = (c.gamma - fv[0]) + vnorm / (T(2) * fv[4]);
-    const T rhoe =
-        pow(c.gm1 / pow(-fv[4], c.gamma), c.inv_gm1) * exp(-sf / c.gm1);
-    const T frho = rhoe * (-fv[4]);
-    const T fm1 = rhoe * fv[1], fm2 = rhoe * fv[2], fm3 = rhoe * fv[3];
-    const T fe = rhoe * (T(1) - vnorm / (T(2) * fv[4]));
-    const T fpress =
-        c.gm1 * (fe - (T(0.5) * (fm1 * fm1 + fm2 * fm2 + fm3 * fm3)) / frho);
-    const T fbeta = frho / (T(2) * fpress);
-    const T vals[7] = {frho,  fm1 / frho, fm2 / frho,     fm3 / frho,
-                       fbeta, log(frho),  log(fbeta)};
+    T vals[7];
+    project_face_point(fv, c, vals);
 #pragma unroll
     for (int r = 0; r < 7; ++r) {
       put(r, NQ + fp, vals[r]);

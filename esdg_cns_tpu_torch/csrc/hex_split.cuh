@@ -79,15 +79,23 @@ __global__ void __launch_bounds__(kFdElems * kFdLines)
     return r < 5 ? qh[((long long)r * NH + node) * K + kk]
                  : qlog[((long long)(r - 5) * NH + node) * K + kk];
   };
+  const int base = line_base<N1>(D, L);
+  auto vload = [&](int r, int a) -> T {
+    return load(r, base + a * line_stride<N1>(D));
+  };
+  auto fload = [&](int r, int side) -> T {
+    return load(r, NQ + (2 * D + side) * NFP + L);
+  };
   auto gload = [&](int, int) -> T { return T(0); };  // affine only
-  auto vol_out = [&](int f, int node, T s) {
+  auto vol_out = [&](int f, int, int node, T s) {
     if (live) out[((long long)f * NROW + node) * K + k] = s;
   };
   auto face_out = [&](int f, int side, T s) {
     if (live) out[((long long)f * NROW + NQ + side * NFP + L) * K + k] = s;
   };
-  line_pairs<T, N1, DIAG, false, DENSE>(D, L, g, cvol, cface, c, load, gload,
-                                        vol_out, face_out);
+  line_pairs<T, N1, DIAG, false, DENSE, true>(D, L, g, cvol, cface, c, vload,
+                                              fload, gload, vol_out,
+                                              face_out);
 }
 
 template <typename T, int N1, int D, bool DIAG, bool DENSE>

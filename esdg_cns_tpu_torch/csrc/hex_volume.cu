@@ -12,13 +12,11 @@ extern template int volume_order<8>(ESDG_VOLUME_ORDER_ARGS);
 // (curved = 1).  Returns cudaGetLastError() after the launch, -1 for an
 // unsupported line length n1, -2 for an unknown dtype, -3 for diag on a
 // curved metric.
-extern "C" int esdg_hex_volume(int dtype, int n1, int diag, int curved,
-                               const void* q, const void* geo,
-                               const void* cvol, const void* cface,
-                               const void* iw, const void* iwf,
-                               const void* ef, const void* lift, void* out,
-                               void* traces, long long K, double gamma,
-                               void* stream) {
+static int hex_volume(int dtype, int n1, int diag, int curved, const void* q,
+                      const void* geo, const void* cvol, const void* cface,
+                      const void* iw, const void* iwf, const void* ef,
+                      const void* lift, void* out, void* traces, long long K,
+                      double gamma, void* stream, int* occ) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return -2;
   if (diag && curved) return -3;
@@ -26,7 +24,7 @@ extern "C" int esdg_hex_volume(int dtype, int n1, int diag, int curved,
   case N:                                                                   \
     return esdg::volume_order<N>(dtype, diag, curved, q, geo, cvol, cface,  \
                                  iw, iwf, ef, lift, out, traces, K, gamma,  \
-                                 st);
+                                 st, occ);
   switch (n1) {
     ESDG_VOLUME_CASE(2)
     ESDG_VOLUME_CASE(3)
@@ -39,4 +37,26 @@ extern "C" int esdg_hex_volume(int dtype, int n1, int diag, int curved,
       return -1;
   }
 #undef ESDG_VOLUME_CASE
+}
+
+extern "C" int esdg_hex_volume(int dtype, int n1, int diag, int curved,
+                               const void* q, const void* geo,
+                               const void* cvol, const void* cface,
+                               const void* iw, const void* iwf,
+                               const void* ef, const void* lift, void* out,
+                               void* traces, long long K, double gamma,
+                               void* stream) {
+  return hex_volume(dtype, n1, diag, curved, q, geo, cvol, cface, iw, iwf, ef,
+                    lift, out, traces, K, gamma, stream, nullptr);
+}
+
+// The launch shape of one form (common.cuh's launch_shape: occ[7] =
+// resident blocks per SM, threads per block, shared memory bytes,
+// registers, local bytes per thread, elements per block, 0); returns as
+// esdg_hex_volume.
+extern "C" int esdg_hex_volume_shape(int dtype, int n1, int diag, int curved,
+                                     int* occ) {
+  return hex_volume(dtype, n1, diag, curved, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, 0, 1.4, nullptr, occ);
 }

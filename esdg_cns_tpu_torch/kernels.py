@@ -145,9 +145,13 @@ def library() -> ctypes.CDLL:
     lib.esdg_hex_fd_dir.argtypes = [_I] * 5 + [_P] * 6 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_fd_dir.restype = _I
-    lib.esdg_modal_volume.argtypes = [_I, _I, _I] + [_P] * 9 + [
-        ctypes.c_longlong, _I, _I, _I, ctypes.c_double, _P]
+    lib.esdg_hex_volume_shape.argtypes = [_I] * 4 + [_P]
+    lib.esdg_hex_volume_shape.restype = _I
+    lib.esdg_modal_volume.argtypes = [_I, _I, _I] + [_P] * 7 + [
+        ctypes.c_longlong] + [_I] * 5 + [ctypes.c_double, _P]
     lib.esdg_modal_volume.restype = _I
+    lib.esdg_modal_volume_shape.argtypes = [_I] * 8 + [_P]
+    lib.esdg_modal_volume_shape.restype = _I
     lib.esdg_hex_lines.argtypes = [_I] * 3 + [_P] * 6 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_lines.restype = _I

@@ -26,10 +26,11 @@ layouts, not math: the port keeps the math.  The CUDA kernels cover
 affine meshes (diagonal and general metric) and curved ones: K1 with the
 metric at every hybridized point (geo [9, Nh, K], pairwise-averaged in
 the line loop, ``csrc/line_fd.cuh``), K2 with per-point normals, sj and
-1/J (its general form).  K1 keeps an element's whole tile in shared
-memory (16 elements a block at N+1 <= 4, down to 2 at N+1 = 8 in f64)
-and is built, as K2 and the split path (one line per thread in
-registers, affine only) are, for N = 1..7.
+1/J (its general form).  K1 keeps an element's flux variables in shared
+memory and runs one thread per (element, direction, line), the three
+directions at once (``csrc/line_fd.cuh``); it is built, as K2 and the
+split path (one line of one direction per thread in registers, affine
+only) are, for N = 1..7.
 """
 
 from __future__ import annotations
@@ -247,6 +248,28 @@ def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
 
 
 euler_volume.launches = 0
+
+
+def launch_shape(entry, *args):
+    """(resident blocks per SM, threads per block, shared memory bytes,
+    registers per thread, local bytes per thread, elements per block, a
+    flag of the kernel's own) of a kernel on the current card, from its
+    library entry's shape query (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+    cudaFuncGetAttributes)."""
+    import ctypes
+
+    from ..kernels import library
+
+    occ = (ctypes.c_int * 7)()
+    rc = getattr(library(), entry)(*args, occ)
+    _raise_on(entry, rc)
+    return tuple(occ)
+
+
+def euler_volume_shape(dtype, n1, *, diag=False, curved=False):
+    """K1's launch shape at line length n1 (``launch_shape``)."""
+    return launch_shape("esdg_hex_volume_shape", _DTYPE_CODE[dtype], n1,
+                        int(diag), int(curved))
 
 
 # -----------------------------------------------------------------------------

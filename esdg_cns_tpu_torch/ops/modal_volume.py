@@ -8,10 +8,16 @@ Port of ``esdg_cns_tpu/ops/pallas_modal_volume.py``:
 Uq = Vq U, v(Uq), the hybridized projection and U(v_h) at the Nh points,
 flux variables and logs, skew EC flux differencing, Ph QF.
 
-The flux differencing is the dense body K5 shares (``csrc/dense_fd.cuh``),
-on affine metrics at dim 1, 2 and 3 and on curved tris.
+The kernel takes its operators as lists (``modal_lists``): each row's
+entries above roundoff, the flux differencing's (``csrc/dense_fd.cuh``
+``list_fd_row``) a partner list with the Q_r entries of each partner.  On
+lines and tris that is every entry; on the Gauss-collocated hex the
+points of each row's node lines (672 pairs an element at N=3 where the
+dense sum has 8,160), and Vq, Vh Pq and Ph the identity and one node line
+per face point.  Affine metrics at dim 1, 2 and 3, curved tris.
 ``euler_modal_volume_plain`` is the same function in plain PyTorch, with
-the dense all-pairs flux differencing (``ops.flux_differencing``).  The
+the dense operators and the dense all-pairs flux differencing
+(``ops.flux_differencing``).  The
 wrapper takes it only for CPU tensors; for CUDA tensors it launches the
 kernel or raises.
 ``euler_modal_volume.launches`` counts the launches.  The TPU ``fd_mode``
@@ -21,6 +27,9 @@ computes that sum once.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from ..solvers.dg_ops import _apply
@@ -63,7 +72,68 @@ def euler_modal_volume_plain(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
     return ph_qf.contiguous(), traces, vu_q
 
 
-def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
+# an operator entry is needed above this share of the operator's largest
+# (the rule of the hex line operators' roundoff, chip_smoke.py entries())
+ROUNDOFF = 1e-12
+
+
+@dataclasses.dataclass(frozen=True)
+class ModalLists:
+    """K3's operators by rows: idx (int32) holds the row pointers of Q
+    (nh + 1), Vq (nq + 1), Vh Pq (nh + 1) and Ph (np + 1), then each
+    list's columns in that order; vals holds Q's entries (dim a partner,
+    Q_r[i, j] for r = 0..dim-1), then Vq's, Vh Pq's and Ph's."""
+    idx: torch.Tensor
+    vals: torch.Tensor
+    pairs: int          # Q's ordered partners (each pair from both sides)
+
+
+def partner_mask(q_skew, nq):
+    """[nh, nh] bool: the pairs (i, j) with an entry of some Q_r above
+    ROUNDOFF of the largest, the zero diagonal and face-face block left
+    out (the rule of chip_smoke.py's needed_pairs)."""
+    a = np.abs(np.asarray(q_skew, dtype=np.float64))
+    nz = (a > ROUNDOFF * a.max()).any(0)
+    nz[nq:, nq:] = False
+    np.fill_diagonal(nz, False)
+    return nz
+
+
+def _rows(mask):
+    """(row pointers, columns) of a [rows, cols] bool mask, columns
+    ascending within each row."""
+    rp = np.concatenate([[0], np.cumsum(mask.sum(1))])
+    return rp, np.nonzero(mask)[1]
+
+
+def modal_lists(q_skew, vq, vhp, ph, nq) -> ModalLists:
+    """The lists of K3's operators on their device and in their dtype.
+    Built on the host once per discretization (``make_cns_rhs_affine``
+    builds it with the RHS); q_skew [dim, nh, nh] or a tuple of dim
+    [nh, nh]."""
+    qs = q_skew if torch.is_tensor(q_skew) else torch.stack(tuple(q_skew))
+    qn = qs.detach().cpu().double().numpy()
+    mask = partner_mask(qn, nq)
+    rp_q, c_q = _rows(mask)
+    i_q = np.repeat(np.arange(mask.shape[0]), np.diff(rp_q))
+    parts_rp, parts_c, parts_v = [rp_q], [c_q], [qn[:, i_q, c_q].T.ravel()]
+    for op in (vq, vhp, ph):
+        a = op.detach().cpu().double().numpy()
+        m = np.abs(a) > ROUNDOFF * np.abs(a).max()
+        rp, cols = _rows(m)
+        parts_rp.append(rp)
+        parts_c.append(cols)
+        parts_v.append(a[m])
+    idx = np.concatenate(parts_rp + parts_c).astype(np.int32)
+    vals = np.concatenate(parts_v)
+    return ModalLists(
+        torch.as_tensor(idx, device=qs.device),
+        torch.as_tensor(vals, dtype=qs.dtype, device=qs.device),
+        int(mask.sum()))
+
+
+def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq,
+                       lists: ModalLists | None = None):
     """Fused modal volume stage.
 
     q [Nf, Np, K] conservative state; geo [dim*dim, 1, K] affine metric
@@ -73,6 +143,9 @@ def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
     traces [Nf + 2, Nfq, K] = (rho, u_1..d, beta, log rho, log beta) at
     the face points, vu_q [Nf, Nq, K] = v(Vq U)), Nf = dim + 2.  The
     CUDA kernel covers dim = 1, 2, 3 on affine geo and dim = 2 curved.
+    lists: ``modal_lists`` of these operators, which the kernel reads
+    (built here when not given: a host round trip each call); the plain
+    version reads the dense operators.
     """
     if q.device.type == "cpu":
         return euler_modal_volume_plain(q, geo, q_skew, vq, vhp, ph, gamma,
@@ -98,6 +171,14 @@ def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
                        ("vq", (nq, np_)), ("vhp", (nh, nq)),
                        ("ph", (np_, nh))):
         _check_shape(name, key, tensors[key], shape)
+    if lists is None:
+        lists = modal_lists(qs, vq, vhp, ph, nq)
+    _check_cuda(name, {"lists.vals": lists.vals}, q.dtype, q.device)
+    if (lists.idx.dtype != torch.int32 or lists.idx.device != q.device
+            or not lists.idx.is_contiguous()
+            or lists.idx.numel() < 2 * nh + nq + np_ + 4):
+        raise ValueError(f"{name}: lists.idx must be a contiguous int32 "
+                         f"tensor on {q.device} (modal_lists)")
     out = torch.empty((nf, np_, k), dtype=q.dtype, device=q.device)
     traces = torch.empty((nf + 2, nh - nq, k), dtype=q.dtype, device=q.device)
     vu_q = torch.empty((nf, nq, k), dtype=q.dtype, device=q.device)
@@ -110,12 +191,23 @@ def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.esdg_modal_volume(
             _DTYPE_CODE[q.dtype], dim, int(curved), q.data_ptr(),
-            geo.data_ptr(), qs.data_ptr(), vq.data_ptr(), vhp.data_ptr(),
-            ph.data_ptr(), out.data_ptr(), traces.data_ptr(),
-            vu_q.data_ptr(), k, np_, nq, nh, float(gamma), stream)
+            geo.data_ptr(), lists.idx.data_ptr(), lists.vals.data_ptr(),
+            out.data_ptr(), traces.data_ptr(), vu_q.data_ptr(), k, np_, nq,
+            nh, lists.idx.numel(), lists.vals.numel(), float(gamma), stream)
     _raise_on(name, rc, "the element tile does not fit in shared memory")
     euler_modal_volume.launches += 1
     return out, traces, vu_q
 
 
 euler_modal_volume.launches = 0
+
+
+def euler_modal_volume_shape(dtype, dim, curved, np_, nq, nh, lists):
+    """(K3's launch shape at these sizes (``fused_volume.launch_shape``),
+    whether its lists are read from global memory)."""
+    from .fused_volume import launch_shape
+
+    occ = launch_shape("esdg_modal_volume_shape", _DTYPE_CODE[dtype], dim,
+                       int(curved), np_, nq, nh, lists.idx.numel(),
+                       lists.vals.numel())
+    return occ[:6], bool(occ[6])

@@ -115,7 +115,7 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
     from ..ops.cns_surface_bc import prepare_surface_bc
     from ..ops.fused_volume import (detect_axis_aligned, euler_volume,
                                     euler_volume_split)
-    from ..ops.modal_volume import euler_modal_volume
+    from ..ops.modal_volume import euler_modal_volume, modal_lists
     from ..ops.surface_viscous import cns_surface_viscous, cns_viscous
     from ..utils.compensated import weighted_entropy_residual
     from ._shared import (adiabatic_mask, entropy_vars_from_flux,
@@ -192,6 +192,11 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
         front_h = torch.cat([disc.vhp, front])
     ef = disc.vhp[nq:].contiguous()
     q_skew = torch.stack(disc.q_skew)
+    # K3's operator lists, built once with the RHS (on the CPU the plain
+    # version reads the dense operators)
+    k3_lists = (modal_lists(q_skew, disc.vq, disc.vhp, disc.ph, nq)
+                if volume_impl == "fused" and q_skew.device.type == "cuda"
+                else None)
     nxj = torch.stack(disc.nxj)
     inv_j = disc.inv_jac[:1]                         # [1, K] affine
     geo = disc.geo                                   # [dim*dim, 1, K]
@@ -230,7 +235,8 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
 
     def front_fused(q):
         ph_qf, tr, vu_q = euler_modal_volume(q, geo, q_skew, disc.vq,
-                                             disc.vhp, disc.ph, gamma, nq=nq)
+                                             disc.vhp, disc.ph, gamma, nq=nq,
+                                             lists=k3_lists)
         if use_fused_viscous:
             # the viscous kernels run the front product themselves
             return (tr, *traces(tr), vu_q, None, ph_qf)

@@ -947,3 +947,141 @@ def test_probe_wrappers_refuse_what_they_do_not_cover(cuda):
     with pytest.raises(ValueError):
         fs.fd_section(args[0][:, :-1].contiguous(), *args[1:], GAMMA, n1=5,
                       diag=True)
+
+
+# ---- K1 in every form at every line length, and K3 on its operator
+# lists, on ragged tiles ----
+
+def _k1_case(n, form, dtype, device):
+    """(disc, q, geo) at N = n on k1d=3 (K=27): the mesh's own metric
+    (diag, general), a seeded random affine metric, or the warped mesh's
+    per-point metric (at N=1 the warped non-periodic mesh)."""
+    if form == "curved" and n == 1:
+        disc = _curved_hex_n1(dtype, device)
+    else:
+        disc, _ = euler_hex_3d(n=n, k1d=3, curved=form == "curved",
+                               dtype=dtype, device=device)
+    q = _random_state(disc, dtype, device, seed=n)
+    geo = (_random_affine(disc, dtype, device)[0] if form == "random"
+           else disc.geo)
+    return disc, q, geo
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7])
+@pytest.mark.parametrize("form", ["diag", "general", "random", "curved"])
+@pytest.mark.parametrize("k", [27, 1])
+def test_volume_kernel_every_order_form_and_tile(cuda, dtype, n, form, k):
+    """K1 (one thread per element, direction and line) against its plain
+    version at N+1 = 2..8: K=27 is not a multiple of any tile of more than
+    one element, K=1 is smaller than every such tile."""
+    disc, q, geo = _k1_case(n, form, dtype, cuda)
+    q, geo = q[:, :, :k].contiguous(), geo[:, :, :k].contiguous()
+    vargs = (q, geo, disc.vhp[disc.nq:], disc.lift, GAMMA)
+    vkw = dict(line_ops=disc.line_ops, diag=form == "diag")
+    before = fv.euler_volume.launches
+    p_out, p_tr = fv.euler_volume_plain(*vargs, **vkw)
+    k_out, k_tr = fv.euler_volume(*vargs, **vkw)
+    torch.cuda.synchronize()
+    assert fv.euler_volume.launches == before + 1
+    assert _rel(k_out, p_out) <= TOL[dtype]
+    assert _rel(k_tr, p_tr) <= TOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n1", [2, 4, 5, 6, 7, 8])
+def test_volume_launch_shape(cuda, dtype, n1):
+    """K1's tile fits the card: the occupancy query reports at least one
+    resident block of 3 (N+1)^2 threads per element, and in f32 the warps
+    this design is for (32 an SM up to N+1 = 4, 16 at N+1 = 5..7)."""
+    for form in ("diag", "general", "curved"):
+        blocks, threads, smem, *_ , te, _ = fv.euler_volume_shape(
+            dtype, n1, diag=form == "diag", curved=form == "curved")
+        assert threads == te * 3 * n1 * n1 and smem <= 232448
+        warps = blocks * ((threads + 31) // 32)
+        assert blocks >= 1
+        if dtype == torch.float32 and n1 <= 7:
+            assert warps >= (32 if n1 <= 4 else 16), (form, warps)
+
+
+def _rest(disc, dtype, device):
+    """A fluid at rest: rho = 1, u = 0, p = 1 / (gamma Ma^2) at Ma = 0.3."""
+    sh = (disc.np_, disc.num_elements)
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return primitive_to_conservative(
+        f(np.ones(sh)), f(np.zeros((disc.dim, *sh))),
+        f(np.full(sh, 1.0 / (0.3 * 0.3 * GAMMA))))
+
+
+def _k3_cases(dtype, device):
+    """{label: (disc, rest state, moving state)} at ragged K: the cavities'
+    meshes at rest and made a moving fluid (hex N=3 k1d=3, K=27; tri N=3
+    k1d=5, K=50), the 1D Becker tube (line N=4, K=37: its own state, a
+    moving shock) and a fluid at rest on it, the warped tri k1d=5."""
+    from esdg_cns_tpu_torch.cavity_cases import moving_state
+    from esdg_cns_tpu_torch.presets import becker_shocktube_1d
+    rng = np.random.default_rng(17)
+    out = {}
+    for label, (disc, q0, *_) in (
+            ("hex", lid_driven_cavity_3d(3, 3, dtype=dtype, device=device)),
+            ("tri", lid_driven_cavity(3, 5, dtype=dtype, device=device))):
+        out[label] = (disc, q0, moving_state(q0, rng))
+    disc, q0, *_ = becker_shocktube_1d(4, 37, dtype=dtype, device=device)
+    out["line"] = (disc, _rest(disc, dtype, device), q0)
+    disc, q = warped_tri_case(3, 5, dtype, device)
+    out["curved tri"] = (disc, _rest(disc, dtype, device), q)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["hex", "tri", "line", "curved tri"])
+@pytest.mark.parametrize("state", ["rest", "moving"])
+def test_modal_volume_kernel_on_its_lists(cuda, dtype, case, state):
+    """K3 over its operator lists against the dense plain version, at dims
+    1, 2, 3 and on curved tris, on a state at rest and a moving one; the
+    lists given (as make_cns_rhs_affine gives them) or built by the
+    wrapper give one result."""
+    disc, rest, moving = _k3_cases(dtype, cuda)[case]
+    q = rest if state == "rest" else moving
+    args = (q, disc.geo, disc.q_skew, disc.vq, disc.vhp, disc.ph, GAMMA)
+    lists = mv.modal_lists(torch.stack(disc.q_skew), disc.vq, disc.vhp,
+                           disc.ph, disc.nq)
+    before = mv.euler_modal_volume.launches
+    plain = mv.euler_modal_volume_plain(*args, nq=disc.nq)
+    kern = mv.euler_modal_volume(*args, nq=disc.nq, lists=lists)
+    built = mv.euler_modal_volume(*args, nq=disc.nq)
+    torch.cuda.synchronize()
+    assert mv.euler_modal_volume.launches == before + 2
+    for a, b, c in zip(kern, plain, built):
+        assert _rel(a, b) <= TOL[dtype]
+        assert torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_stage_launch_counts(cuda):
+    """One launch a stage: K3 and K4 on the 3D cavity's 'fused' form (its
+    lists built once with the RHS), K1 and K2 on the Euler path at N=5
+    ('auto', K1 at N+1 = 6)."""
+    from esdg_cns_tpu_torch.timestepping import lsrk45
+    disc, q0, bc, p = lid_driven_cavity_3d(3, 3, dtype=torch.float32,
+                                           device=cuda)
+    rhs = make_cns_rhs_affine(disc, volume_impl="fused", mu=p["mu"],
+                              pr=p["pr"], re=p["re"], bc=bc,
+                              compute_rhstest=False)
+    k3, k4 = mv.euler_modal_volume.launches, sv.cns_surface_viscous.launches
+    qf, _ = lsrk45(rhs, q0, 1e-4, 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(qf).all())
+    assert mv.euler_modal_volume.launches - k3 == 10
+    assert sv.cns_surface_viscous.launches - k4 == 10
+    disc, q0 = euler_hex_3d(n=5, k1d=3, dtype=torch.float32, device=cuda)
+    rhs = make_euler_rhs_fused(disc, dissipation=True)
+    k1, k2 = fv.euler_volume.launches, fv.euler_surface.launches
+    qf, _ = lsrk45(rhs, q0, 1e-4, 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(qf).all())
+    assert fv.euler_volume.launches - k1 == 10
+    assert fv.euler_surface.launches - k2 == 10
