@@ -205,13 +205,14 @@ Phases (each raises on failure; nothing is caught):
      .gitignore lists): the parent tree's kernels and stages against this
      tree's on the same card, in turns (parent, new, new, parent): K1 in
      every form at the paths' shapes, K3 at each dim (the 3D cavity moving
-     and at rest), rows 4a, 4b, 10, 14 and K5, each pair held to each
-     other; the device-bound stages (Euler N=3, N=4 'auto', N=5, N=6,
-     curved, N=7, the 3D cavity's 'fused' form, Becker 3D) over 300
-     stages and the host-bound ones' device busy time, torch.profiler
-     over 100 stages (both cavities' default forms, the 1D anchor path),
-     their wall clock beside it; a line names each one more than 2%
-     slower than the parent's.
+     and at rest), K5, K4 in every form the paths run, K7 at dims 1, 2
+     and 3, K8, rows 4a, 4b, 10 and 14, each pair held to each other; the
+     device-bound stages (Euler N=3, N=4 'auto', N=5, N=6, curved, N=7)
+     over 300 stages and the host-bound ones' device busy time,
+     torch.profiler over 100 stages (both cavities' default forms, the 3D
+     cavity's 'fused' form, Becker 3D, the 1D anchor path), their wall
+     clock beside it; a line names each one more than 2% slower than the
+     parent's.
 A kernel's time is its device time: the timed calls are queued behind a
 sleeping kernel, so the host's dispatch does not enter it.
 The Becker bisection's time per RHS is printed apart: it replaces no TPU
@@ -814,10 +815,13 @@ def ptxas_report(log):
                            + (", operators in global memory" if flags[1]
                               else ""))
             elif kind in ("cns_surface_viscous", "cns_viscous"):
-                # <T, DIM, PROJ, OPS_SMEM>
+                # <T, DIM, PROJ, OPS_SMEM>: dense operators at dims 1 and
+                # 2, their lists at dim 3
+                held = "lists" if dim.strip() == "3D" else "operators"
                 variant = ((" proj" if flags[0] else " no proj")
-                           + (", operators in shared memory" if flags[1]
-                              else ", operators in global memory"))
+                           + f", {held} in "
+                           + ("shared" if flags[1] else "global")
+                           + " memory")
             else:
                 variant = ""
             out.append(f"ptxas {kind}{dim} {prec}{variant}: {report}")
@@ -896,6 +900,10 @@ def modal_phases(c):
             d, q, bc, p = cavity_case(case, 3, size, dt, dev, dim=dim)
             a7, kw7 = k7_inputs(d, q, bc, p)
             kw7["contract"] = False
+            if dim == 3:
+                kw7["lists"] = make_cns_rhs_affine(
+                    d, volume_impl="fused_hex", mu=p["mu"], pr=p["pr"],
+                    re=p["re"], bc=bc, compute_rhstest=False).visc_lists
             err = held(f"K7 cns_viscous ({dim}, {dim == 2}) contract=False",
                        f"{case} k1d={size} {name_of(dt)}",
                        sv.cns_viscous(*a7, **kw7),
@@ -1564,8 +1572,10 @@ def shape_line(label, occ, ptx):
 
 def kernel_shapes(dev, log):
     """The launch shape of every K1 instantiation (N+1 = 2..8, diag,
-    general, curved, f32 and f64) and of K3 at each dim (and curved tris)
-    at the paths' operators, as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    general, curved, f32 and f64), of K3 at each dim (and curved tris) and
+    of K4 (both fold_tail forms) and K7 at dim 3 (hex N=3 with either
+    front, N=5 without) at the paths' operators, as
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor
     and cudaFuncGetAttributes give them, beside ptxas' report; returns
     {(kernel, N+1 or dim, form, type): warps resident per SM}."""
     import torch
@@ -1611,6 +1621,28 @@ def kernel_shapes(dev, log):
                              "memory)", occ, ptx))
             warps[("K3", disc.dim, "curved" if curved else "affine",
                    prec)] = occ[0] * ((occ[1] + 31) // 32)
+    # K4 and K7 at dim 3 on the lists the RHS builds: the 3D cavity's hex
+    # N=3 with either front, the 3D Becker tube's N=5
+    from esdg_cns_tpu_torch.ops import surface_viscous as sv
+    from esdg_cns_tpu_torch.solvers.cns_fused import composed_operators
+    for n, proj in ((3, True), (3, False), (BECKER_N, False)):
+        for prec, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            disc = lid_driven_cavity_3d(n, 2, dtype=dtype, device=dev)[0]
+            front, vqlift, drpq = composed_operators(disc, proj=proj)
+            lists = sv.visc_lists(front, vqlift, disc.vhp[disc.nq:], drpq,
+                                  disc.lift, nq=disc.nq, proj=proj)
+            shapes = sv.viscous_shapes(dtype, 3, proj, disc.np_, disc.nq,
+                                       disc.nfq, lists)
+            for key, (occ, ops_global) in shapes.items():
+                kind = "cns_viscous" if key == "K7" else "cns_surface_viscous"
+                ptx = ptxas_of(entries, kind, prec, [3],
+                               [proj, not ops_global])
+                print(shape_line(
+                    f"{key} (3, {'proj' if proj else 'no proj'}) hex N={n} "
+                    f"{prec} (lists: {lists.entries} entries, "
+                    f"{'global' if ops_global else 'shared'} memory, "
+                    f"{occ[1] // occ[5]} workers an element)", occ, ptx))
+                warps[(key, n, proj, prec)] = occ[0] * ((occ[1] + 31) // 32)
     return warps
 
 
@@ -1644,8 +1676,10 @@ AB_SLOWER = 0.02
 def ab_phase(card, dev, dev_ms, parent_dir):
     """32. The parent tree against this one on one card, in turns (parent,
     new, new, parent): K1 in every form at the paths' shapes, K3 at each
-    dim on moving states and the 3D cavity at rest, the split fd (rows 4a,
-    4b), row 10, the fd section (row 14) and K5, each pair of calls on the
+    dim on moving states and the 3D cavity at rest, K5, K4 in every form
+    the paths run (dims 1, 2 and 3, both fronts at dim 3, the 3D Becker
+    tube's N=5), K7 at dims 1, 2 and 3 and K8, the split fd (rows 4a,
+    4b), row 10 and the fd section (row 14), each pair of calls on the
     same inputs (outputs held to each other); then the stages of the
     device-bound paths (ms per stage over 300 stages) and, on the
     host-bound ones, the stage's device busy time (torch.profiler).
@@ -1659,11 +1693,16 @@ def ab_phase(card, dev, dev_ms, parent_dir):
     pkernels.library()
     print(f"A/B: the parent tree {parent_dir} built in {info.seconds:.1f} s")
     from esdg_cns_tpu_torch import presets as npre, solvers as nsol
-    from esdg_cns_tpu_torch.cavity_cases import (fd_inputs, moving_state,
+    from esdg_cns_tpu_torch.cavity_cases import (becker_case, cavity_case,
+                                                 fd_inputs, k4_inputs,
+                                                 k7_inputs, k8_inputs,
+                                                 moving_state,
                                                  warped_tri_case)
+    from esdg_cns_tpu_torch.ops import cns_surface as ncs
     from esdg_cns_tpu_torch.ops import dense_fd as ndf
     from esdg_cns_tpu_torch.ops import fused_volume as nfv
     from esdg_cns_tpu_torch.ops import modal_volume as nmv
+    from esdg_cns_tpu_torch.ops import surface_viscous as nsv
     from esdg_cns_tpu_torch.ops import tensor_product_fd as ntp
     from esdg_cns_tpu_torch.probes import fd_section as nfs
     from esdg_cns_tpu_torch.timestepping import lsrk45 as nlsrk45
@@ -1759,11 +1798,13 @@ def ab_phase(card, dev, dev_ms, parent_dir):
             ("K3c curved tri N=3 k1d=128", cdisc, cq)):
         qs = torch.stack(disc.q_skew)
         margs = (q, disc.geo, qs, disc.vq, disc.vhp, disc.ph, 1.4)
+        # each tree on its own lists, built once as its RHS builds them
         lists = nmv.modal_lists(qs, disc.vq, disc.vhp, disc.ph, disc.nq)
+        plists = pmv.modal_lists(qs, disc.vq, disc.vhp, disc.ph, disc.nq)
         calls = {"new": lambda: nmv.euler_modal_volume(*margs, nq=disc.nq,
                                                        lists=lists),
-                 "parent": lambda: pmv.euler_modal_volume(*margs,
-                                                          nq=disc.nq)}
+                 "parent": lambda: pmv.euler_modal_volume(
+                     *margs, nq=disc.nq, lists=plists)}
         agree(label, calls["new"](), calls["parent"]())
         turns(label, calls)
 
@@ -1776,6 +1817,55 @@ def ab_phase(card, dev, dev_ms, parent_dir):
                                                            nq=tdisc.nq)}
     agree("K5", calls["new"](), calls["parent"]())
     turns("K5 tri N=3 k1d=128", calls)
+
+    # ---- K4 in every form the paths run, K7 at dims 1, 2, 3 and K8, at
+    # the paths' shapes: this tree's kernels on the lists the RHS builds
+    # (dim 3), the parent's on the dense operators ----
+    psv, pcs = par("ops.surface_viscous"), par("ops.cns_surface")
+    for label, make, projs, t, folds in (
+            ("tri N=3 k1d=128", lambda: cavity_case(
+                "isothermal", 3, 128, f32, dev), (True,), 0.0, (True,)),
+            ("hex N=3 k1d=16", lambda: cavity_case(
+                "isothermal", 3, 16, f32, dev, dim=3), (False, True), 0.0,
+             (True, False)),
+            ("line N=4 K=128 f64", lambda: becker_case(
+                1, LINE_N, LINE_K, f64, dev), (True,), 0.003, (True,)),
+            ("hex N=5 k1d=32 (Becker 3D)", lambda: becker_case(
+                3, BECKER_N, BECKER_K1D, f32, dev), (False,), 0.003,
+             (True,))):
+        disc, q, bc, p = make()
+        dim = disc.dim
+        for proj in projs:
+            form = f"({dim}, {'proj' if proj else 'no proj'})"
+            args, tail, kw = k4_inputs(disc, q, bc, p, t=t, proj=proj)
+            a7, kw7 = k7_inputs(disc, q, bc, p, t=t, proj=proj)
+            lists = (nsv.visc_lists(*args[11:15], tail[1], nq=disc.nq,
+                                    proj=proj) if dim == 3 else None)
+            for fold in folds:
+                extra = tail if fold else ()
+                calls = {"new": lambda: nsv.cns_surface_viscous(
+                             *args, *extra, fold_tail=fold, lists=lists,
+                             **kw),
+                         "parent": lambda: psv.cns_surface_viscous(
+                             *args, *extra, fold_tail=fold, **kw)}
+                name = (f"K4 {form} {'fold_tail' if fold else 'no tail'} "
+                        f"{label}")
+                agree(name, [o for o in calls["new"]() if o is not None],
+                      [o for o in calls["parent"]() if o is not None])
+                turns(name, calls)
+            calls = {"new": lambda: nsv.cns_viscous(*a7, lists=lists,
+                                                    **kw7),
+                     "parent": lambda: psv.cns_viscous(*a7, **kw7)}
+            agree(f"K7 {form}", calls["new"](), calls["parent"]())
+            turns(f"K7 {form} {label}", calls)
+        a8, kw8 = k8_inputs(disc, q, bc, p, t=t, proj=projs[0])
+        calls = {"new": lambda: ncs.cns_surface(*a8, **kw8),
+                 "parent": lambda: pcs.cns_surface(*a8, **kw8)}
+        agree(f"K8 dim {dim}", [o for o in calls["new"]() if o is not None],
+              [o for o in calls["parent"]() if o is not None])
+        turns(f"K8 dim {dim} {label}", calls)
+        del disc, q, bc, args, tail, a7, a8, lists
+        torch.cuda.empty_cache()
     del hdisc, tdisc, ldisc, cdisc, qh, qlog, dargs
     for label, curved in (("row 10 N=3 k1d=32", False),
                           ("row 10 curved N=3 k1d=32", True)):
@@ -1874,9 +1964,9 @@ def ab_phase(card, dev, dev_ms, parent_dir):
              N7_DT, False),
             ("3D cavity 'fused' (K3)",
              lambda pp, ps: cavity3_case(pp, ps, "fused"), CAV_TIMED_DT,
-             False),
+             True),
             ("Becker 3D N=5 k1d=32 f32", becker3_case,
-             becker_dt(BECKER_N, BECKER_K1D), False),
+             becker_dt(BECKER_N, BECKER_K1D), True),
             ("2D cavity (K3 dim 2)", cavity2_case, CAV_TIMED_DT, True),
             ("3D cavity fused_hex (K1)",
              lambda pp, ps: cavity3_case(pp, ps, "fused_hex"),
@@ -2339,6 +2429,16 @@ def main(parent=None):
         ins["front"] = (args, kw)
         form = f"({disc.dim}, {proj})"
         k4args, k4tail, k4kw = k4_inputs(disc, q, bc, p, t=t, proj=proj)
+        a7, kw7 = k7_inputs(disc, q, bc, p, t=t, proj=proj)
+        if disc.dim == 3:
+            # K4 and K7 read the operator lists the RHS builds (the plain
+            # versions the dense operators)
+            lists = make_cns_rhs_affine(
+                disc, volume_impl="fused" if proj else "fused_hex",
+                mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
+                compute_rhstest=False).visc_lists
+            k4kw = dict(k4kw, lists=lists)
+            kw7 = dict(kw7, lists=lists)
         ins["k4"] = (k4args, k4tail, k4kw)
         errs["k4"] = 0.0
         for fold in (False, True):
@@ -2357,7 +2457,6 @@ def main(parent=None):
                           cs.cns_surface_plain(*ins["k8"][0],
                                                **ins["k8"][1]), tol,
                           ("flux", "dv", "pen"))
-        a7, kw7 = k7_inputs(disc, q, bc, p, t=t, proj=proj)
         for contract in contracts:
             key = "k7" if contract else "k7_components"
             ins[key] = (a7, dict(kw7, contract=contract))
@@ -3613,13 +3712,13 @@ def main(parent=None):
         ("cns_surface_viscous", "cns_surface_viscous.cu",
          "pallas_viscous.py:152", cav_launches["cns_surface_viscous"],
          cerrs["k4"], k4_ms, k4_plain_ms, k4_bound),
-        ("cns_surface_viscous_3d", "cns_surface_viscous.cu",
+        ("cns_surface_viscous_3d", "cns_surface_viscous_dim3.cu",
          "pallas_viscous.py:152", cav3_launches["cns_surface_viscous"],
          herrs["k4"], h4_ms, h4_plain_ms, h4_bound),
         ("cns_surface", "cns_surface.cu", "pallas_cns_surface.py:155",
          hex_split["launches"]["cns_surface"], herrs["k8"],
          *hex_split["times"]["K8 cns_surface"], hex_split["k8_bound"]),
-        ("cns_viscous", "cns_viscous.cu", "pallas_viscous.py:131",
+        ("cns_viscous", "cns_viscous_dim3.cu", "pallas_viscous.py:131",
          hex_split["launches"]["cns_viscous"], herrs["k7"],
          *hex_split["times"]["K7 cns_viscous"], hex_split["k7_bound"]),
         ("euler_volume_curved", "hex_volume.cu", "pallas_volume.py:87",

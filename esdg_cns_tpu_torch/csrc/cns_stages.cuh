@@ -3,8 +3,11 @@
 // DIM (1: lines, 2: tris, 3: hexes).  The viscous stage also takes PROJ
 // (the front operator carries a leading Vq Pq projection block: the modal
 // front of lines, tris and hexes; without it the collocated-hex front,
-// where Vq = Pq = I) and OPS_SMEM (the operators sit in shared memory);
-// the launchers choose OPS_SMEM by the operators' size (visc_tile).
+// where Vq = Pq = I) and OPS_SMEM (the operators sit in shared memory).
+// At DIM 1 and 2 the operators are dense, every entry needed, and the
+// launchers choose OPS_SMEM by their size (visc_tile); at DIM 3 they are
+// padded lists of the entries above roundoff (ViscListLayout, visc_row),
+// in shared memory beside the tile up to kListSmemBytes (list_tile).
 //
 // They mirror the TPU package, where the merged kernel's body is the
 // surface kernel's body followed by _viscous_body
@@ -63,10 +66,51 @@ inline ViscParams<T> make_visc_params(double gamma, double mu, double lam,
   return vp;
 }
 
-// the small operators of the viscous stage, in shared or global memory
+// The viscous operators of a hex (DIM 3) as lists
+// (ops/surface_viscous.visc_lists): Vq Pq, the gradient rows Vq D_r Pq,
+// Vq LIFT, Ef, D_r Pq and LIFT, each [rows][w] slots of (value, column)
+// with a row's entries above roundoff in ascending column order and the
+// row padded to w with zero values.  The Gauss-collocated hex operators
+// couple a point only to its node lines, so every row of one list holds
+// about the same count (N + 1 or 6): padding costs nothing there, and a
+// row sits at a fixed stride with no row pointers to load.
+enum ViscList {
+  kLVqPq = 0, kLGrad, kLVqLift, kLEf, kLDrPq, kLLift, kNumViscLists
+};
+template <int DIM>
+constexpr bool kViscLists = DIM == 3;
+
+struct ViscListLayout {
+  int off[kNumViscLists];  // the list's first slot
+  int w[kNumViscLists];    // its slots a row (0: absent)
+  int slots;
+};
+
+// rows: Vq Pq [Nq], gradient rows [DIM Nq], Vq LIFT [Nq], Ef [Nfq],
+// D_r Pq [DIM Np], LIFT [Np]
+inline ViscListLayout visc_list_layout(const int* widths, int dim,
+                                       ViscSizes sz) {
+  const int rows[kNumViscLists] = {sz.nq, dim * sz.nq, sz.nq,
+                                   sz.nfq, dim * sz.np, sz.np};
+  ViscListLayout lay;
+  int at = 0;
+  for (int l = 0; l < kNumViscLists; ++l) {
+    lay.off[l] = at;
+    lay.w[l] = widths[l];
+    at += rows[l] * widths[l];
+  }
+  lay.slots = at;
+  return lay;
+}
+
+// the small operators of the viscous stage, in shared or global memory:
+// dense at DIM 1 and 2, the lists (lval, lcol, lay) at DIM 3
 template <typename T>
 struct ViscOps {
   const T *front, *vqlift, *ef, *drpq, *lift;
+  const T* lval;
+  const unsigned short* lcol;
+  ViscListLayout lay;
 };
 
 template <bool SMEM, typename T>
@@ -75,6 +119,16 @@ __device__ __forceinline__ T ldop(const T* p) {
     return *p;
   else
     return __ldg(p);
+}
+
+// body(a, j) over the slots of row `row` of list l, in column order
+template <bool SMEM, typename T, typename F>
+__device__ __forceinline__ void visc_row(const ViscOps<T>& op, int l,
+                                         int row, F&& body) {
+  const int w = op.lay.w[l];
+  const int base = op.lay.off[l] + row * w;
+  for (int n = 0; n < w; ++n)
+    body(ldop<SMEM>(op.lval + base + n), int(ldop<SMEM>(op.lcol + base + n)));
 }
 
 // Largest tile of elements whose per-element arrays fit in `cap` bytes,
@@ -86,20 +140,22 @@ inline int tile_elements_capped(size_t fixed, size_t per_elem, size_t cap) {
   return tile_elements<T>(fixed, per_elem) >= 1 ? 1 : 0;
 }
 
-// The tile of a launch: (elements, whether the operators are in shared
-// memory, bytes of shared memory); te = 0 when not even one element fits.
+// The tile of a launch: (elements, workers an element, whether the
+// operators are in shared memory, bytes of shared memory); te = 0 when
+// not even one element fits.
 struct ViscTile {
-  int te;
+  int te;         // elements a block (threadIdx.x)
+  int nw;         // workers an element (threadIdx.y)
   bool smem_ops;
   size_t bytes;
 };
 
-// The `ops` operator values sit in shared memory when they fit beside a
-// tile at least as large as the global form's within the same per-block
-// budget (kTileBytesGlobalOps, so that two blocks share an SM either
-// way): the tri and line operators do; the hex ones at N = 3 (37-47k
-// values) do not, and are read through the read-only path from global
-// memory, L1/L2-resident.
+// The dense tile (DIM 1, 2): the `ops` operator values sit in shared
+// memory when they fit beside a tile at least as large as the global
+// form's within the same per-block budget (kTileBytesGlobalOps, so that
+// two blocks share an SM either way), else they are read through the
+// read-only path from global memory, L1/L2-resident.  The tri and line
+// operators fit.
 template <typename T>
 inline ViscTile visc_tile(size_t ops, size_t per_elem) {
   const int te_global =
@@ -111,8 +167,86 @@ inline ViscTile visc_tile(size_t ops, size_t per_elem) {
   ViscTile t;
   t.smem_ops = te_smem > 0 && te_smem >= te_global;
   t.te = t.smem_ops ? te_smem : te_global;
+  t.nw = t.te > 0 ? kViscThreads / t.te : 0;
   t.bytes = ((t.smem_ops ? ops : 0) + per_elem * t.te) * sizeof(T);
   return t;
+}
+
+// The list tile (DIM 3): te elements of nw workers each.  The lists go
+// to shared memory when they take at most kListSmemBytes (every block
+// copies them once: at hex N=3, 16.5 KB in f32 and 27.5 KB in f64, a
+// tile sweep on the card could not tell the two placements apart; at
+// N=5, 70 KB in f32, the copy halved the elements resident and the lists
+// read from global memory, L1/L2-resident, ran faster), else they are
+// read from global memory.  Of the tiles with nw = 32, 64, 128 or 256,
+// te nw <= kViscThreads and te words of at least 8 bytes (a warp's load
+// of a row covers te elements' words: one 4-byte word uses 4 bytes of a
+// 32-byte sector, and at N=5 the f32 tiles of one element ran slower than
+// the 2 x 128 one), the one with the most busy workers resident
+// on an SM: blocks te nw (the occupancy query, which counts the kernel's
+// registers) times the share of the workers a stage's nodes keep busy
+// (Nq and Nfq nodes over nw workers, rounds of nw), then the most
+// elements, then the largest te (the fewest copies of the lists).
+// list_bytes: the slots the launch reads; per_elem: the tile's bytes an
+// element.  Cached per kernel and sizes: the host-bound paths launch
+// once per RHS.  Returns 0, -1 when no tile fits, or a CUDA error.
+constexpr size_t kListSmemBytes = 32768;
+
+template <typename T, typename Kern>
+int list_tile(Kern smem_kern, Kern global_kern, ViscSizes sz,
+              size_t list_bytes, size_t per_elem, ViscTile* out) {
+  struct Entry {
+    const void* kern;
+    size_t list_bytes, per_elem;
+    ViscTile tile;
+  };
+  static Entry cache[32];
+  static int n_cache = 0;
+  for (int i = 0; i < n_cache; ++i)
+    if (cache[i].kern == (const void*)smem_kern &&
+        cache[i].list_bytes == list_bytes && cache[i].per_elem == per_elem) {
+      *out = cache[i].tile;
+      return 0;
+    }
+  const bool smem_ops =
+      list_bytes <= kListSmemBytes && list_bytes + per_elem <= kMaxSmem;
+  const Kern kern = smem_ops ? smem_kern : global_kern;
+  const size_t fixed = smem_ops ? list_bytes : 0;
+  auto busy = [](int n, int nw) {  // the share of nw workers n nodes keep
+    return double(n) / (double((n + nw - 1) / nw) * nw);
+  };
+  ViscTile best{0, 0, smem_ops, 0};
+  double best_score = 0.0;
+  int best_elems = 0;
+  const int te_min = int((8 + sizeof(T) - 1) / sizeof(T));
+  for (int nw = 32; nw <= kViscThreads; nw *= 2)
+    for (int te = te_min; te * nw <= kViscThreads; ++te) {
+      const size_t bytes = fixed + per_elem * te;
+      if (bytes > kMaxSmem) continue;
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+      if (err != cudaSuccess) return int(err);
+      int blocks = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern,
+                                                          te * nw, bytes);
+      if (err != cudaSuccess) return int(err);
+      const int elems = blocks * te;
+      const double score =
+          elems * nw * 0.5 * (busy(sz.nq, nw) + busy(sz.nfq, nw));
+      if (score > best_score ||
+          (score == best_score &&
+           (elems > best_elems || (elems == best_elems && te > best.te)))) {
+        best = ViscTile{te, nw, smem_ops, bytes};
+        best_score = score;
+        best_elems = elems;
+      }
+    }
+  if (best.te == 0) return -1;
+  if (n_cache < 32)
+    cache[n_cache++] = Entry{(const void*)smem_kern, list_bytes, per_elem,
+                             best};
+  *out = best;
+  return 0;
 }
 
 // (rho, u_1..DIM, beta) -> (rho, m_1..DIM, E), p = rho / (2 beta)
@@ -375,19 +509,34 @@ __device__ __forceinline__ void visc_quad_node(
 #pragma unroll
     for (int r = 0; r < DIM; ++r) vqd[r][f] = T(0);
   }
-  for (int j = 0; j < nq; ++j) {
-    T a[DIM];
+  if constexpr (kViscLists<DIM>) {
+    // each front row over its own entries, in the dense loop's order
+    if constexpr (PROJ)
+      visc_row<OPS_SMEM>(op, kLVqPq, i, [&](T a, int j) {
+#pragma unroll
+        for (int f = 0; f < NF; ++f) vq_[f] += a * S(s_vu, f * nq + j);
+      });
 #pragma unroll
     for (int r = 0; r < DIM; ++r)
-      a[r] = ldop<OPS_SMEM>(op.front + ((OFF + r) * nq + i) * nq + j);
-    T a0 = T(0);
-    if constexpr (PROJ) a0 = ldop<OPS_SMEM>(op.front + i * nq + j);
+      visc_row<OPS_SMEM>(op, kLGrad, r * nq + i, [&](T a, int j) {
 #pragma unroll
-    for (int f = 0; f < NF; ++f) {
-      const T vv = S(s_vu, f * nq + j);
-      if constexpr (PROJ) vq_[f] += a0 * vv;
+        for (int f = 0; f < NF; ++f) vqd[r][f] += a * S(s_vu, f * nq + j);
+      });
+  } else {
+    for (int j = 0; j < nq; ++j) {
+      T a[DIM];
 #pragma unroll
-      for (int r = 0; r < DIM; ++r) vqd[r][f] += a[r] * vv;
+      for (int r = 0; r < DIM; ++r)
+        a[r] = ldop<OPS_SMEM>(op.front + ((OFF + r) * nq + i) * nq + j);
+      T a0 = T(0);
+      if constexpr (PROJ) a0 = ldop<OPS_SMEM>(op.front + i * nq + j);
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const T vv = S(s_vu, f * nq + j);
+        if constexpr (PROJ) vq_[f] += a0 * vv;
+#pragma unroll
+        for (int r = 0; r < DIM; ++r) vqd[r][f] += a[r] * vv;
+      }
     }
   }
   if constexpr (!PROJ) {
@@ -399,8 +548,7 @@ __device__ __forceinline__ void visc_quad_node(
   for (int x = 0; x < DIM; ++x)
 #pragma unroll
     for (int f = 0; f < NF; ++f) grad[x][f] = T(0);   // the surface term
-  for (int fp = 0; fp < nfq; ++fp) {
-    const T a = ldop<OPS_SMEM>(op.vqlift + i * nfq + fp);
+  auto surface = [&](T a, int fp) {
     T nx[DIM];
 #pragma unroll
     for (int x = 0; x < DIM; ++x) nx[x] = S(s_nxj, x * nfq + fp);
@@ -410,7 +558,12 @@ __device__ __forceinline__ void visc_quad_node(
 #pragma unroll
       for (int x = 0; x < DIM; ++x) grad[x][f] += a * (hdv * nx[x]);
     }
-  }
+  };
+  if constexpr (kViscLists<DIM>)
+    visc_row<OPS_SMEM>(op, kLVqLift, i, surface);
+  else
+    for (int fp = 0; fp < nfq; ++fp)
+      surface(ldop<OPS_SMEM>(op.vqlift + i * nfq + fp), fp);
 #pragma unroll
   for (int x = 0; x < DIM; ++x)
 #pragma unroll
@@ -452,13 +605,16 @@ __device__ __forceinline__ void visc_ef_sigma_node(int fp, int nq,
   for (int x = 0; x < DIM; ++x)
 #pragma unroll
     for (int f = 0; f < NF; ++f) s[x][f] = T(0);
-  for (int i = 0; i < nq; ++i) {
-    const T a = ldop<OPS_SMEM>(op.ef + fp * nq + i);
+  auto add = [&](T a, int i) {
 #pragma unroll
     for (int x = 0; x < DIM; ++x)
 #pragma unroll
       for (int f = 0; f < NF; ++f) s[x][f] += a * S(s_sig, (x * NF + f) * nq + i);
-  }
+  };
+  if constexpr (kViscLists<DIM>)
+    visc_row<OPS_SMEM>(op, kLEf, fp, add);
+  else
+    for (int i = 0; i < nq; ++i) add(ldop<OPS_SMEM>(op.ef + fp * nq + i), i);
 }
 
 // The traces of face node fp to out [rows, Nfq, K]: with contract the
@@ -506,8 +662,7 @@ __device__ __forceinline__ void visc_div_node(int n, int np, int nq,
     T t[NF];
 #pragma unroll
     for (int f = 0; f < NF; ++f) t[f] = T(0);
-    for (int i = 0; i < nq; ++i) {
-      const T a = ldop<OPS_SMEM>(op.drpq + (r * np + n) * nq + i);
+    auto add = [&](T a, int i) {
 #pragma unroll
       for (int f = 0; f < NF; ++f) {
         T gs = g[r * DIM] * S(s_sig, f * nq + i);
@@ -516,7 +671,12 @@ __device__ __forceinline__ void visc_div_node(int n, int np, int nq,
           gs = gs + g[r * DIM + x] * S(s_sig, (x * NF + f) * nq + i);
         t[f] += a * gs;
       }
-    }
+    };
+    if constexpr (kViscLists<DIM>)
+      visc_row<OPS_SMEM>(op, kLDrPq, r * np + n, add);
+    else
+      for (int i = 0; i < nq; ++i)
+        add(ldop<OPS_SMEM>(op.drpq + (r * np + n) * nq + i), i);
 #pragma unroll
     for (int f = 0; f < NF; ++f) dvg[f] += t[f];
   }

@@ -158,14 +158,17 @@ def library() -> ctypes.CDLL:
     lib.esdg_dense_fd.argtypes = [_I] * 3 + [_P] * 5 + [
         ctypes.c_longlong, _I, _I, ctypes.c_double, _P]
     lib.esdg_dense_fd.restype = _I
-    lib.esdg_cns_surface_viscous.argtypes = [_I, _I, _I] + [_P] * 4 + [
+    lib.esdg_cns_surface_viscous.argtypes = [_I, _I, _I] + [_P] * 7 + [
         ctypes.c_longlong, _I, _I, _I] + [ctypes.c_double] * 5 + [
         _I] * 4 + [_P]
     lib.esdg_cns_surface_viscous.restype = _I
-    lib.esdg_cns_viscous.argtypes = [_I, _I, _I, _I, _P, _P,
-                                     ctypes.c_longlong, _I, _I, _I] + [
-        ctypes.c_double] * 4 + [_P]
+    lib.esdg_cns_surface_viscous_shape.argtypes = [_I] * 7 + [_P, _P]
+    lib.esdg_cns_surface_viscous_shape.restype = _I
+    lib.esdg_cns_viscous.argtypes = [_I, _I, _I, _I] + [_P] * 5 + [
+        ctypes.c_longlong, _I, _I, _I] + [ctypes.c_double] * 4 + [_P]
     lib.esdg_cns_viscous.restype = _I
+    lib.esdg_cns_viscous_shape.argtypes = [_I] * 6 + [_P, _P]
+    lib.esdg_cns_viscous_shape.restype = _I
     lib.esdg_cns_surface.argtypes = [_I, _I] + [_P] * 4 + [
         ctypes.c_longlong, _I, ctypes.c_double, ctypes.c_double] + [
         _I] * 3 + [_P]

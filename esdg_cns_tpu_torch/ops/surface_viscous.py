@@ -23,14 +23,30 @@ the kernel emits the projected entropy variables; False (collocated
 hexes, where Vq = Pq = I) = the gradient rows [Vq D_r Pq] only, and the
 returned vuq IS the input v(U).
 
+On hexes (dim 3) the kernels read the operators as lists
+(``visc_lists``): each row's entries above roundoff, padded to the
+longest row of its operator.  The Gauss-collocated hex operators couple a
+point only to its node lines, so at N=3 the five hold 2,752 entries
+(2,688 without the projection block) of 47,104 (43,008), and every row of
+one operator the same count (4 or 6): fixed-width rows cost no padding
+there and need no row pointers, so the kernel finds row i at a fixed
+stride.  The lists sit in shared memory beside the element tile (16,512
+bytes in f32 at N=3 with 16-bit columns; read from global memory where
+they pass 32 KB, as at N=5).  On lines and tris the operators are full
+and the kernels keep their dense loops.
+
 Each wrapper has its plain PyTorch version beside it (``*_plain``), on
-the very same BC hooks; the wrapper takes it only for CPU tensors, and
-for CUDA tensors launches its kernel or raises.  ``.launches`` counts the
-launches.
+the very same BC hooks and the dense operators; the wrapper takes it only
+for CPU tensors, and for CUDA tensors launches its kernel or raises.
+``.launches`` counts the launches.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
+import numpy as np
 import torch
 
 from ..physics.viscous import viscous_flux_nd
@@ -38,7 +54,9 @@ from ..solvers._shared import entropy_vars_from_flux, flux_to_conservative
 from ..solvers.dg_ops import _apply
 from .cns_surface import _surface_body
 from .cns_surface_bc import recipe_rows, region_table
-from .fused_volume import _DTYPE_CODE, _check_cuda, _check_shape, _raise_on
+from .fused_volume import (_DTYPE_CODE, _check_cuda, _check_shape, _raise_on,
+                           launch_shape)
+from .modal_volume import ROUNDOFF
 
 # the (dim, proj) forms the CUDA kernels are built for: the modal front
 # (proj, K3's) on lines, tris and hexes, and the collocated-hex front (K1's)
@@ -100,6 +118,102 @@ def _operator_shapes(nf, nq, nfq, np_, proj):
             "ef": (nfq, nq), "drpq": (dim, np_, nq)}
 
 
+# -----------------------------------------------------------------------------
+# the operator lists of the hex kernels
+# -----------------------------------------------------------------------------
+
+# the lists, in order: Vq Pq (the projection block, proj only), the
+# gradient rows Vq D_r Pq, Vq LIFT, Ef, D_r Pq and LIFT (K4's fold_tail)
+VISC_LISTS = ("vqpq", "grad", "vqlift", "ef", "drpq", "lift")
+
+
+@dataclasses.dataclass(frozen=True)
+class ViscLists:
+    """The viscous operators by padded rows, as ``csrc/cns_stages.cuh``
+    (``ViscListLayout``) reads them: list l of VISC_LISTS is [rows][w_l]
+    slots, its rows after the previous list's; a row's entries above
+    roundoff in ascending column order, then zero values (their columns any
+    of the row's) up to w_l.  vals in the operators' dtype, cols int16."""
+    vals: torch.Tensor
+    cols: torch.Tensor
+    widths: tuple       # w_l, slots a row of each list (0: absent)
+    entries: int        # the entries kept, pads not counted
+
+
+def _padded_rows(a):
+    """(columns, values) [rows, w] of the operator a [rows, cols]: each
+    row's entries above ROUNDOFF of the largest, columns ascending, padded
+    with zero values; and the count kept."""
+    a_np = a.detach().cpu().numpy()
+    mag = np.abs(a_np.astype(np.float64))
+    keep = mag > ROUNDOFF * mag.max()
+    w = int(keep.sum(1).max())
+    # kept columns first, each group in ascending order
+    order = np.argsort(~keep, axis=1, kind="stable")[:, :w]
+    kept = np.take_along_axis(keep, order, 1)
+    vals = np.where(kept, np.take_along_axis(a_np, order, 1), 0)
+    return order, vals.astype(a_np.dtype), int(keep.sum())
+
+
+def visc_lists(front, vqlift, ef, drpq, lift=None, *, nq, proj=True):
+    """The lists of the viscous operators (``ViscLists``) on their device
+    and in their dtype, built on the host once per discretization
+    (``make_cns_rhs_affine`` builds them with the RHS): front [(proj + dim)
+    Nq, Nq], vqlift [Nq, Nfq], ef [Nfq, Nq], drpq [dim, Np, Nq] and, for
+    K4's fold_tail, lift [Np, Nfq]."""
+    ops = (front[:nq] if proj else None, front[nq:] if proj else front,
+           vqlift, ef, drpq.reshape(-1, drpq.shape[-1]), lift)
+    cols, vals, widths, entries = [], [], [], 0
+    for op in ops:
+        if op is None:
+            widths.append(0)
+            continue
+        c, v, n = _padded_rows(op)
+        cols.append(c.ravel())
+        vals.append(v.ravel())
+        widths.append(c.shape[1])
+        entries += n
+    cols = np.concatenate(cols)
+    if cols.max() > np.iinfo(np.int16).max:
+        raise ValueError("visc_lists: an operator wider than 16-bit columns")
+    return ViscLists(
+        torch.as_tensor(np.concatenate(vals), device=front.device),
+        torch.as_tensor(cols.astype(np.int16), device=front.device),
+        tuple(widths), entries)
+
+
+def _list_rows(dim, np_, nq, nfq):
+    """The rows of each list of VISC_LISTS."""
+    return (nq, dim * nq, nq, nfq, dim * np_, np_)
+
+
+def _check_lists(name, lists, dtype, device, dim, np_, nq, nfq, proj,
+                 with_lift):
+    _check_cuda(name, {"lists.vals": lists.vals}, dtype, device)
+    if (lists.cols.dtype != torch.int16 or lists.cols.device != device
+            or not lists.cols.is_contiguous()):
+        raise ValueError(f"{name}: lists.cols must be a contiguous int16 "
+                         f"tensor on {device} (visc_lists)")
+    w = tuple(lists.widths)
+    slots = (sum(r * wl for r, wl in zip(_list_rows(dim, np_, nq, nfq), w))
+             if len(w) == len(VISC_LISTS) else -1)
+    if (slots != lists.vals.numel() or slots != lists.cols.numel()
+            or (w[0] > 0) != bool(proj) or (with_lift and w[5] == 0)):
+        raise ValueError(
+            f"{name}: lists (widths {w}, {lists.vals.numel()} slots) do not "
+            f"fit dim={dim} Np={np_} Nq={nq} Nfq={nfq} proj={proj}"
+            + (" with LIFT" if with_lift else "") + " (visc_lists)")
+
+
+def _lists_args(lists, dim):
+    """(values, columns, widths) as the C entries take them: the lists at
+    dim 3, nothing below."""
+    if dim != 3:
+        return None, None, None
+    return (lists.vals.data_ptr(), lists.cols.data_ptr(),
+            (ctypes.c_int * len(VISC_LISTS))(*lists.widths))
+
+
 def _check_form(name, dim, proj):
     if (dim, bool(proj)) not in _CUDA_FORMS:
         raise NotImplementedError(
@@ -116,9 +230,10 @@ def cns_surface_viscous_plain(vu_q, qm, qm_log, nbr, nxj, sj, inv_sj, pool,
                               geo, inv_j, wjq, front, vqlift, ef, drpq,
                               ph_qf=None, lift=None, *, gamma, mu, lam, pr,
                               re, nq, dissipation, with_penalty, recipe=None,
-                              proj=True, fold_tail=False):
+                              proj=True, fold_tail=False, lists=None):
     """Plain PyTorch merged surface + viscous stage; same contract as
-    ``cns_surface_viscous`` (any dim)."""
+    ``cns_surface_viscous`` (any dim), on the dense operators (lists is
+    not read)."""
     nf = vu_q.shape[0]
     dim = nf - 2
     # local traces rebuilt pointwise, as the neighbour's are
@@ -145,7 +260,7 @@ def cns_surface_viscous(vu_q, qm, qm_log, nbr, nxj, sj, inv_sj, pool, geo,
                         inv_j, wjq, front, vqlift, ef, drpq, ph_qf=None,
                         lift=None, *, gamma, mu, lam, pr, re, nq,
                         dissipation, with_penalty, recipe=None, proj=True,
-                        fold_tail=False):
+                        fold_tail=False, lists: ViscLists | None = None):
     """ONE kernel for the post-exchange surface stage and the viscous
     mid-section of the affine CNS path.
 
@@ -164,7 +279,10 @@ def cns_surface_viscous(vu_q, qm, qm_log, nbr, nxj, sj, inv_sj, pool, geo,
     fold_tail=True, which also takes ph_qf [Nf, Np, K] and lift
     [Np, Nfq], (dq_part, t_f, prod, vuq) with dq = dq_part + LIFT(jump)/J
     left to the caller.  The CUDA kernel covers proj=True at dim = 1, 2,
-    3 and proj=False at dim = 3.
+    3 and proj=False at dim = 3.  lists: ``visc_lists`` of these
+    operators (with lift for fold_tail), which the kernel reads at dim 3
+    (built here when not given: a host round trip each call); the plain
+    version and the dense kernels of dims 1 and 2 read the operators.
     """
     args = (vu_q, qm, qm_log, nbr, nxj, sj, inv_sj, pool, geo, inv_j, wjq,
             front, vqlift, ef, drpq, ph_qf, lift)
@@ -200,6 +318,12 @@ def cns_surface_viscous(vu_q, qm, qm_log, nbr, nxj, sj, inv_sj, pool, geo,
     _check_cuda(name, tensors, vu_q.dtype, vu_q.device)
     for key, t in tensors.items():
         _check_shape(name, key, t, shapes[key])
+    if dim == 3:
+        if lists is None:
+            lists = visc_lists(front, vqlift, ef, drpq,
+                               lift if fold_tail else None, nq=nq, proj=proj)
+        _check_lists(name, lists, vu_q.dtype, vu_q.device, dim, np_, nq,
+                     nfq, proj, fold_tail)
 
     new = lambda *shape: torch.empty(shape, dtype=vu_q.dtype,
                                      device=vu_q.device)
@@ -227,6 +351,7 @@ def cns_surface_viscous(vu_q, qm, qm_log, nbr, nxj, sj, inv_sj, pool, geo,
         stream = torch.cuda.current_stream(vu_q.device).cuda_stream
         rc = lib.esdg_cns_surface_viscous(
             _DTYPE_CODE[vu_q.dtype], dim, int(proj), ins, outs,
+            *_lists_args(lists, dim),
             None if itab is None else itab.data_ptr(),
             None if ftab is None else ftab.data_ptr(), k, np_, nq, nfq,
             float(gamma), float(mu), float(lam_v), float(pr), float(re),
@@ -248,16 +373,18 @@ cns_surface_viscous.launches = 0
 
 def cns_viscous_plain(vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef,
                       drpq, *, gamma, mu, lam, pr, nq, proj=True,
-                      contract=False):
+                      contract=False, lists=None):
     """Plain PyTorch viscous mid-section; same contract as
-    ``cns_viscous`` (any dim, both contract forms)."""
+    ``cns_viscous`` (any dim, both contract forms), on the dense
+    operators (lists is not read)."""
     return _viscous_body(vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef,
                          drpq, dim=vu_q.shape[0] - 2, nq=nq, gamma=gamma,
                          mu=mu, lam=lam, pr=pr, proj=proj, contract=contract)
 
 
 def cns_viscous(vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef, drpq, *,
-                gamma, mu, lam, pr, nq, proj=True, contract=False):
+                gamma, mu, lam, pr, nq, proj=True, contract=False,
+                lists: ViscLists | None = None):
     """ONE kernel for the viscous mid-section of the affine CNS path.
 
     vu_q [Nf, Nq, K] raw v(U) at quadrature; dv [Nf, Nfq, K] the
@@ -271,7 +398,8 @@ def cns_viscous(vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef, drpq, *,
     [dim Nf, Nfq, K] (contract=False, rows x Nf + f = (Ef sigma_x)_f);
     vuq is the input vu_q when proj=False.  The CUDA kernel covers both
     contract forms, with proj=True at dim = 1, 2, 3 and proj=False at
-    dim = 3.
+    dim = 3.  lists: ``visc_lists`` of these operators, read at dim 3 as
+    ``cns_surface_viscous`` reads them (LIFT's list not needed).
     """
     args = (vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef, drpq)
     kw = dict(gamma=gamma, mu=mu, lam=lam, pr=pr, nq=nq, proj=proj,
@@ -296,6 +424,11 @@ def cns_viscous(vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef, drpq, *,
     _check_cuda(name, tensors, vu_q.dtype, vu_q.device)
     for key, t in tensors.items():
         _check_shape(name, key, t, shapes[key])
+    if dim == 3:
+        if lists is None:
+            lists = visc_lists(front, vqlift, ef, drpq, nq=nq, proj=proj)
+        _check_lists(name, lists, vu_q.dtype, vu_q.device, dim, np_, nq,
+                     nfq, proj, False)
 
     new = lambda *shape: torch.empty(shape, dtype=vu_q.dtype,
                                      device=vu_q.device)
@@ -315,7 +448,7 @@ def cns_viscous(vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef, drpq, *,
         stream = torch.cuda.current_stream(vu_q.device).cuda_stream
         rc = lib.esdg_cns_viscous(
             _DTYPE_CODE[vu_q.dtype], dim, int(proj), int(contract), ins,
-            outs, k, np_, nq, nfq, float(gamma), float(mu), float(lam_v),
+            outs, *_lists_args(lists, dim), k, np_, nq, nfq, float(gamma), float(mu), float(lam_v),
             float(pr), stream)
     _raise_on(name, rc, "the element tile does not fit in shared memory")
     cns_viscous.launches += 1
@@ -323,3 +456,23 @@ def cns_viscous(vu_q, dv, geo, nxj, inv_j, wjq, front, vqlift, ef, drpq, *,
 
 
 cns_viscous.launches = 0
+
+
+def viscous_shapes(dtype, dim, proj, np_, nq, nfq, lists=None):
+    """{'K4' (fold_tail), 'K4 no tail', 'K7': (the launch shape
+    (``fused_volume.launch_shape``), whether the operators or lists are
+    read from global memory)} at these sizes; lists (dim 3) with LIFT's."""
+    widths = (None if dim != 3 else
+              (ctypes.c_int * len(VISC_LISTS))(*lists.widths))
+    code = _DTYPE_CODE[dtype]
+    out = {}
+    for key, entry, args in (
+            ("K4", "esdg_cns_surface_viscous_shape",
+             (code, dim, int(proj), 1, np_, nq, nfq, widths)),
+            ("K4 no tail", "esdg_cns_surface_viscous_shape",
+             (code, dim, int(proj), 0, np_, nq, nfq, widths)),
+            ("K7", "esdg_cns_viscous_shape",
+             (code, dim, int(proj), np_, nq, nfq, widths))):
+        occ = launch_shape(entry, *args)
+        out[key] = (occ[:6], bool(occ[6]))
+    return out

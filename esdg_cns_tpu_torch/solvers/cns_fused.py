@@ -116,7 +116,8 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
     from ..ops.fused_volume import (detect_axis_aligned, euler_volume,
                                     euler_volume_split)
     from ..ops.modal_volume import euler_modal_volume, modal_lists
-    from ..ops.surface_viscous import cns_surface_viscous, cns_viscous
+    from ..ops.surface_viscous import (cns_surface_viscous, cns_viscous,
+                                       visc_lists)
     from ..utils.compensated import weighted_entropy_residual
     from ._shared import (adiabatic_mask, entropy_vars_from_flux,
                           flux_to_conservative, inviscid_surface,
@@ -197,6 +198,12 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
     k3_lists = (modal_lists(q_skew, disc.vq, disc.vhp, disc.ph, nq)
                 if volume_impl == "fused" and q_skew.device.type == "cuda"
                 else None)
+    # the viscous kernels' operator lists on hexes, likewise (K4 and K7
+    # read the dense operators on lines and tris)
+    k4_lists = (visc_lists(front, vqlift, ef, drpq, disc.lift, nq=nq,
+                           proj=proj)
+                if dim == 3 and front.device.type == "cuda"
+                and (use_merged or use_fused_viscous) else None)
     nxj = torch.stack(disc.nxj)
     inv_j = disc.inv_jac[:1]                         # [1, K] affine
     geo = disc.geo                                   # [dim*dim, 1, K]
@@ -205,7 +212,8 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
     if use_fused_surface or use_merged:
         surf_pool, surf_recipe, surf_evals = prepare_surface_bc(bc, adiab,
                                                                 dim)
-    visc_kw = dict(gamma=gamma, mu=mu, lam=lam, pr=pr, nq=nq, proj=proj)
+    visc_kw = dict(gamma=gamma, mu=mu, lam=lam, pr=pr, nq=nq, proj=proj,
+                   lists=k4_lists)
 
     def front_xla(q):
         vu_q = phys.v_ufun(_apply(disc.vq, q), gamma)
@@ -345,4 +353,7 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
             aux["rhstest_visc_total"] = rtv + rhstest_visc
         return dq, aux
 
+    # the lists the kernels read, for holding them against the plain
+    # versions on the same lists
+    rhs.visc_lists = k4_lists
     return rhs

@@ -1085,3 +1085,137 @@ def test_stage_launch_counts(cuda):
     assert bool(torch.isfinite(qf).all())
     assert fv.euler_volume.launches - k1 == 10
     assert fv.euler_surface.launches - k2 == 10
+
+
+# ---- K4 and K7 at dim 3 on their operator lists (visc_lists), every
+# form, against the dense plain versions: a moving state and the state at
+# rest, every wall kind of the 3D cavity; k1d=3 gives K=27, a ragged last
+# tile.  At rest behind walls that move nothing (slip, no BC) the viscous
+# outputs vanish but for roundoff; an output whose max |plain| at rest is
+# below the tolerance of its max on the moving state is held to that
+# moving max instead (the error of a zero, on the output's scale) ----
+def _match_at_scale(kern, plain, moving_plain, dtype, case):
+    assert len(kern) == len(plain)
+    for a, b, m in zip(kern, plain, moving_plain):
+        if b is None:
+            assert a is None
+            continue
+        scale = float(b.abs().max())
+        if scale < TOL[dtype] * float(m.abs().max()):
+            scale = float(m.abs().max())
+        assert float((a - b).abs().max()) <= TOL[dtype] * scale, case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", CAVITY_BCS)
+def test_viscous_kernels_on_lists_match_dense_plain(cuda, dtype, case):
+    disc, q, bc, p = cavity_case(case, 3, 3, dtype, cuda, dim=3)
+    rest = lid_driven_cavity_3d(3, 3, dtype=dtype, device=cuda)[1]
+    for proj in (True, False):
+        lists = None
+        moving = {}
+        for state, qs in (("moving", q), ("rest", rest)):
+            args, tail, kw = k4_inputs(disc, qs, bc, p, proj=proj)
+            if lists is None:
+                lists = sv.visc_lists(*args[11:15], tail[1], nq=disc.nq,
+                                      proj=proj)
+            for fold in (False, True):
+                extra = tail if fold else ()
+                before = sv.cns_surface_viscous.launches
+                kern = sv.cns_surface_viscous(*args, *extra, fold_tail=fold,
+                                              lists=lists, **kw)
+                built = sv.cns_surface_viscous(*args, *extra,
+                                               fold_tail=fold, **kw)
+                plain = sv.cns_surface_viscous_plain(*args, *extra,
+                                                     fold_tail=fold, **kw)
+                torch.cuda.synchronize()
+                assert sv.cns_surface_viscous.launches == before + 2
+                key = ("K4", fold)
+                moving.setdefault(key, plain)
+                _match_at_scale(kern, plain, moving[key], dtype,
+                                (case, state, "K4", proj, fold))
+                for a, b in zip(kern, built):
+                    assert (a is None) == (b is None)
+                    assert a is None or torch.equal(a, b)
+            a7, kw7 = k7_inputs(disc, qs, bc, p, proj=proj)
+            for contract in (True, False):
+                k = dict(kw7, contract=contract)
+                before = sv.cns_viscous.launches
+                kern = sv.cns_viscous(*a7, lists=lists, **k)
+                plain = sv.cns_viscous_plain(*a7, **k)
+                torch.cuda.synchronize()
+                assert sv.cns_viscous.launches == before + 1
+                key = ("K7", contract)
+                moving.setdefault(key, plain)
+                _match_at_scale(kern, plain, moving[key], dtype,
+                                (case, state, "K7", proj, contract))
+
+
+@pytest.mark.gpu
+def test_viscous_kernels_refuse_lists_that_do_not_fit(cuda):
+    disc, q, bc, p = cavity_case("mixed", 3, 3, torch.float32, cuda, dim=3)
+    args, tail, kw = k4_inputs(disc, q, bc, p, proj=False)
+    ops = args[11:15]
+    good = sv.visc_lists(*ops, tail[1], nq=disc.nq, proj=False)
+    a7, kw7 = k7_inputs(disc, q, bc, p, proj=False)
+    bad = {
+        # the projection block's list with proj=False operators
+        "proj": sv.visc_lists(*k4_inputs(disc, q, bc, p, proj=True)[0][11:15],
+                              tail[1], nq=disc.nq, proj=True),
+        "short": sv.ViscLists(good.vals[:-1], good.cols[:-1], good.widths,
+                              good.entries),
+        "widths": sv.ViscLists(good.vals, good.cols, good.widths[:5],
+                               good.entries),
+        "cpu": sv.ViscLists(good.vals.cpu(), good.cols, good.widths,
+                            good.entries),
+        "cols on cpu": sv.ViscLists(good.vals, good.cols.cpu(), good.widths,
+                                    good.entries),
+        "int32 cols": sv.ViscLists(good.vals, good.cols.int(), good.widths,
+                                   good.entries),
+    }
+    for name, lists in bad.items():
+        with pytest.raises(ValueError):
+            sv.cns_surface_viscous(*args, lists=lists, **kw)
+        with pytest.raises(ValueError):
+            sv.cns_viscous(*a7, lists=lists, **kw7)
+    # fold_tail reads LIFT's list
+    no_lift = sv.visc_lists(*ops, nq=disc.nq, proj=False)
+    with pytest.raises(ValueError):
+        sv.cns_surface_viscous(*args, *tail, fold_tail=True, lists=no_lift,
+                               **kw)
+    with pytest.raises(TypeError):
+        sv.cns_viscous(*a7, lists=sv.ViscLists(
+            good.vals.double(), good.cols, good.widths, good.entries), **kw7)
+
+
+@pytest.mark.gpu
+def test_rhs_builds_the_viscous_lists_once(cuda):
+    """make_cns_rhs_affine builds the lists with the RHS on hexes, for
+    both fronts, and its K4 and K7 read them; on tris none."""
+    disc, q, bc, p = cavity_case("isothermal", 3, 3, torch.float64, cuda,
+                                 dim=3)
+    flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
+                 inviscid_dissipation=True, viscous_dissipation=True,
+                 compute_rhstest=False)
+    for impl, proj in (("fused", True), ("fused_hex", False)):
+        for surface in ("merged_tail", "fused"):
+            rhs = make_cns_rhs_affine(disc, volume_impl=impl,
+                                      surface_impl=surface, **flags)
+            assert rhs.visc_lists is not None
+            assert (rhs.visc_lists.widths[0] > 0) == proj
+            assert rhs.visc_lists.widths[5] > 0
+            ref = make_cns_rhs(disc, **flags)(q)[0]
+            before = (sv.cns_surface_viscous.launches,
+                      sv.cns_viscous.launches)
+            dq, _ = rhs(q)
+            torch.cuda.synchronize()
+            after = (sv.cns_surface_viscous.launches,
+                     sv.cns_viscous.launches)
+            assert after[0] - before[0] == (surface == "merged_tail")
+            assert after[1] - before[1] == (surface == "fused")
+            assert _rel(dq, ref) <= 1e-9, (impl, surface)
+    disc2, _, bc2, p2 = cavity_case("isothermal", 3, 3, torch.float32, cuda)
+    rhs = make_cns_rhs_affine(disc2, volume_impl="fused", mu=p2["mu"],
+                              pr=p2["pr"], re=p2["re"], bc=bc2)
+    assert rhs.visc_lists is None
