@@ -8,29 +8,35 @@ Phases (each raises on failure; nothing is caught):
      switches, which stay off;
   2. build: nvcc builds esdg_cns_tpu_torch/csrc/*.cu for sm_90a; prints the
      build time and ptxas' register/spill report of the N=3 hex kernels
-     (K1 diag, general and curved; K2; row 10), of K1 and row 10 curved
+     (K1 diag, general and curved; row 10), of K1 and row 10 curved
      at N=4 in f64, of K3 and the CNS kernels in every form, of K5 and of
      the Becker bisection; then one line per K1 instantiation (N+1 =
-     2..8, three forms, two types) and for K3 at each dim (and curved
-     tris) on the paths' operator lists: the blocks and warps resident
-     per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, exported by
-     the library) beside the registers and spills;
-  3. Euler kernels: K1 (euler_volume) and K2 (euler_surface) against their
-     plain PyTorch versions on the card, at the main-path shapes (N=3,
-     k1d=32, f32, axis-aligned) and at N=3, k1d=8 in f64 (axis-aligned and
-     general); the general variant also on a seeded random non-diagonal
-     affine metric (k1d=32 f32, k1d=8 f64), where no cross term is an exact
-     zero;
+     2..8, three forms, two types), per K2 grid form (diag and general,
+     on ph_qf and on the split parts) and of the split projection at
+     N+1 = 2..8, and for K3 at each dim (and curved tris) on the paths'
+     operator lists: the blocks and warps resident per SM
+     (cudaOccupancyMaxActiveBlocksPerMultiprocessor, exported by the
+     library) beside the registers and spills;
+  3. Euler kernels: K1 (euler_volume) and K2 (euler_surface, on gathered
+     neighbour traces and in the grid form the paths run, which reads
+     them itself) against their plain PyTorch versions on the card, at
+     the main-path shapes (N=3, k1d=32, f32, axis-aligned) and at N=3,
+     k1d=8 in f64 (axis-aligned and general); the general variant also on
+     a seeded random non-diagonal affine metric (k1d=32 f32, k1d=8 f64),
+     where no cross term is an exact zero;
   4. Euler path: presets.euler_hex_3d(3, 32, f32) -> make_euler_rhs_fused ->
      lsrk45 for 20 steps with every launch counter at 0 before; checks the
-     state is finite, each kernel launched once per stage, the state agrees
+     state is finite, each kernel launched once per stage and no roll
+     exchange or split combine run (their call counters), the state agrees
      with the plain twin make_euler_rhs(flux_diff_impl='lines') run from the
      same q0, and sum(wJq q) per field is conserved; then an f64 k1d=4
      entropy-conservation check (dissipation off) on the kernel path;
   5. Euler timing with CUDA events (medians of 5 repeats after warm-up): the
      rate in DOF*RK-stage/s (5 Np K stages / s, bench.py's definition) over
      1200 stages, the twin's rate over fewer stages, and per-kernel device
-     times beside the plain versions; then torch.profiler over 20 stages:
+     times beside the plain versions, the stage's split and, no longer in
+     the stage, the roll exchange and K2 on gathered traces; then
+     torch.profiler over 20 stages:
      device time by kernel and the device's busy share; then the general
      contraction on the same uniform mesh (axis_aligned=False) timed
      beside the diag path, stage and kernels (the diag-vs-general delta);
@@ -101,24 +107,30 @@ Phases (each raises on failure; nothing is caught):
  18. split volume kernels against their plain versions: the projection
      (hex_project), the per-direction fd (hex_fd_dir, d = 0, 1, 2; diag on
      the mesh's metric and general on a seeded random non-diagonal affine
-     metric), its dense form (hex_fd_dir_dense) and K2 at N+1 = 8 (and 5),
-     at the N=7 path's shapes (k1d=16 f32), the N=4 bench mesh (k1d=24
-     f32), and in f64 at N=4 k1d=4 and N=7 k1d=3 (K=27, a ragged tile);
+     metric), its dense form (hex_fd_dir_dense) and K2 at N+1 = 8 (and 5,
+     4) in five forms (ph_qf or the split parts, gathered or grid, the
+     split grid form also general), at the N=7 path's shapes (k1d=16
+     f32), the N=4 bench mesh (k1d=24 f32), the main path's mesh (N=3
+     k1d=32 f32), and in f64 at N=4 k1d=4 and N=7 k1d=3 (K=27, a ragged
+     tile);
  19. the N=7 path: presets.euler_hex_3d(7, 16, f32) ->
      make_euler_rhs_fused(force_fused=True), which resolves to the split
      path ('auto', diag detected) -> lsrk45 for 20 steps at dt=2.5e-4 with
      every counter at 0 before: per stage the projection once, the fd once
-     per direction, K2 once, K1 never; a finite f32 state that agrees with
+     per direction, K2 once (the split form on the grid), K1 never, no
+     roll exchange or combine; a finite f32 state that agrees with
      the twin make_euler_rhs(flux_diff_impl='lines') from the same q0;
      sum(wJq q) conserved; f64 k1d=3 rhstest with dissipation off;
  20. the N=4 volume modes on the bench mesh (N=4, k1d=24, f32): 'auto' (K1,
      joint_packed), 'split', 'split_pad8' and 'split_dense', each RHS
      against the 'auto' one on a moving state (f32, and f64 at k1d=4),
      then 20 steps of each with the counters at 0 before (launches per
-     stage);
+     stage; no exchange or combine);
  21. split timing: the N=7 rate over 1200 stages, device times of the
-     projection, each fd direction, the dense fd, the combine, the exchange
-     and K2 at N+1 = 8 beside their plain versions, the profiler's split;
+     projection, each fd direction, the dense fd and K2 at N+1 = 8 beside
+     their plain versions, the stage's split and, no longer in it, K2 on
+     ph_qf, the combine and the exchange it replaced, the profiler's
+     split;
      the four N=4 modes' rates over 600 stages, their stages queued
      ahead of the device and their volume stages'
      device times;
@@ -128,7 +140,7 @@ Phases (each raises on failure; nothing is caught):
      K1 and K2 against their plain versions (f32 at full width; f64 at
      k1d=4 and k1d=3, K=27 ragged, diag and a random metric), lsrk45 for 20
      steps at dt=5e-4 with every counter at 0 before (K1 and K2 once per
-     stage, nothing else), the twin make_euler_rhs(flux_diff_impl='lines'),
+     stage, nothing else, no exchange or combine), the twin make_euler_rhs(flux_diff_impl='lines'),
      conservation, f64 k1d=3 rhstest with dissipation off; the rate over
      1200 stages beside volume_mode='split' over 600 (one RHS of each
      agrees), K1's, the split volume stage's and K2's device times;
@@ -137,7 +149,7 @@ Phases (each raises on failure; nothing is caught):
  24. K1 at N+1 = 8: curved N=7 at k1d=8 under force_fused (K1c) and affine
      N=7 with volume_mode='joint' (diag), against their plain versions (f32
      at k1d=8; f64 at k1d=4 and k1d=3), one RHS each with the counters at
-     0 before (K1 and K2 once), K1's device time;
+     0 before (K1 and K2 once, no exchange or combine), K1's device time;
  25. K1c at N+1 = 6: curved N=5 at k1d=16 against the plain version (f32;
      f64 at k1d=4 and 3), one RHS, K1c's device time, and the free stream
      of the f64 kernel path (max |dq| of a constant state) at k1d=8 and,
@@ -206,9 +218,13 @@ Phases (each raises on failure; nothing is caught):
      tree's on the same card, in turns (parent, new, new, parent): K1 in
      every form at the paths' shapes, K3 at each dim (the 3D cavity moving
      and at rest), K5, K4 in every form the paths run, K7 at dims 1, 2
-     and 3, K8, rows 4a, 4b, 10 and 14, each pair held to each other; the
-     device-bound stages (Euler N=3, N=4 'auto', N=5, N=6, curved, N=7)
-     over 300 stages and the host-bound ones' device busy time,
+     and 3, K8, rows 4a, 4b, 10 and 14, the projection (row 3) and K2 at
+     every N+1 the paths run, on its own and against the parent's K2 with
+     the exchange (and, after the split front, the combine) it took in,
+     each pair held to each other, and the parent's roll exchange at N=3;
+     the device-bound stages (Euler N=3, N=4 'auto', N=5, N=6, curved,
+     N=7, 'split' at N=4, 5, 6) over 300 stages and the host-bound ones'
+     device busy time,
      torch.profiler over 100 stages (both cavities' default forms, the 3D
      cavity's 'fused' form, Becker 3D, the 1D anchor path), their wall
      clock beside it; a line names each one more than 2% slower than the
@@ -605,17 +621,22 @@ def ops_k1(n1, ef_entries, lift_entries, form="diag"):
             + split(15, fma=5, mul=6) * nq)
 
 
-def ops_k2(n1, lift_entries, diag=True):
+def ops_k2(n1, lift_entries, diag=True, split_form=False):
     """At every face node the EC pair, both sides' conservative states,
     both wave speeds (three divisions and a square root each) and LF; the
     general form adds the two other directional fluxes (12), two more
     normal terms per field (20) and the 3-component normal velocity of
-    both sides (8), and reads 1/sj where diag divides."""
+    both sides (8), and reads 1/sj where diag divides.  The split form
+    adds the combine: 2 (1/wf) face rows at each face node, and at each
+    volume node 2 (1/wq) times the three parts' sum where ph_qf was
+    read."""
     nq, nfq = n1 ** 3, 6 * n1 * n1
     face = (split(120, fma=22, mul=50, div=16, sqrt=2) if diag
             else split(160, fma=38, mul=58, div=15, sqrt=2))
-    return (face * nfq + Ops(fma=lift_entries * 5)
-            + split(15, mul=5) * nq)
+    if split_form:
+        face = face + Ops(fma=5, mul=1)
+    node = split(26, fma=5, mul=6) if split_form else split(15, mul=5)
+    return face * nfq + Ops(fma=lift_entries * 5) + node * nq
 
 
 def ops_lines(n1, curved):
@@ -727,12 +748,12 @@ def ops_k4(dim, np_, nq, nfq, k4args, lift):
 
 def ptxas_report(log):
     """ptxas' register/spill lines of the kernels worth watching, from the
-    build log: the N=3 hex kernels (K1 diag, general and curved; K2; row
+    build log: the N=3 hex kernels (K1 diag, general and curved; row
     10), K1 and row 10 curved at N=4 in f64, K1 at N = 5, 6, 7 in every
     form and type (a line of a curved f64 thread is more than its 255
-    registers hold), the split kernels at N=4 and
-    N=7 (the projection; the fd in direction 0, diag, general and dense)
-    and K2 at N=7, K3 at every dim and form, the CNS kernels, K5 and the
+    registers hold), the split fd at N=4 and N=7 (direction 0, diag,
+    general and dense; K2's and the projection's are in their shape
+    lines), K3 at every dim and form, the CNS kernels, K5 and the
     Becker bisection, the fd section at N+1 = 5, 6, 7 and the probes.  A
     spill line counts
     only under its own entry's "Function properties" (not under a device
@@ -773,25 +794,20 @@ def ptxas_report(log):
             out.append(f"ptxas {kind}" + (f" kind {ints[0]}" if ints else "")
                        + f": {report}")
             continue
-        if kind in ("hex_project", "hex_fd_dir"):
-            # the split kernels at N=4 and N=7; the fd in direction 0
-            if n_of is None or (kind == "hex_fd_dir" and ints[1] != "0"):
+        if kind in ("hex_surface", "hex_project"):
+            continue    # in their shape lines (kernel_shapes)
+        if kind == "hex_fd_dir":
+            # the split fd at N=4 and N=7 in direction 0
+            if n_of is None or ints[1] != "0":
                 continue
-            variant = ("" if kind == "hex_project" else
-                       " dense" if flags[1] else
+            variant = (" dense" if flags[1] else
                        " diag" if flags[0] else " general")
             out.append(f"ptxas N={n_of} {kind} {prec}{variant}: {report}")
-            continue
-        if kind == "hex_surface" and ints and ints[0] == "8":
-            out.append(f"ptxas N=7 {kind} {prec} "
-                       f"{'diag' if flags[0] else 'general'}: {report}")
             continue
         if kind.startswith("hex_"):
             if kind == "hex_volume":
                 variant = ("diag" if flags[0] else
                            "curved" if flags[1] else "general")
-            elif kind == "hex_surface":
-                variant = "diag" if flags[0] else "general"
             else:
                 variant = "curved" if flags[0] else "affine"
             if kind == "hex_volume" and ints and ints[0] in ("6", "7", "8"):
@@ -1572,7 +1588,8 @@ def shape_line(label, occ, ptx):
 
 def kernel_shapes(dev, log):
     """The launch shape of every K1 instantiation (N+1 = 2..8, diag,
-    general, curved, f32 and f64), of K3 at each dim (and curved tris) and
+    general, curved, f32 and f64), of K2 in its grid forms and the split
+    projection (row 3) at N+1 = 2..8, of K3 at each dim (and curved tris) and
     of K4 (both fold_tail forms) and K7 at dim 3 (hex N=3 with either
     front, N=5 without) at the paths' operators, as
     cudaOccupancyMaxActiveBlocksPerMultiprocessor
@@ -1597,6 +1614,30 @@ def kernel_shapes(dev, log):
                 print(shape_line(f"K1 N+1={n1} {form} {prec}", occ, ptx))
                 warps[("K1", n1, form, prec)] = (
                     occ[0] * ((occ[1] + 31) // 32))
+    # K2 in its grid forms (diag and general, on ph_qf and on the split
+    # parts) and the split path's projection, at every N+1 they are built
+    # for
+    for n1 in range(2, 9):
+        for prec, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            for diag in (True, False):
+                for split in (False, True):
+                    occ = fv.euler_surface_shape(dtype, n1, diag=diag,
+                                                 grid=True, split=split)
+                    ptx = ptxas_of(entries, "hex_surface", prec,
+                                   [n1, occ[5], occ[1], occ[6]],
+                                   [diag, True, split])
+                    form = (f"{'diag' if diag else 'general'} grid "
+                            f"{'split' if split else 'ph_qf'}")
+                    print(shape_line(f"K2 N+1={n1} {form} {prec}", occ[:6],
+                                     ptx))
+                    warps[("K2", n1, form, prec)] = (
+                        occ[0] * ((occ[1] + 31) // 32))
+            occ = fv.hex_project_shape(dtype, n1)
+            ptx = ptxas_of(entries, "hex_project", prec,
+                           [n1, occ[5], occ[1], occ[6]], [])
+            print(shape_line(f"row 3 hex_project N+1={n1} {prec}", occ[:6],
+                             ptx))
+            warps[("row 3", n1, "", prec)] = occ[0] * ((occ[1] + 31) // 32)
     cases = (("hex N=3", lambda dt: lid_driven_cavity_3d(3, 2, dtype=dt,
                                                          device=dev)[0]),
              ("tri N=3", lambda dt: lid_driven_cavity(3, 2, dtype=dt,
@@ -1899,6 +1940,75 @@ def ab_phase(card, dev, dev_ms, parent_dir):
             turns(f"{label} d={d}", calls)
         del disc, qh, qlog
         torch.cuda.empty_cache()
+    # ---- row 3, and K2: on its own (gathered traces, ph_qf) and with
+    # the work it took in (the parent's K2 after its roll exchange and,
+    # on the split paths, its combine, against this tree's K2 in the form
+    # the stage runs) ----
+    for label, n, k1d, split, curved in (
+            ("N+1=4 k1d=32 (main path)", 3, 32, False, False),
+            ("N+1=4 k1d=32 curved", 3, 32, False, True),
+            ("N+1=5 k1d=24 (N=4 'auto')", 4, 24, False, False),
+            ("N+1=5 k1d=24 (N=4 'split')", 4, 24, True, False),
+            ("N+1=6 k1d=20 (N=5 'auto')", 5, 20, False, False),
+            ("N+1=6 k1d=20 (N=5 'split')", 5, 20, True, False),
+            ("N+1=7 k1d=16 (N=6 force_fused)", 6, 16, False, False),
+            ("N+1=7 k1d=16 (N=6 'split')", 6, 16, True, False),
+            ("N+1=8 k1d=16 (N=7 split)", 7, 16, True, False)):
+        disc, _ = npre.euler_hex_3d(n=n, k1d=k1d, curved=curved,
+                                    dtype=f32, device=dev)
+        q = rstate(disc, 7)
+        ef, lo = disc.vhp[disc.nq:], disc.line_ops
+        if split:
+            calls = {"new": lambda: nfv.hex_project(q, ef, 1.4),
+                     "parent": lambda: pfv.hex_project(q, ef, 1.4)}
+            agree(f"row 3 {label}", calls["new"](), calls["parent"]())
+            turns(f"row 3 hex_project {label}", calls)
+        qh, qlog, tr = nfv.hex_project_plain(q, ef, 1.4)
+        if curved:
+            geom = (torch.stack(disc.nxj), disc.sj, disc.inv_sj,
+                    disc.inv_jac)
+        else:
+            geom = ((disc.nxj[0] + disc.nxj[1] + disc.nxj[2])[None],
+                    disc.sj, disc.inv_sj, disc.inv_jac[:1])
+        diag = not curved
+        ph_qf = torch.as_tensor(
+            np.random.default_rng(8).standard_normal((5, disc.nq, q.shape[2])),
+            dtype=f32, device=dev)
+        nbr = disc.gather_traces(tr)
+        args = (tr, nbr, *geom, disc.lift, ph_qf, 1.4)
+        calls = {"new": lambda: nfv.euler_surface(*args, diag=diag),
+                 "parent": lambda: pfv.euler_surface(*args, diag=diag)}
+        agree(f"K2 {label}", calls["new"](), calls["parent"]())
+        turns(f"K2 on its own (gathered, ph_qf) {label}", calls)
+        if n == 3 and not curved:
+            pdisc, _ = ppre.euler_hex_3d(n=n, k1d=k1d, dtype=f32, device=dev)
+            print(f"[{card}] A/B the parent's roll exchange {label}: "
+                  f"{dev_ms(lambda: pdisc.gather_traces(tr), 20):.4f} ms "
+                  "(device time; no longer in this tree's stage)")
+            del pdisc
+        if split:
+            parts = [nfv.hex_fd_dir(qh, qlog, disc.geo, 1.4, line_ops=lo,
+                                    d=d, diag=True) for d in range(3)]
+            calls = {"new": lambda: nfv.euler_surface(
+                         tr, None, *geom, disc.lift, None, 1.4, diag=diag,
+                         grid=disc.grid_shape, parts=parts, line_ops=lo),
+                     "parent": lambda: pfv.euler_surface(
+                         tr, disc.gather_traces(tr), *geom, disc.lift,
+                         pfv.split_combine(parts, disc.lift, lo), 1.4,
+                         diag=diag)}
+            work = "K2 + combine + exchange"
+        else:
+            calls = {"new": lambda: nfv.euler_surface(
+                         tr, None, *geom, disc.lift, ph_qf, 1.4, diag=diag,
+                         grid=disc.grid_shape),
+                     "parent": lambda: pfv.euler_surface(
+                         tr, disc.gather_traces(tr), *geom, disc.lift, ph_qf,
+                         1.4, diag=diag)}
+            work = "K2 + exchange"
+        agree(f"{work} {label}", calls["new"](), calls["parent"]())
+        turns(f"{work} (new: K2 alone) {label}", calls)
+        del disc, q, qh, qlog, tr, nbr, ph_qf, args
+        torch.cuda.empty_cache()
     for n1, k in FD_SECTION_CASES:
         for diag in (True, False):
             args = nfs.as_tensors(nfs.study_inputs(n1, k, diag), dev)
@@ -1962,6 +2072,16 @@ def ab_phase(card, dev, dev_ms, parent_dir):
             ("Euler N=7 k1d=16 split",
              lambda pp, ps: euler_case(pp, ps, 7, 16, force_fused=True),
              N7_DT, False),
+            ("Euler N=4 k1d=24 'split'",
+             lambda pp, ps: euler_case(pp, ps, 4, 24, volume_mode="split"),
+             N5_DT, False),
+            ("Euler N=5 k1d=20 'split'",
+             lambda pp, ps: euler_case(pp, ps, 5, 20, volume_mode="split"),
+             N5_DT, False),
+            ("Euler N=6 k1d=16 'split'",
+             lambda pp, ps: euler_case(pp, ps, 6, 16, force_fused=True,
+                                       volume_mode="split"),
+             N6_DT, False),
             ("3D cavity 'fused' (K3)",
              lambda pp, ps: cavity3_case(pp, ps, "fused"), CAV_TIMED_DT,
              True),
@@ -2135,12 +2255,29 @@ def main(parent=None):
                 "hex_project": fv.hex_project, "hex_fd_dir": fv.hex_fd_dir,
                 "hex_fd_dir_dense": fv.hex_fd_dir_dense}
 
+    # the plain stage work that K2 took in on grid meshes: the roll
+    # exchange and the split combine, counted per call
+    from esdg_cns_tpu_torch.core.discretization import grid_neighbours
+    plain_work = {"grid_neighbours": grid_neighbours,
+                  "split_combine": fv.split_combine}
+
     def zero_counts():
         for w in wrappers.values():
             w.launches = 0
+        for f in plain_work.values():
+            f.calls = 0
 
     def read_counts():
         return {name: w.launches for name, w in wrappers.items()}
+
+    def no_plain_work(tag):
+        """Raise unless the run since zero_counts() made no roll exchange
+        and no split combine (grid meshes: K2 does both)."""
+        calls = {name: f.calls for name, f in plain_work.items()}
+        print(f"{tag}: plain exchange and combine calls {calls}")
+        if any(calls.values()):
+            raise AssertionError(f"{tag}: the stage ran plain work that K2 "
+                                 f"takes in: {calls}")
 
     # ---- 1. device ----
     stamp("1")
@@ -2230,17 +2367,25 @@ def main(parent=None):
               f"{e_tr:.3e} (tol {tol:.0e})")
         if not (e_out <= tol and e_tr <= tol):
             raise AssertionError(f"K1 disagrees with its plain version ({tag})")
+        # K2 in the gathered form (the neighbour traces given) and the
+        # grid form the paths run (the kernel reads them itself)
         nbr = disc.gather_traces(p_tr)
-        sargs = (p_tr, nbr, nxj, sj, inv_sj, inv_jac, disc.lift, p_out,
-                 gamma)
-        skw = dict(dissipation=True, diag=diag)
-        p_s = fv.euler_surface_plain(*sargs, **skw)
-        k_s = fv.euler_surface(*sargs, **skw)
-        torch.cuda.synchronize()
-        e_s, a_s = rel_err(k_s, p_s)
-        print(f"K2 euler_surface {tag}: rel {e_s:.3e} (tol {tol:.0e})")
-        if not e_s <= tol:
-            raise AssertionError(f"K2 disagrees with its plain version ({tag})")
+        a_s = 0.0
+        for form, nb, grid in (("gathered", nbr, None),
+                               ("grid", None, disc.grid_shape)):
+            sargs = (p_tr, nb, nxj, sj, inv_sj, inv_jac, disc.lift, p_out,
+                     gamma)
+            skw = dict(dissipation=True, diag=diag, grid=grid)
+            p_s = fv.euler_surface_plain(*sargs, **skw)
+            k_s = fv.euler_surface(*sargs, **skw)
+            torch.cuda.synchronize()
+            e_s, a = rel_err(k_s, p_s)
+            a_s = max(a_s, a)
+            print(f"K2 euler_surface {form} {tag}: rel {e_s:.3e} (tol "
+                  f"{tol:.0e})")
+            if not e_s <= tol:
+                raise AssertionError(f"K2 ({form}) disagrees with its plain "
+                                     f"version ({tag})")
         return max(a_out, a_tr), a_s, vargs, vkw, sargs, skw, (k_out, k_tr,
                                                                k_s)
 
@@ -2273,6 +2418,7 @@ def main(parent=None):
           f"{launches}")
     if any(v != stages for v in launches.values()):
         raise AssertionError(f"expected {stages} launches of each kernel")
+    no_plain_work("main path")
     if qf.dtype != torch.float32 or not bool(torch.isfinite(qf).all()):
         raise AssertionError("main-path state not finite f32")
 
@@ -2318,7 +2464,7 @@ def main(parent=None):
     twin_ms = cuda_ms(lambda: lsrk45(twin, q0, DT, TWIN_TIMED_STEPS), 1)
     twin_rate = dof * 5 * TWIN_TIMED_STEPS / (twin_ms / 1e3)
     stage_ms = step_ms / (5 * TIMED_STEPS)
-    print(f"[{card}] main path (K1+exchange+K2, LSRK45): {rate:.4e} "
+    print(f"[{card}] main path (K1+K2, LSRK45): {rate:.4e} "
           f"DOF*RK-stage/s, {stage_ms:.4f} ms/stage over "
           f"{5 * TIMED_STEPS} stages, median of {REPEATS}")
     print(f"[{card}] plain twin: {twin_rate:.4e} DOF*RK-stage/s, "
@@ -2330,14 +2476,21 @@ def main(parent=None):
     k1_plain_ms = dev_ms(lambda: fv.euler_volume_plain(*vargs, **vkw), 2)
     k2_ms = dev_ms(lambda: fv.euler_surface(*sargs, **skw), 20)
     k2_plain_ms = dev_ms(lambda: fv.euler_surface_plain(*sargs, **skw), 2)
+    # the gathered form and the roll exchange it needs: no longer in the
+    # stage, timed for the record
     gather_ms = dev_ms(lambda: disc.gather_traces(sargs[0]), 20)
+    gsk = (sargs[0], disc.gather_traces(sargs[0]), *sargs[2:])
+    gskw = dict(skw, grid=None)
+    k2_gathered_ms = dev_ms(lambda: fv.euler_surface(*gsk, **gskw), 20)
     for name, ms, pms in (("K1 euler_volume", k1_ms, k1_plain_ms),
-                          ("K2 euler_surface", k2_ms, k2_plain_ms)):
+                          ("K2 euler_surface (grid)", k2_ms, k2_plain_ms)):
         print(f"[{card}] {name} N=3 k1d=32 f32: kernel {ms:.4f} ms, plain "
               f"{pms:.4f} ms ({pms / ms:.1f}x), device times")
-    print(f"[{card}] trace exchange (rolls): {gather_ms:.4f} ms; per stage "
-          f"K1+exchange+K2 = {k1_ms + gather_ms + k2_ms:.4f} ms of "
-          f"{stage_ms:.4f} ms")
+    print(f"[{card}] main stage: K1 {k1_ms:.4f} + K2 {k2_ms:.4f} = "
+          f"{k1_ms + k2_ms:.4f} ms of {stage_ms:.4f} ms; not in the stage: "
+          f"the roll exchange {gather_ms:.4f} ms, K2 on gathered traces "
+          f"{k2_gathered_ms:.4f} ms")
+    del gsk
     print_profile(card, "Euler path", device_profile(
         lambda: lsrk45(rhs, q0, DT, 4), 20))
     # the diag-vs-general delta: the general contraction on the same
@@ -2348,7 +2501,7 @@ def main(parent=None):
     gstage_ms = gstep_ms / (5 * TIMED_STEPS)
     gvkw = dict(vkw, diag=False)
     gsargs = (*sargs[:2], torch.stack(disc.nxj), disc.sj, disc.inv_sj,
-              disc.inv_jac, *sargs[6:])
+              disc.inv_jac, *sargs[6:])   # the grid form, general
     gskw = dict(skw, diag=False)
     k1g_ms = dev_ms(lambda: fv.euler_volume(*vargs, **gvkw), 20)
     k2g_ms = dev_ms(lambda: fv.euler_surface(*gsargs, **gskw), 20)
@@ -2366,12 +2519,14 @@ def main(parent=None):
     k_out, k_tr, k_s = kouts
     ne = disc.num_elements
     # bytes the diag variants read and write: q, geo, Ef, LIFT -> ph_qf,
-    # traces; traces, neighbour traces, compact nxj, 1/J, LIFT, ph_qf -> dq
+    # traces; the grid form of K2: traces (its neighbours' are the same
+    # array), compact nxj, 1/J, LIFT, ph_qf -> dq
     k1_bound = bound(nbytes(q0, disc.geo, vargs[2], disc.lift, k_out, k_tr),
                      ops_k1(N + 1, entries(vargs[2]), entries(vargs[3]))
                      * ne,
                      q0.dtype)
-    k2_bound = bound(nbytes(*sargs[:3], sargs[5], disc.lift, sargs[7], k_s),
+    k2_bound = bound(nbytes(sargs[0], sargs[2], sargs[5], disc.lift,
+                            sargs[7], k_s),
                      ops_k2(N + 1, entries(disc.lift)) * ne,
                      q0.dtype)
     udisc = disc      # the uniform mesh, for row 10 (phase 16)
@@ -2866,6 +3021,7 @@ def main(parent=None):
           f"launches {curved_launches}")
     if any(v != 5 * STEPS for v in curved_launches.values()):
         raise AssertionError(f"expected {5 * STEPS} launches of K1 and K2")
+    no_plain_work("curved path")
     if vqf.dtype != torch.float32 or not bool(torch.isfinite(vqf).all()):
         raise AssertionError("curved-path state not finite f32")
     vtwin = make_euler_rhs(vdisc, dissipation=True, flux_diff_impl="lines",
@@ -2937,7 +3093,7 @@ def main(parent=None):
     stamp("15")
     vstep_ms = cuda_ms(lambda: lsrk45(vrhs, vq0, DT, TIMED_STEPS), 1)
     vstage_ms = vstep_ms / (5 * TIMED_STEPS)
-    print(f"[{card}] curved path (K1c+exchange+K2, LSRK45): "
+    print(f"[{card}] curved path (K1c+K2, LSRK45): "
           f"{vdof * 5 * TIMED_STEPS / (vstep_ms / 1e3):.4e} DOF*RK-stage/s, "
           f"{vstage_ms:.4f} ms/stage over {5 * TIMED_STEPS} stages, median "
           f"of {REPEATS}")
@@ -2949,13 +3105,13 @@ def main(parent=None):
     vgather_ms = dev_ms(lambda: vdisc.gather_traces(csargs[0]), 20)
     for name, ms, pms in (("K1c euler_volume (curved)", k1c_ms,
                            k1c_plain_ms),
-                          ("K2 euler_surface (curved normals)", k2c_ms,
+                          ("K2 euler_surface (curved normals, grid)", k2c_ms,
                            k2c_plain_ms)):
         print(f"[{card}] {name} N=3 k1d={K1D} f32: kernel {ms:.4f} ms, "
               f"plain {pms:.4f} ms ({pms / ms:.1f}x), device times")
-    print(f"[{card}] curved stage: K1c {k1c_ms:.4f} + exchange "
-          f"{vgather_ms:.4f} + K2 {k2c_ms:.4f} = "
-          f"{k1c_ms + vgather_ms + k2c_ms:.4f} ms of {vstage_ms:.4f} ms")
+    print(f"[{card}] curved stage: K1c {k1c_ms:.4f} + K2 {k2c_ms:.4f} = "
+          f"{k1c_ms + k2c_ms:.4f} ms of {vstage_ms:.4f} ms; not in the "
+          f"stage: the roll exchange {vgather_ms:.4f} ms")
     print_profile(card, "curved Euler path", device_profile(
         lambda: lsrk45(vrhs, vq0, DT, 4), 20))
     vne = vdisc.num_elements
@@ -3157,24 +3313,44 @@ def main(parent=None):
              fv.euler_volume_split_plain(*vargs, **vkw), tol,
              ("ph_qf", "traces"))
         ph_qf, tr = fv.euler_volume_split_plain(*vargs, **vkw)
-        nbr = disc.gather_traces(tr)
-        nxj = (disc.nxj[0] + disc.nxj[1] + disc.nxj[2])[None]
-        sargs = (tr, nbr, nxj, disc.sj, disc.inv_sj, disc.inv_jac[:1],
-                 disc.lift, ph_qf, gamma)
-        skw = dict(dissipation=True, diag=True)
-        errs["k2"] = held(f"K2 euler_surface (N+1={lo.n1d})", tag,
-                          (fv.euler_surface(*sargs, **skw),),
-                          (fv.euler_surface_plain(*sargs, **skw),), tol,
-                          ("dq",))
-        calls["k2"] = (lambda: fv.euler_surface(*sargs, **skw),
-                       lambda: fv.euler_surface_plain(*sargs, **skw))
         parts = [fv.hex_fd_dir(qh, qlog, disc.geo, gamma, line_ops=lo, d=d,
                                diag=True) for d in range(3)]
+        nbr = disc.gather_traces(tr)
+        # K2 in each form: ph_qf or the three parts, the neighbours given
+        # or read on the grid; the split forms also general (the mesh's
+        # normals and 1/J at every node)
+        diag_geom = ((disc.nxj[0] + disc.nxj[1] + disc.nxj[2])[None],
+                     disc.sj, disc.inv_sj, disc.inv_jac[:1])
+        gen_geom = (torch.stack(disc.nxj), disc.sj, disc.inv_sj,
+                    disc.inv_jac)
+        k2 = {}
+        for form, geom, diag, grid, split in (
+                ("ph_qf, gathered", diag_geom, True, False, False),
+                ("ph_qf, grid", diag_geom, True, True, False),
+                ("split, gathered", diag_geom, True, False, True),
+                ("split, grid (the N=7 path)", diag_geom, True, True, True),
+                ("split, grid, general", gen_geom, False, True, True)):
+            args = (tr, None if grid else nbr, *geom, disc.lift,
+                    None if split else ph_qf, gamma)
+            kw = dict(dissipation=True, diag=diag,
+                      grid=disc.grid_shape if grid else None,
+                      parts=parts if split else None, line_ops=lo)
+            k2[form] = (args, kw)
+            errs["k2"] = max(errs.get("k2", 0.0), held(
+                f"K2 euler_surface (N+1={lo.n1d}, {form})", tag,
+                (fv.euler_surface(*args, **kw),),
+                (fv.euler_surface_plain(*args, **kw),), tol, ("dq",)))
+        sargs, skw = k2["split, grid (the N=7 path)"]
+        calls["k2"] = (lambda: fv.euler_surface(*sargs, **skw),
+                       lambda: fv.euler_surface_plain(*sargs, **skw))
+        oargs, okw = k2["ph_qf, gathered"]
+        calls["k2_ph_qf"] = (lambda: fv.euler_surface(*oargs, **okw), None)
         calls["combine"] = (lambda: fv.split_combine(parts, disc.lift, lo),
                             None)
         calls["exchange"] = (lambda: disc.gather_traces(tr), None)
         io = dict(q=q, ef=ef, qh=qh, qlog=qlog, tr=tr, out=parts[0],
-                  sargs=sargs, dq=fv.euler_surface_plain(*sargs, **skw))
+                  parts=parts, sargs=sargs,
+                  dq=fv.euler_surface_plain(*sargs, **skw))
         return errs, calls, io
 
     d7, q7_0 = euler_hex_3d(n=N7, k1d=N7_K1D, dtype=torch.float32,
@@ -3191,6 +3367,10 @@ def main(parent=None):
     n4_errs, n4_calls, n4_io = split_case(
         d4, q4m, f"N=4 k1d={N4_K1D} f32 (the N=4 bench mesh)",
         random_affine(d4)[0])
+    d3s, _ = euler_hex_3d(n=N, k1d=K1D, dtype=torch.float32, device=dev)
+    split_case(d3s, random_state(d3s, 8), f"N=3 k1d={K1D} f32 (the main "
+               "path's mesh)")
+    del d3s
     for n_, k1d in ((N4, 4), (N7, 3)):
         d_, _ = euler_hex_3d(n=n_, k1d=k1d, dtype=torch.float64, device=dev)
         split_case(d_, random_state(d_, 11), f"N={n_} k1d={k1d} f64"
@@ -3219,6 +3399,7 @@ def main(parent=None):
             "hex_fd_dir_dense": 0}
     if n7_launches != want:
         raise AssertionError(f"expected launches {want} on the N=7 path")
+    no_plain_work("N=7 path")
     if q7f.dtype != torch.float32 or not bool(torch.isfinite(q7f).all()):
         raise AssertionError("N=7 state not finite f32")
     twin7 = make_euler_rhs(d7, dissipation=True, flux_diff_impl="lines",
@@ -3278,6 +3459,7 @@ def main(parent=None):
                  ("hex_fd_dir_dense" if dense else "hex_fd_dir"): 15 * STEPS})
         if counts != want:
             raise AssertionError(f"expected launches {want} for {m!r}")
+        no_plain_work(f"N=4 volume_mode={m!r}")
         if not bool(torch.isfinite(q4f).all()):
             raise AssertionError(f"N=4 {m!r} state not finite")
     del q4f
@@ -3287,7 +3469,7 @@ def main(parent=None):
     dof7 = 5 * d7.np_ * d7.num_elements
     step7_ms = cuda_ms(lambda: lsrk45(rhs7, q7_0, N7_DT, TIMED_STEPS), 1)
     stage7_ms = step7_ms / (5 * TIMED_STEPS)
-    print(f"[{card}] N=7 path (split: projection+3 fd+combine+exchange+K2, "
+    print(f"[{card}] N=7 path (split: projection+3 fd+K2, "
           f"LSRK45): {dof7 * 5 * TIMED_STEPS / (step7_ms / 1e3):.4e} "
           f"DOF*RK-stage/s, {stage7_ms:.4f} ms/stage over "
           f"{5 * TIMED_STEPS} stages, median of {REPEATS}")
@@ -3303,9 +3485,12 @@ def main(parent=None):
                        ("dense0", "hex_fd_dir_dense d=0"),
                        ("dense1", "hex_fd_dir_dense d=1"),
                        ("dense2", "hex_fd_dir_dense d=2"),
-                       ("combine", "combine (plain: sums, 1/w, LIFT matmul)"),
-                       ("exchange", "trace exchange (rolls)"),
-                       ("k2", "K2 euler_surface N+1=8")):
+                       ("k2", "K2 euler_surface N+1=8 (split, grid)"),
+                       ("combine", "not in the stage: the plain combine "
+                        "(sums, 1/w, LIFT matmul)"),
+                       ("exchange", "not in the stage: the roll exchange"),
+                       ("k2_ph_qf", "not in the stage: K2 on ph_qf and "
+                        "gathered traces")):
         call, plain = n7_calls[key]
         ms = dev_ms(call, 20)
         pms = dev_ms(plain, 2) if plain is not None else None
@@ -3314,12 +3499,13 @@ def main(parent=None):
               + (f", plain {pms:.4f} ms ({pms / ms:.1f}x)" if pms else "")
               + ", device time")
     fd_ms = sum(n7_times[f"fd{d}"][0] for d in range(3))
-    split7 = (n7_times["proj"][0] + fd_ms + n7_times["combine"][0]
-              + n7_times["exchange"][0] + n7_times["k2"][0])
+    split7 = n7_times["proj"][0] + fd_ms + n7_times["k2"][0]
+    old7 = [n7_times[key][0] for key in ("k2_ph_qf", "combine", "exchange")]
     print(f"[{card}] N=7 stage: projection {n7_times['proj'][0]:.4f} + fd "
-          f"{fd_ms:.4f} + combine {n7_times['combine'][0]:.4f} + exchange "
-          f"{n7_times['exchange'][0]:.4f} + K2 {n7_times['k2'][0]:.4f} = "
-          f"{split7:.4f} ms of {stage7_ms:.4f} ms")
+          f"{fd_ms:.4f} + K2 {n7_times['k2'][0]:.4f} = {split7:.4f} ms of "
+          f"{stage7_ms:.4f} ms; the parts K2 replaced, K2 on ph_qf + combine "
+          f"+ exchange: {' + '.join(f'{ms:.4f}' for ms in old7)} = "
+          f"{sum(old7):.4f} ms")
     stage7_dev_ms = dev_ms(lambda: lsrk45(rhs7, q7_0, N7_DT, 10), 1) / 50
     print(f"[{card}] N=7 stage device time (queued ahead of the device): "
           f"{stage7_dev_ms:.4f} ms of {stage7_ms:.4f} ms")
@@ -3327,11 +3513,15 @@ def main(parent=None):
         lambda: lsrk45(rhs7, q7_0, N7_DT, 4), 20))
     dof4 = 5 * d4.np_ * d4.num_elements
     ef4 = d4.vhp[d4.nq:]
-    vol4 = {m: (lambda m=m: (fv.euler_volume_split if m.startswith("split")
-                             else fv.euler_volume)(
-        q4m, d4.geo, ef4, d4.lift, gamma, line_ops=d4.line_ops,
+    # the volume stage each mode's RHS runs: K1, or the split front up to
+    # the parts (K2 sums them)
+    vol4 = {m: (lambda m=m: fv.euler_volume_split_parts(
+        q4m, d4.geo, ef4, gamma, line_ops=d4.line_ops,
         **({"dense": True} if m == "split_dense" else {"diag": True}),
-        **({"pad_x": True} if m == "split_pad8" else {})))
+        **({"pad_x": True} if m == "split_pad8" else {}))
+        if m.startswith("split") else fv.euler_volume(
+            q4m, d4.geo, ef4, d4.lift, gamma, line_ops=d4.line_ops,
+            diag=True))
         for m in N4_MODES}
     for m in N4_MODES:
         ms = cuda_ms(lambda: lsrk45(mode_rhs[m], q4_0, DT, N4_TIMED_STEPS),
@@ -3346,7 +3536,7 @@ def main(parent=None):
               f"{vms:.4f} ms (device time)")
     for key, label in (("proj", "hex_project"), ("fd0", "hex_fd_dir d=0"),
                        ("dense0", "hex_fd_dir_dense d=0"),
-                       ("k2", "K2 euler_surface N+1=5")):
+                       ("k2", "K2 euler_surface N+1=5 (split, grid)")):
         print(f"[{card}] {label} N=4 k1d={N4_K1D} f32: "
               f"{dev_ms(n4_calls[key][0], 20):.4f} ms, device time")
     ne7 = d7.num_elements
@@ -3366,9 +3556,14 @@ def main(parent=None):
     dense_bound = bound(fd_in + 3 * ne7 * itemsize + nbytes(n7_io["out"]),
                         PAIR_3D["general"] * (line_pairs(N7 + 1) // 3 * ne7),
                         n7_io["out"].dtype)
+    # K2's split form on the grid: traces (its neighbours' are the same
+    # array), compact nxj, 1/J, LIFT, 1/wq, 1/wf and the three parts -> dq
     sa = n7_io["sargs"]
-    k2n8_bound = bound(nbytes(*sa[:3], sa[5], sa[6], sa[7], n7_io["dq"]),
-                       ops_k2(N7 + 1, entries(sa[6])) * ne7,
+    k2n8_bound = bound(nbytes(sa[0], sa[2], sa[5], sa[6], *n7_io["parts"],
+                              n7_io["dq"])
+                       + (nq7 + nfp7) * itemsize,
+                       ops_k2(N7 + 1, entries(sa[6]), split_form=True)
+                       * ne7,
                        n7_io["dq"].dtype)
     fd_avg = fd_ms / 3
     fd_plain_avg = sum(n7_times[f"fd{d}"][1] for d in range(3)) / 3
@@ -3416,6 +3611,7 @@ def main(parent=None):
         if counts != want:
             raise AssertionError(f"expected launches {want} on the N={n} "
                                  "path")
+        no_plain_work(f"N={n} path")
         if qf.dtype != torch.float32 or not bool(torch.isfinite(qf).all()):
             raise AssertionError(f"N={n} state not finite f32")
         twin_n = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
@@ -3444,7 +3640,7 @@ def main(parent=None):
         dof = 5 * disc.np_ * disc.num_elements
         step_ms = cuda_ms(lambda: lsrk45(rhs_n, q0, dt, TIMED_STEPS), 1)
         stage_ms = step_ms / (5 * TIMED_STEPS)
-        print(f"[{card}] N={n} path (K1+exchange+K2, LSRK45): "
+        print(f"[{card}] N={n} path (K1+K2, LSRK45): "
               f"{dof * 5 * TIMED_STEPS / (step_ms / 1e3):.4e} "
               f"DOF*RK-stage/s, {stage_ms:.4f} ms/stage over "
               f"{5 * TIMED_STEPS} stages, median of {REPEATS}")
@@ -3458,7 +3654,8 @@ def main(parent=None):
         k1n_ms = dev_ms(lambda: fv.euler_volume(*vargs, **vkw), 20)
         k1n_plain_ms = dev_ms(lambda: fv.euler_volume_plain(*vargs, **vkw),
                               2)
-        split_ms = dev_ms(lambda: fv.euler_volume_split(*vargs, **vkw), 20)
+        split_ms = dev_ms(lambda: fv.euler_volume_split_parts(
+            vargs[0], vargs[1], vargs[2], gamma, **vkw), 20)
         k2n_ms = dev_ms(lambda: fv.euler_surface(*sargs, **skw), 20)
         sdev = dev_ms(lambda: lsrk45(rhs_n, q0, dt, 10), 1) / 50
         print(f"[{card}] N={n} volume_mode='split' (one RHS vs K1 rel "
@@ -3467,7 +3664,7 @@ def main(parent=None):
               f"{5 * N4_TIMED_STEPS} stages, against 'auto' (K1) "
               f"{stage_ms:.4f} ms/stage ({sstage_ms / stage_ms - 1:+.1%})")
         print(f"[{card}] N={n} k1d={k1d} f32 device times: K1 {k1n_ms:.4f} ms "
-              f"(plain {k1n_plain_ms:.4f}), split volume stage "
+              f"(plain {k1n_plain_ms:.4f}), split front (to the parts) "
               f"{split_ms:.4f} ms, K2 N+1={n + 1} {k2n_ms:.4f} ms; stage "
               f"queued ahead of the device {sdev:.4f} of {stage_ms:.4f} ms")
         k_out, k_tr, _ = kouts
@@ -3495,6 +3692,7 @@ def main(parent=None):
         print(f"{label}: one RHS, launches {counts}")
         if counts != {"euler_volume": 1, "euler_surface": 1}:
             raise AssertionError(f"expected K1 and K2 once ({label})")
+        no_plain_work(label)
         if not bool(torch.isfinite(dq).all()):
             raise AssertionError(f"{label}: RHS not finite")
         return counts["euler_volume"]

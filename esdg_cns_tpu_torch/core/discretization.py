@@ -99,54 +99,74 @@ class Discretization:
     def __post_init__(self):
         self.wrap_masks = ()
         if self.grid_shape is not None:
-            kz, ky, kx = self.grid_shape
-            idx = torch.arange(self.num_elements, device=self.map_p.device)
-            coords = (idx % kx, (idx // kx) % ky, idx // (kx * ky))
-            self.wrap_masks = tuple(
-                (c == 0, c == p - 1) for c, p in zip(coords, (kx, ky, kz))
-            )
+            self.wrap_masks = _wrap_masks(self.grid_shape, self.map_p.device)
 
     def gather_traces(self, uf: torch.Tensor) -> torch.Tensor:
         """Neighbor values: uf may be [Nfq, K] or [Nf, Nfq, K].
 
         On fully periodic uniform hex grids (grid_shape set) the generic
-        gather is replaced by six flat rolls along the element axis: a
-        +-1 shift along grid axis d is a roll by its stride, with the
-        periodic wrap fixed by blending in a second roll on the wrap
-        columns.  Face 2d pairs with the neighbour's face 2d+1.
+        gather is replaced by ``grid_neighbours``' flat rolls; elsewhere
+        one ``index_select`` through map_p.
         """
         if self.grid_shape is not None and self.elem_type == "hex":
-            kz, ky, kx = self.grid_shape
-            strides = (1, kx, kx * ky)
-            periods = (kx, ky, kz)
-            lead = uf.shape[:-2]
-            nfp = self.nfq // 6
-            v = uf.reshape(*lead, 6, nfp, self.num_elements)
-            fidx = len(lead)
-
-            def take_face(i):
-                return v.select(fidx, i)             # [.., nfp, K]
-
-            outs = []
-            for d in range(3):
-                s = strides[d]
-                p = periods[d] * s
-                lo, hi = self.wrap_masks[d]
-                src_minus = take_face(2 * d + 1)   # opposite (+) face
-                src_plus = take_face(2 * d)        # opposite (-) face
-                outs.append(torch.where(
-                    lo, torch.roll(src_minus, s - p, dims=-1),
-                    torch.roll(src_minus, s, dims=-1),
-                ))
-                outs.append(torch.where(
-                    hi, torch.roll(src_plus, p - s, dims=-1),
-                    torch.roll(src_plus, -s, dims=-1),
-                ))
-            out = torch.stack(outs, dim=fidx)
-            return out.reshape(uf.shape)
+            return grid_neighbours(uf, self.grid_shape, self.wrap_masks)
         flat = uf.reshape(*uf.shape[:-2], self.nfq * self.num_elements)
         return torch.index_select(flat, -1, self.map_p.reshape(-1)) \
             .reshape(uf.shape)
+
+
+def _wrap_masks(grid_shape, device):
+    """(lowmask, highmask) per grid axis x, y, z over the element axis."""
+    kz, ky, kx = grid_shape
+    idx = torch.arange(kx * ky * kz, device=device)
+    coords = (idx % kx, (idx // kx) % ky, idx // (kx * ky))
+    return tuple((c == 0, c == p - 1) for c, p in zip(coords, (kx, ky, kz)))
+
+
+def grid_neighbours(uf: torch.Tensor, grid_shape, wrap_masks=None):
+    """The face-trace exchange of a fully periodic uniform hex grid:
+    uf [.., Nfq, K] -> the neighbours' values at each face point.
+
+    Six flat rolls along the element axis: a +-1 shift along grid axis d
+    is a roll by its stride, with the periodic wrap fixed by blending in
+    a second roll on the wrap columns.  Face 2d pairs with the
+    neighbour's face 2d+1 at the same face-local index.  Plain tensor
+    code; ``grid_neighbours.calls`` counts the calls.
+    """
+    grid_neighbours.calls += 1
+    kz, ky, kx = grid_shape
+    if wrap_masks is None:
+        wrap_masks = _wrap_masks(grid_shape, uf.device)
+    strides = (1, kx, kx * ky)
+    periods = (kx, ky, kz)
+    lead = uf.shape[:-2]
+    nfq, k = uf.shape[-2:]
+    v = uf.reshape(*lead, 6, nfq // 6, k)
+    fidx = len(lead)
+
+    def take_face(i):
+        return v.select(fidx, i)             # [.., nfp, K]
+
+    outs = []
+    for d in range(3):
+        s = strides[d]
+        p = periods[d] * s
+        lo, hi = wrap_masks[d]
+        src_minus = take_face(2 * d + 1)   # opposite (+) face
+        src_plus = take_face(2 * d)        # opposite (-) face
+        outs.append(torch.where(
+            lo, torch.roll(src_minus, s - p, dims=-1),
+            torch.roll(src_minus, s, dims=-1),
+        ))
+        outs.append(torch.where(
+            hi, torch.roll(src_plus, p - s, dims=-1),
+            torch.roll(src_plus, -s, dims=-1),
+        ))
+    out = torch.stack(outs, dim=fidx)
+    return out.reshape(uf.shape)
+
+
+grid_neighbours.calls = 0
 
 
 def build_discretization(

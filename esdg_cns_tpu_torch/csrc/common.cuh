@@ -233,6 +233,12 @@ int launch_shape(Kern kern, int threads, size_t smem, int te, int* occ) {
   return 0;
 }
 
+// A kernel's tile: {elements a block, threads a block, blocks resident an
+// SM asked of __launch_bounds__ (its register cap)}
+struct TileShape {
+  int te, threads, min_blocks;
+};
+
 // Largest tile of elements (32, 16, 8, 4, 2 or 1) whose shared memory,
 // fixed + per_elem * te values of T, fits in a block.
 template <typename T>

@@ -11,12 +11,8 @@
 //   3. U(v_f) at the Nfq face points (pow/exp of the inverse map);
 //   4. flux variables (rho, u, beta) and (log rho, log beta) at all
 //      Nh = Nq + Nfq points, handed to the caller.
-// entropy_project: a block owns TE elements (threadIdx.x, so the K-last
-// loads and stores coalesce) and NW workers (threadIdx.y) per element.
-// v at the volume nodes is staged in vbuf [5][NQ][TE] (shared memory: a
-// face point reads its line's nodes, which other workers wrote).  Lanes
-// past K compute on the quiescent state (rho=1, m=0, E=1) and store
-// nothing.
+// entropy_project (below) runs the four steps on a tile of elements with
+// K1's thread mapping, for the split path's projection kernel.
 #pragma once
 
 #include "common.cuh"
@@ -73,50 +69,107 @@ __device__ __forceinline__ void project_face_point(const T fv[5],
 
 // put(r, node, value) receives row r (0..6) of the flux variables at
 // hybridized point node (volume nodes first, then face point fp at
-// NQ + fp); traces [7, NFQ, K] receives the face points' rows.  vbuf may be
-// reused once this returns (it ends with a barrier).  Every thread of the
-// block calls it.
-template <typename T, int N1, int TE, int NW, typename Put>
+// NQ + fp) of the thread's element; traces [7, NFQ, K] receives the face
+// points' rows.  A block of THREADS threads owns TE elements from k0 and
+// maps t -> (element t % TE, point t / TE), so a thread keeps one element
+// (THREADS is a multiple of TE) and a warp's K-last loads and stores cover
+// TE consecutive elements.  vbuf [5][NQ][TE] holds v(U) at the volume
+// nodes (a face point reads its line's nodes, which other threads wrote).
+// Every thread of the block calls it; lanes past K compute on the
+// quiescent state (rho=1, m=0, E=1) and store nothing.
+template <typename T, int N1, int TE, int THREADS, typename Put>
 __device__ __forceinline__ void entropy_project(const T* __restrict__ q,
                                                 const T* __restrict__ ef,
                                                 T* vbuf, T* __restrict__ traces,
-                                                long long K, long long k,
-                                                bool live, const Consts<T>& c,
-                                                Put put) {
+                                                long long K, long long k0,
+                                                const Consts<T>& c, Put put) {
+  static_assert(THREADS % TE == 0, "a thread keeps one element");
   constexpr int NQ = N1 * N1 * N1, NFQ = 6 * N1 * N1;
-  const int e = threadIdx.x;
-  const int w = threadIdx.y;
+  const int e = threadIdx.x % TE;
+  const long long k = k0 + e;
+  const bool live = k < K;
   auto V = [&](int f, int node) -> T& { return vbuf[(f * NQ + node) * TE + e]; };
 
   // ---- 1. v(U) at the volume nodes + volume flux variables ----
-  for (int i = w; i < NQ; i += NW) {
+  for (int i = threadIdx.x / TE; i < NQ; i += THREADS / TE) {
     T u[5] = {T(1), T(0), T(0), T(0), T(1)};  // quiescent past K
     if (live) {
 #pragma unroll
-      for (int f = 0; f < 5; ++f) u[f] = q[(long long)(f * NQ + i) * K + k];
+      for (int f = 0; f < 5; ++f)
+        u[f] = __ldg(q + (long long)(f * NQ + i) * K + k);
     }
     T v[5], vals[7];
     project_volume_point(u, c, v, vals);
 #pragma unroll
     for (int f = 0; f < 5; ++f) V(f, i) = v[f];
+    if (live) {
 #pragma unroll
-    for (int r = 0; r < 7; ++r) put(r, i, vals[r]);
+      for (int r = 0; r < 7; ++r) put(r, i, k, vals[r]);
+    }
   }
   __syncthreads();
 
   // ---- 2.-4. v_f = Ef v, U(v_f), face flux variables and traces ----
-  for (int fp = w; fp < NFQ; fp += NW) {
+  if (!live) return;  // no barrier below
+  for (int fp = threadIdx.x / TE; fp < NFQ; fp += THREADS / TE) {
     T fv[5] = {T(0), T(0), T(0), T(0), T(0)};
     ef_line<T, N1>(ef, fp, V, fv);
     T vals[7];
     project_face_point(fv, c, vals);
 #pragma unroll
     for (int r = 0; r < 7; ++r) {
-      put(r, NQ + fp, vals[r]);
-      if (live) traces[(long long)(r * NFQ + fp) * K + k] = vals[r];
+      put(r, NQ + fp, k, vals[r]);
+      traces[(long long)(r * NFQ + fp) * K + k] = vals[r];
     }
   }
-  __syncthreads();  // v is read by every worker above
+}
+
+// The split path's projection kernel (row 3; entry in hex_split.cu): the
+// flux variables at all Nh points into qh [5, Nh, K] and qlog [2, Nh, K],
+// and the traces.
+template <typename T, int N1, int TE, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+    hex_project_kernel(const T* __restrict__ q, const T* __restrict__ ef,
+                       T* __restrict__ qh, T* __restrict__ qlog,
+                       T* __restrict__ traces, long long K, double gamma) {
+  constexpr int NH = N1 * N1 * N1 + 6 * N1 * N1;
+  const Consts<T> c(gamma);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* vbuf = reinterpret_cast<T*>(smem_raw);  // [5][NQ][TE]
+  entropy_project<T, N1, TE, THREADS>(
+      q, ef, vbuf, traces, K, (long long)blockIdx.x * TE, c,
+      [&](int r, int node, long long k, T v) {
+        if (r < 5)
+          qh[((long long)r * NH + node) * K + k] = v;
+        else
+          qlog[((long long)(r - 5) * NH + node) * K + k] = v;
+      });
+}
+
+// One line length at one tile: launches, or with occ fills its launch
+// shape (common.cuh's launch_shape; occ[6] = MIN_BLOCKS).  Returns a CUDA
+// error code.
+template <typename T, int N1, int TE, int THREADS, int MIN_BLOCKS>
+int launch_project_tile(const void* q, const void* ef, void* qh, void* qlog,
+                        void* traces, long long K, double gamma,
+                        cudaStream_t stream, int* occ) {
+  constexpr size_t SMEM = size_t(5) * N1 * N1 * N1 * TE * sizeof(T);
+  static_assert(SMEM <= kMaxSmem, "projection tile exceeds shared memory");
+  auto kern = hex_project_kernel<T, N1, TE, THREADS, MIN_BLOCKS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(SMEM));
+  if (err != cudaSuccess) return int(err);
+  if (occ != nullptr) {
+    const int rc = launch_shape(kern, THREADS, SMEM, TE, occ);
+    occ[6] = MIN_BLOCKS;
+    return rc;
+  }
+  const dim3 grid(unsigned((K + TE - 1) / TE));
+  kern<<<grid, THREADS, SMEM, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(ef),
+      static_cast<T*>(qh), static_cast<T*>(qlog), static_cast<T*>(traces), K,
+      gamma);
+  return int(cudaGetLastError());
 }
 
 }  // namespace esdg

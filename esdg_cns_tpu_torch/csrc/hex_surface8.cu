@@ -1,0 +1,5 @@
+// K2 (hex_surface.cuh) at the line length N+1 = 8, for the entry
+// esdg_hex_surface in hex_surface.cu.
+#include "hex_surface.cuh"
+
+template int esdg::surface_order<8>(ESDG_SURFACE_ORDER_ARGS);

@@ -136,12 +136,16 @@ def library() -> ctypes.CDLL:
     lib.esdg_hex_volume.argtypes = [_I] * 4 + [_P] * 10 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_volume.restype = _I
-    lib.esdg_hex_surface.argtypes = [_I, _I, _I, _I] + [_P] * 9 + [
+    lib.esdg_hex_surface.argtypes = [_I] * 6 + [_P, _P] + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_surface.restype = _I
+    lib.esdg_hex_surface_shape.argtypes = [_I] * 5 + [_P]
+    lib.esdg_hex_surface_shape.restype = _I
     lib.esdg_hex_project.argtypes = [_I, _I] + [_P] * 5 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_project.restype = _I
+    lib.esdg_hex_project_shape.argtypes = [_I, _I, _P]
+    lib.esdg_hex_project_shape.restype = _I
     lib.esdg_hex_fd_dir.argtypes = [_I] * 5 + [_P] * 6 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_fd_dir.restype = _I

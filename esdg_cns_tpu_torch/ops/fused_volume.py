@@ -10,10 +10,14 @@ Port of the hex kernels of ``esdg_cns_tpu/ops/pallas_volume.py``:
     flux-differencing launch per direction, ``hex_fd_dir`` (row 4a,
     ``_fd_dir_kernel`` / ``_fd_dir_pad8_kernel``) or ``hex_fd_dir_dense``
     (row 4b, ``_fd_dir_dense_kernel`` / ``_fd_dir_dense_chunked_kernel``),
-    all CUDA ``csrc/hex_split.cu``, then a plain-tensor combine, as the
-    TPU package's is XLA;
+    all CUDA ``csrc/hex_split.cu``, then a plain-tensor combine
+    (``split_combine``), as the TPU package's is XLA;
+    ``euler_volume_split_parts`` stops before the combine;
   * ``euler_surface`` (K2, CUDA ``csrc/hex_surface.cu``) replaces
-    ``_surface_kernel`` / ``euler_surface_pallas``.
+    ``_surface_kernel`` / ``euler_surface_pallas``; on a fully periodic
+    uniform grid it reads each neighbour's traces itself (the exchange's
+    rolls leave the stage), and after the split front it takes the three
+    direction parts and folds the combine into its LIFT.
 
 Each wrapper has a plain PyTorch version beside it (``*_plain``).  The
 wrapper takes the plain version only for CPU tensors; for CUDA tensors
@@ -40,6 +44,7 @@ import functools
 import numpy as np
 import torch
 
+from ..core.discretization import grid_neighbours
 from ..physics.euler import ec_flux_fields
 from .tensor_product_fd import (LineOps, _dir_layout, _hex_line_coeffs,
                                 flux_differencing_lines)
@@ -276,11 +281,61 @@ def euler_volume_shape(dtype, n1, *, diag=False, curved=False):
 # K2: surface stage
 # -----------------------------------------------------------------------------
 
+def surface_neighbour_index(grid_shape, nfp):
+    """K2's neighbour rule on a fully periodic uniform grid
+    (``csrc/hex_surface.cuh``, GRID) in the form of ``map_p``: int64
+    [6 nfp, K] flat indices fp' K + k' of each face point's neighbour.
+    Element k = x + kx (y + ky z) of grid_shape (kz, ky, kx); face 2d pairs
+    with face 2d+1 of element k - s_d (face 2d+1 with face 2d of k + s_d)
+    at the same face-local index, wrapped at the grid's ends;
+    s = (1, kx, kx ky)."""
+    kz, ky, kx = grid_shape
+    k = kx * ky * kz
+    elem = np.arange(k)
+    coord = (elem % kx, (elem // kx) % ky, elem // (kx * ky))
+    period, stride = (kx, ky, kz), (1, kx, kx * ky)
+    out = np.empty((6 * nfp, k), dtype=np.int64)
+    for face in range(6):
+        d, side = divmod(face, 2)
+        sign = 1 if side else -1
+        wrap = coord[d] == (period[d] - 1 if side else 0)
+        kn = elem + sign * stride[d] - sign * wrap * period[d] * stride[d]
+        first = (face - sign) * nfp     # the neighbour's face, point 0
+        out[face * nfp:(face + 1) * nfp] = (
+            (first + np.arange(nfp))[:, None] * k + kn[None, :])
+    return out
+
+
+def _surface_form(name, nbr, grid, ph_qf, parts, line_ops):
+    """Check that exactly one neighbour source and one volume term are
+    given; returns (grid form, split form)."""
+    if (nbr is None) == (grid is None):
+        raise ValueError(f"{name}: pass the gathered neighbour traces nbr "
+                         "or the periodic grid (kz, ky, kx), not both")
+    if (ph_qf is None) == (parts is None):
+        raise ValueError(f"{name}: pass ph_qf or the split path's three "
+                         "direction parts, not both")
+    if parts is not None and (line_ops is None or len(parts) != 3):
+        raise ValueError(f"{name}: the split form takes three parts and "
+                         "line_ops")
+    return grid is not None, parts is not None
+
+
 def euler_surface_plain(traces, nbr, nxj, sj, inv_sj, inv_jac, lift, ph_qf,
                         gamma, *, dissipation: bool = True,
-                        diag: bool = False):
+                        diag: bool = False, grid=None, parts=None,
+                        line_ops: LineOps | None = None):
     """Plain PyTorch fused surface stage; same contract as
-    ``euler_surface`` (mirror of the TPU ``_surface_kernel``)."""
+    ``euler_surface`` (mirror of the TPU ``_surface_kernel``).  The grid
+    form takes the neighbours by the exchange's rolls
+    (``core.discretization.grid_neighbours``), the split form ph_qf by
+    ``split_combine``, then the same surface stage."""
+    grid_form, split_form = _surface_form("euler_surface_plain", nbr, grid,
+                                          ph_qf, parts, line_ops)
+    if grid_form:
+        nbr = grid_neighbours(traces, grid)
+    if split_form:
+        ph_qf = split_combine(parts, lift, line_ops)
     gm1 = gamma - 1.0
     nfp = traces.shape[1] // 6
 
@@ -344,10 +399,18 @@ def euler_surface_plain(traces, nbr, nxj, sj, inv_sj, inv_jac, lift, ph_qf,
 
 
 def euler_surface(traces, nbr, nxj, sj, inv_sj, inv_jac, lift, ph_qf,
-                  gamma, *, dissipation: bool = True, diag: bool = False):
+                  gamma, *, dissipation: bool = True, diag: bool = False,
+                  grid=None, parts=None, line_ops: LineOps | None = None):
     """Fused surface stage; returns the complete RHS dq [5, Nq, K].
 
-    traces, nbr [7, Nfq, K]: local and gathered neighbour traces.
+    traces [7, Nfq, K]: the local traces.  The neighbours' are nbr
+    [7, Nfq, K] (gathered), or, with nbr None and grid = (kz, ky, kx) of a
+    fully periodic uniform grid (``Discretization.grid_shape``), read by
+    the kernel from traces itself (``surface_neighbour_index``).
+    The volume term is ph_qf [5, Nq, K], or, with ph_qf None, the split
+    path's three direction parts ``parts`` [5, Nq + 2 Nfp, K]
+    (``euler_volume_split_parts``; line_ops gives their weights): the
+    kernel folds ``split_combine`` into its LIFT.
     diag: nxj is the COMPACT [1, Nfq, K] normal (each face point's single
     nonzero component) and inv_jac its first row [1, K]; sj / inv_sj are
     not read (derived in the kernel).  General: nxj [3, Nfq, K], sj and
@@ -356,46 +419,76 @@ def euler_surface(traces, nbr, nxj, sj, inv_sj, inv_jac, lift, ph_qf,
     if traces.device.type == "cpu":
         return euler_surface_plain(traces, nbr, nxj, sj, inv_sj, inv_jac,
                                    lift, ph_qf, gamma,
-                                   dissipation=dissipation, diag=diag)
+                                   dissipation=dissipation, diag=diag,
+                                   grid=grid, parts=parts, line_ops=line_ops)
     if traces.device.type != "cuda":
         raise ValueError(f"euler_surface: no kernel for device {traces.device}")
     name = "euler_surface"
+    grid_form, split_form = _surface_form(name, nbr, grid, ph_qf, parts,
+                                          line_ops)
     _, nfq, k = traces.shape
-    nq = ph_qf.shape[1]
     n1 = round((nfq // 6) ** 0.5)
-    tensors = {"traces": traces, "nbr": nbr, "nxj": nxj, "inv_jac": inv_jac,
-               "lift": lift, "ph_qf": ph_qf}
-    shapes = {"traces": (7, nfq, k), "nbr": (7, nfq, k),
-              "nxj": (1 if diag else 3, nfq, k),
-              "inv_jac": (1 if diag else nq, k), "lift": (nq, nfq),
-              "ph_qf": (5, n1 ** 3, k)}
+    nq, nfp = n1 ** 3, n1 * n1
+    tensors = {"traces": traces, "nxj": nxj, "inv_jac": inv_jac,
+               "lift": lift}
+    shapes = {"traces": (7, nfq, k), "nxj": (1 if diag else 3, nfq, k),
+              "inv_jac": (1 if diag else nq, k), "lift": (nq, nfq)}
     if not diag:
         tensors.update(sj=sj, inv_sj=inv_sj)
         shapes.update(sj=(nfq, k), inv_sj=(nfq, k))
+    if grid_form:
+        kz, ky, kx = grid
+        if kx * ky * kz != k:
+            raise ValueError(f"{name}: grid {tuple(grid)} holds "
+                             f"{kx * ky * kz} elements, traces {k}")
+    else:
+        kz = ky = kx = 0
+        tensors["nbr"], shapes["nbr"] = nbr, (7, nfq, k)
+    iw = iwf = None
+    if split_form:
+        if line_ops.n1d != n1:
+            raise ValueError(f"{name}: line_ops has N+1 = {line_ops.n1d}, "
+                             f"the traces {n1}")
+        for d in range(3):
+            tensors[f"parts[{d}]"] = parts[d]
+            shapes[f"parts[{d}]"] = (5, nq + 2 * nfp, k)
+        iw, iwf = _volume_consts(line_ops, traces.dtype, traces.device)[2:]
+    else:
+        tensors["ph_qf"], shapes["ph_qf"] = ph_qf, (5, nq, k)
     _check_cuda(name, tensors, traces.dtype, traces.device)
     for key, t in tensors.items():
         _check_shape(name, key, t, shapes[key])
     out = torch.empty((5, nq, k), dtype=traces.dtype, device=traces.device)
     if k == 0:
         return out
-    from ..kernels import library
+    import ctypes
+
+    from ..kernels import library, pointer_array
 
     lib = library()
-    sj_ptr = nxj.data_ptr() if diag else sj.data_ptr()
-    isj_ptr = nxj.data_ptr() if diag else inv_sj.data_ptr()
+    part = list(parts) if split_form else [None] * 3
+    ptrs = pointer_array([traces, nbr, nxj, None if diag else sj,
+                          None if diag else inv_sj, inv_jac, lift, ph_qf,
+                          *part, iw, iwf, out])
+    dims = (ctypes.c_int * 3)(kx, ky, kz)
     with torch.cuda.device(traces.device):
         stream = torch.cuda.current_stream(traces.device).cuda_stream
         rc = lib.esdg_hex_surface(
-            _DTYPE_CODE[traces.dtype], n1, int(diag), int(dissipation),
-            traces.data_ptr(), nbr.data_ptr(), nxj.data_ptr(), sj_ptr,
-            isj_ptr, inv_jac.data_ptr(), lift.data_ptr(), ph_qf.data_ptr(),
-            out.data_ptr(), k, float(gamma), stream)
+            _DTYPE_CODE[traces.dtype], n1, int(diag), int(grid_form),
+            int(split_form), int(dissipation), ptrs, dims, k, float(gamma),
+            stream)
     _raise_on(name, rc, _N7_BUILT)
     euler_surface.launches += 1
     return out
 
 
 euler_surface.launches = 0
+
+
+def euler_surface_shape(dtype, n1, *, diag=False, grid=False, split=False):
+    """K2's launch shape at line length n1 in one form (``launch_shape``)."""
+    return launch_shape("esdg_hex_surface_shape", _DTYPE_CODE[dtype], n1,
+                        int(diag), int(grid), int(split))
 
 
 # -----------------------------------------------------------------------------
@@ -447,6 +540,11 @@ def hex_project(q, ef, gamma):
 
 
 hex_project.launches = 0
+
+
+def hex_project_shape(dtype, n1):
+    """The projection's launch shape at line length n1 (``launch_shape``)."""
+    return launch_shape("esdg_hex_project_shape", _DTYPE_CODE[dtype], n1)
 
 
 def _fd_coeffs(line_ops, qh, coeffs):
@@ -619,7 +717,9 @@ def split_combine(parts, lift, line_ops: LineOps):
     """Ph QF = 2 (1/wq) sum_d QF_vol,d + 2 LIFT ((1/wf) QF_face): the three
     directions' [5, Nq + 2 Nfp, K] parts -> ph_qf [5, Nq, K].  Plain
     tensor code on every device (the TPU package's combine is XLA); the
-    LIFT product is a float32 matmul with TF32 off."""
+    LIFT product is a float32 matmul with TF32 off.
+    ``split_combine.calls`` counts the calls."""
+    split_combine.calls += 1
     n1 = line_ops.n1d
     nq, nfp = n1 ** 3, n1 * n1
     p0 = parts[0]
@@ -629,6 +729,9 @@ def split_combine(parts, lift, line_ops: LineOps):
                                                  nq + (side + 1) * nfp]
                          for d in range(3) for side in range(2)], dim=1)
     return 2.0 * iw[:, None] * acc_vol + 2.0 * torch.matmul(lift, qf_face)
+
+
+split_combine.calls = 0
 
 
 def _check_split(geo, dense, pad_x):
@@ -651,19 +754,14 @@ def euler_volume_split_plain(q, geo, ef, lift, gamma, *, line_ops: LineOps,
     return split_combine(parts, lift, line_ops), traces
 
 
-def euler_volume_split(q, geo, ef, lift, gamma, *, line_ops: LineOps,
-                       dense: bool = False, diag: bool = False,
-                       pad_x: bool = False):
-    """Split volume stage (affine hex): ``hex_project``, then one
-    ``hex_fd_dir`` (or, dense, ``hex_fd_dir_dense``) per direction, then
-    ``split_combine``.  Same contract as ``euler_volume``: (ph_qf
-    [5, Nq, K], traces [7, Nfq, K]).
-
-    diag: one metric term per direction (axis-aligned mesh; ignored by the
-    dense form, which always contracts all three, as in the TPU package).
-    pad_x: the TPU package's sublane-padded layout of the same math; it
-    runs the same line kernel here and is refused with dense, as there.
-    """
+def euler_volume_split_parts(q, geo, ef, gamma, *, line_ops: LineOps,
+                             dense: bool = False, diag: bool = False,
+                             pad_x: bool = False):
+    """The split volume stage up to the combine: ``hex_project``, then one
+    ``hex_fd_dir`` (or, dense, ``hex_fd_dir_dense``) per direction.
+    Returns (parts, traces): the three [5, Nq + 2 Nfp, K] direction parts,
+    which ``split_combine`` or K2 (``euler_surface(parts=...)``) sum, and
+    traces [7, Nfq, K].  Arguments as ``euler_volume_split``."""
     _check_split(geo, dense, pad_x)
     qh, qlog, traces = hex_project(q, ef, gamma)
     if dense:
@@ -672,4 +770,22 @@ def euler_volume_split(q, geo, ef, lift, gamma, *, line_ops: LineOps,
     else:
         parts = [hex_fd_dir(qh, qlog, geo, gamma, line_ops=line_ops, d=d,
                             diag=diag) for d in range(3)]
+    return parts, traces
+
+
+def euler_volume_split(q, geo, ef, lift, gamma, *, line_ops: LineOps,
+                       dense: bool = False, diag: bool = False,
+                       pad_x: bool = False):
+    """Split volume stage (affine hex): ``euler_volume_split_parts``, then
+    ``split_combine``.  Same contract as ``euler_volume``: (ph_qf
+    [5, Nq, K], traces [7, Nfq, K]).
+
+    diag: one metric term per direction (axis-aligned mesh; ignored by the
+    dense form, which always contracts all three, as in the TPU package).
+    pad_x: the TPU package's sublane-padded layout of the same math; it
+    runs the same line kernel here and is refused with dense, as there.
+    """
+    parts, traces = euler_volume_split_parts(q, geo, ef, gamma,
+                                             line_ops=line_ops, dense=dense,
+                                             diag=diag, pad_x=pad_x)
     return split_combine(parts, lift, line_ops), traces

@@ -81,7 +81,8 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
                         surface_impl: str = "auto",
                         compute_rhstest: bool = True,
                         rhstest_mode: str = "native",
-                        axis_aligned: Optional[bool] = None):
+                        axis_aligned: Optional[bool] = None,
+                        fd_mode: Optional[str] = None):
     """Composed-operator CNS RHS for affine meshes; same contract as
     ``solvers.cns.make_cns_rhs``.
 
@@ -105,6 +106,9 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
       otherwise; 'xla' on the plain volume path).
     rhstest_mode: 'native' or 'f64' (the accumulation of the plain
       diagnostics, ``utils.compensated``).
+    fd_mode: None, 'tri', 'tri8' or 'full': the TPU package's layouts of
+      the fused front's flux differencing, one sum; checked, and the sum
+      computed once.
 
     Returns rhs(q, t) -> (dq, aux{'rhstest_visc'[, 'rhstest',
     'rhstest_visc_total']}).
@@ -112,6 +116,7 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
     if not disc.affine:
         raise ValueError("make_cns_rhs_affine requires an affine mesh")
     from ..ops.cns_surface import cns_surface
+    from ..ops.dense_fd import _check_mode
     from ..ops.cns_surface_bc import prepare_surface_bc
     from ..ops.fused_volume import (detect_axis_aligned, euler_volume,
                                     euler_volume_split)
@@ -125,6 +130,8 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
                           viscous_penalty_rows)
     from .euler import flux_variables
 
+    if fd_mode is not None:
+        _check_mode(fd_mode)
     dim = disc.dim
     nf = dim + 2
     nq = disc.nq

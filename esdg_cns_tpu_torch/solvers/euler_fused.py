@@ -5,14 +5,17 @@ stages per RHS,
 
   1. the volume stage, by ``volume_mode``: K1
      ``ops.fused_volume.euler_volume`` (entropy projection, line-sparse EC
-     flux differencing and Ph QF in one kernel) or the split path
-     ``ops.fused_volume.euler_volume_split`` (projection kernel, one fd
-     kernel per direction, plain combine); either writes ph_qf and the
-     7-row face traces;
-  2. the face-trace exchange ``Discretization.gather_traces`` (flat rolls
-     on the periodic grid, plain tensor ops);
+     flux differencing and Ph QF in one kernel; it writes ph_qf) or the
+     split front ``ops.fused_volume.euler_volume_split_parts``
+     (projection kernel, one fd kernel per direction; it writes the three
+     direction parts); either writes the 7-row face traces;
+  2. on meshes without ``grid_shape``, the face-trace exchange
+     ``Discretization.gather_traces`` (one ``index_select``); on fully
+     periodic uniform grids (every fused Euler preset) none: K2 reads
+     each neighbour's traces itself;
   3. K2 ``ops.fused_volume.euler_surface``: EC interface flux, LF
-     penalty, LIFT, the sum with ph_qf and the 1/J scaling.
+     penalty, LIFT, the sum with ph_qf (or, after the split front, the
+     split combine folded into its LIFT) and the 1/J scaling.
 
 The TPU package's volume modes are resolved as it resolves them: the
 joint modes ('joint', 'joint_pad8', 'joint_packed') are K1's math in
@@ -25,13 +28,12 @@ the plain lines path, as in JAX.  Semantics equal to
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
 
 from ..ops.fused_volume import (detect_axis_aligned, euler_surface,
-                                euler_volume, euler_volume_split)
+                                euler_volume, euler_volume_split_parts)
 from ..physics import euler as phys
 
 
@@ -101,13 +103,13 @@ def make_euler_rhs_fused(
     if axis_aligned is None:
         axis_aligned = detect_axis_aligned(disc)
     mode = resolve_volume_mode(disc, volume_mode)
-    if mode == "split_dense":
-        volume = functools.partial(euler_volume_split, dense=True)
-    elif mode in ("split", "split_pad8"):
-        volume = functools.partial(euler_volume_split, diag=axis_aligned,
-                                   pad_x=mode == "split_pad8")
-    else:   # the joint modes, and an unknown name, as in the TPU package
-        volume = functools.partial(euler_volume, diag=axis_aligned)
+    # the split modes run the split front, the joint ones (and an unknown
+    # name, as in the TPU package) K1
+    split = mode in ("split", "split_pad8", "split_dense")
+    split_kw = dict(dense=mode == "split_dense", diag=axis_aligned,
+                    pad_x=mode == "split_pad8")
+    # on a fully periodic uniform grid K2 finds the neighbours itself
+    grid = disc.grid_shape
 
     if axis_aligned:
         # compact one-row normal: each face point's single nonzero
@@ -121,12 +123,19 @@ def make_euler_rhs_fused(
 
     def rhs(q, t: float = 0.0):
         del t
-        ph_qf, traces = volume(q, disc.geo, ef, disc.lift, gamma,
-                               line_ops=disc.line_ops)
-        nbr = disc.gather_traces(traces)
+        ph_qf = parts = None
+        if split:
+            parts, traces = euler_volume_split_parts(
+                q, disc.geo, ef, gamma, line_ops=disc.line_ops, **split_kw)
+        else:
+            ph_qf, traces = euler_volume(q, disc.geo, ef, disc.lift, gamma,
+                                         line_ops=disc.line_ops,
+                                         diag=axis_aligned)
+        nbr = None if grid is not None else disc.gather_traces(traces)
         rhs_q = euler_surface(traces, nbr, nxj, disc.sj, disc.inv_sj,
                               inv_jac, disc.lift, ph_qf, gamma,
-                              dissipation=dissipation, diag=axis_aligned)
+                              dissipation=dissipation, diag=axis_aligned,
+                              grid=grid, parts=parts, line_ops=disc.line_ops)
         aux = {}
         if compute_rhstest:
             from ..utils.compensated import weighted_entropy_residual

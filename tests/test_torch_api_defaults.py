@@ -11,6 +11,8 @@ to 1e-11 of max |dq| and keeps its properties
 (``tests/test_euler_rhs.py:196-220``).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,3 +105,34 @@ def test_euler_bc_fun_slip_wall_box():
     # different RHS (the hook is applied, not dropped)
     plain, _ = make_euler_rhs(disc, dissipation=True)(q, 0.0)
     assert not torch.equal(plain, dq)
+
+
+@functools.lru_cache(maxsize=1)
+def _fd_mode_case():
+    """(port disc, bc, state, flags, JAX's default RHS on that state) on
+    tests/test_cns_fused.py:277's cavity."""
+    jd, _, jbc, p = jax_cavity(n=3, k1d=4)
+    disc, q0, bc, _ = lid_driven_cavity(n=3, k1d=4, dtype=F64, device="cpu")
+    rng = np.random.default_rng(3)
+    noise = 5e-4 * rng.standard_normal(tuple(q0.shape)) \
+        * np.array([1.0, 0.1, 0.1, 1.0])[:, None, None]
+    q = q0 + torch.as_tensor(noise)
+    flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"],
+                 inviscid_dissipation=True, viscous_dissipation=True,
+                 volume_impl="fused")
+    ref, _ = jax.jit(jax_cns_affine(jd, bc=jbc, **flags, interpret=True))(
+        jnp.asarray(q.numpy()), 0.0)
+    return disc, bc, q, flags, np.asarray(ref)
+
+
+@pytest.mark.parametrize("fd_mode", ["tri", "tri8", "full"])
+def test_cns_rhs_affine_takes_jax_fd_modes(fd_mode):
+    """Repair: make_cns_rhs_affine takes JAX's fd_mode (cns_fused.py:67),
+    whose layouts are one sum: tests/test_cns_fused.py:277-297 on the
+    port, held against JAX's default RHS at its 1e-11 of max |dq|; an
+    unknown mode raises as ops/dense_fd's wrappers do."""
+    disc, bc, q, flags, ref = _fd_mode_case()
+    got, _ = make_cns_rhs_affine(disc, bc=bc, **flags, fd_mode=fd_mode)(q)
+    assert _rel(got, ref) < 1e-11
+    with pytest.raises(ValueError, match="unknown fd_mode"):
+        make_cns_rhs_affine(disc, bc=bc, **flags, fd_mode="tri4")

@@ -284,9 +284,8 @@ def test_split_volume_kernels_match_plain(cuda, dtype, n, k1d):
 @pytest.mark.parametrize("n", [5, 6, 7])
 @pytest.mark.parametrize("diag", [True, False])
 def test_surface_kernel_at_high_order(cuda, dtype, n, diag):
-    """K2 at N+1 = 6..8, with every tile it takes there: 32 elements in
-    f32 at N+1 = 6, 7 and 16 at 8; 16 in f64 at N+1 = 6, 7 and 8 at 8
-    (k1d=3: K=27, a ragged last tile)."""
+    """K2 at N+1 = 6..8, on gathered traces and ph_qf, at the tile it
+    takes there (k1d=3: K=27, a ragged last tile)."""
     disc, _ = euler_hex_3d(n=n, k1d=3, dtype=dtype, device=cuda)
     q = _random_state(disc, dtype, cuda)
     ph_qf, tr = fv.euler_volume_split_plain(
@@ -1219,3 +1218,97 @@ def test_rhs_builds_the_viscous_lists_once(cuda):
     rhs = make_cns_rhs_affine(disc2, volume_impl="fused", mu=p2["mu"],
                               pr=p2["pr"], re=p2["re"], bc=bc2)
     assert rhs.visc_lists is None
+
+
+# ---- K2's grid and split forms and the projection's tile ----
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,shape", [(3, (4, 4, 4)), (3, (3, 3, 3)),
+                                     (7, (2, 2, 2)), (4, (2, 3, 4)),
+                                     (1, (5, 1, 3))])
+@pytest.mark.parametrize("diag", [True, False])
+def test_surface_kernel_grid_and_split_forms_match_plain(cuda, dtype, n,
+                                                         shape, diag):
+    """K2 reading the neighbours on the periodic grid (periods that differ
+    per axis; K=27 and 15 ragged), and taking the split path's three parts
+    in place of ph_qf, each against its plain version (the roll exchange,
+    the split combine, then the plain surface stage); no exchange or
+    combine runs on the card."""
+    from esdg_cns_tpu_torch.core.discretization import grid_neighbours
+    kx, ky, kz = shape
+    vx, vy, vz, etov = uniform_hex_mesh(kx, ky, kz)
+    disc = build_discretization(ref_hex(n), (vx, vy, vz), etov,
+                                periodic_axes=(0, 1, 2), dtype=dtype,
+                                device=cuda, grid_shape=(kz, ky, kx))
+    q = _random_state(disc, dtype, cuda, seed=n)
+    lo = disc.line_ops
+    ph_qf, tr = fv.euler_volume_split_plain(
+        q, disc.geo, disc.vhp[disc.nq:], disc.lift, GAMMA, line_ops=lo,
+        diag=True)
+    parts = [fv.hex_fd_dir_plain(*fv.hex_project_plain(
+        q, disc.vhp[disc.nq:], GAMMA)[:2], disc.geo, GAMMA, line_ops=lo,
+        d=d, diag=True) for d in range(3)]
+    if diag:
+        nxj, inv_jac = _surface_inputs(disc, diag)
+        sj, inv_sj = disc.sj, disc.inv_sj
+    else:
+        _, nxj, sj, inv_sj, inv_jac = _random_affine(disc, dtype, cuda)
+    nbr = disc.gather_traces(tr)
+    for grid in (None, disc.grid_shape):
+        for split in (False, True):
+            args = (tr, None if grid else nbr, nxj, sj, inv_sj, inv_jac,
+                    disc.lift, None if split else ph_qf, GAMMA)
+            kw = dict(dissipation=True, diag=diag, grid=grid,
+                      parts=parts if split else None, line_ops=lo)
+            b = fv.euler_surface_plain(*args, **kw)
+            before = (fv.euler_surface.launches, grid_neighbours.calls,
+                      fv.split_combine.calls)
+            a = fv.euler_surface(*args, **kw)
+            torch.cuda.synchronize()
+            assert (fv.euler_surface.launches, grid_neighbours.calls,
+                    fv.split_combine.calls) == (before[0] + 1, *before[1:])
+            assert _rel(a, b) <= TOL[dtype], (grid, split)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n1", [2, 3, 4, 5, 6, 7, 8])
+def test_surface_and_projection_launch_shapes(cuda, dtype, n1):
+    """K2's tile (every grid form) and the projection's fit the card: at
+    least one resident block, its threads a multiple of its elements, and
+    at N+1 = 8 in f32 at least 16 warps an SM (the old tiles held 8)."""
+    for diag in (True, False):
+        for split in (True, False):
+            occ = fv.euler_surface_shape(dtype, n1, diag=diag, grid=True,
+                                         split=split)
+            blocks, threads, smem, _, _, te, _ = occ
+            assert blocks >= 1 and threads % te == 0 and smem <= 232448
+            if dtype == torch.float32 and n1 == 8:
+                assert blocks * threads // 32 >= 16, (diag, split)
+    blocks, threads, smem, _, _, te, _ = fv.hex_project_shape(dtype, n1)
+    assert blocks >= 1 and threads % te == 0 and smem <= 232448
+    if dtype == torch.float32 and n1 == 8:
+        assert blocks * threads // 32 >= 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,kw", [(3, {}), (7, dict(force_fused=True)),
+                                  (4, dict(volume_mode="split_dense")),
+                                  (3, dict(axis_aligned=False))])
+def test_grid_stages_run_no_exchange_or_combine(cuda, n, kw):
+    """On the periodic grid the fused Euler RHS launches K1 or the split
+    front, then K2, and runs no roll exchange and no split combine; it
+    equals the lines twin."""
+    from esdg_cns_tpu_torch.core.discretization import grid_neighbours
+    disc, _ = euler_hex_3d(n=n, k1d=3, dtype=torch.float64, device=cuda)
+    q = _random_state(disc, torch.float64, cuda, seed=3)
+    rhs = make_euler_rhs_fused(disc, dissipation=True, **kw)
+    before = (fv.euler_surface.launches, grid_neighbours.calls,
+              fv.split_combine.calls)
+    got, _ = rhs(q)
+    torch.cuda.synchronize()
+    assert (fv.euler_surface.launches, grid_neighbours.calls,
+            fv.split_combine.calls) == (before[0] + 1, *before[1:])
+    want, _ = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
+                             compute_rhstest=False)(q)
+    assert _rel(got, want) <= 1e-11

@@ -94,9 +94,9 @@ def test_euler_fused_takes_k1_and_matches_jax(monkeypatch, n, curved, kw,
     assert euler_fused.resolve_volume_mode(
         td, kw.get("volume_mode", "auto")) == mode
     calls = _counting(monkeypatch, euler_fused,
-                      ("euler_volume", "euler_volume_split"))
+                      ("euler_volume", "euler_volume_split_parts"))
     got, _ = make_euler_rhs_fused(td, dissipation=True, **kw)(tq)
-    assert calls == {"euler_volume": 1, "euler_volume_split": 0}
+    assert calls == {"euler_volume": 1, "euler_volume_split_parts": 0}
     ref, _ = jax_euler_fused(jd, dissipation=True, interpret=True, **kw)(jq)
     assert _rel(got, ref) <= TOL
 

@@ -162,13 +162,13 @@ def test_volume_modes_resolve_as_in_jax(monkeypatch):
     """'auto' picks the joint kernel at N=4 and the split path at N=7
     (8 % (N+1) == 0, N+1 != 4); the split modes reach the split stage."""
     split_calls = []
-    real = euler_fused.euler_volume_split
+    real = euler_fused.euler_volume_split_parts
 
     def counting(*args, **kw):
         split_calls.append(kw)
         return real(*args, **kw)
 
-    monkeypatch.setattr(euler_fused, "euler_volume_split", counting)
+    monkeypatch.setattr(euler_fused, "euler_volume_split_parts", counting)
     for n, mode, want in ((4, "auto", "joint_packed"), (7, "auto", "split"),
                           (2, "auto", "joint_packed"), (1, "auto", "joint"),
                           (4, "split_pad8", "split_pad8")):
@@ -189,13 +189,13 @@ def test_n7_force_fused_takes_the_split_path_and_matches_jax(monkeypatch):
     the diag form on this axis-aligned mesh) and equals JAX's at 1e-11."""
     jd, td, jq, tq = _pair(7)
     calls = []
-    real = euler_fused.euler_volume_split
+    real = euler_fused.euler_volume_split_parts
 
     def counting(*args, **kw):
         calls.append(kw)
         return real(*args, **kw)
 
-    monkeypatch.setattr(euler_fused, "euler_volume_split", counting)
+    monkeypatch.setattr(euler_fused, "euler_volume_split_parts", counting)
     got, _ = make_euler_rhs_fused(td, dissipation=True, force_fused=True)(tq)
     assert len(calls) == 1 and calls[0]["diag"] is True
     ref, _ = jax_euler_fused(jd, dissipation=True, force_fused=True,
