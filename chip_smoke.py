@@ -112,7 +112,10 @@ Phases (each raises on failure; nothing is caught):
      split grid form also general), at the N=7 path's shapes (k1d=16
      f32), the N=4 bench mesh (k1d=24 f32), the main path's mesh (N=3
      k1d=32 f32), and in f64 at N=4 k1d=4 and N=7 k1d=3 (K=27, a ragged
-     tile);
+     tile); then the fd and its dense form at every N+1 = 2..8, f32 and
+     f64, on K=27, on a moving state and at rest (every pair of equal
+     states), diag and general on the mesh's metric, general and dense
+     on a random one;
  19. the N=7 path: presets.euler_hex_3d(7, 16, f32) ->
      make_euler_rhs_fused(force_fused=True), which resolves to the split
      path ('auto', diag detected) -> lsrk45 for 20 steps at dt=2.5e-4 with
@@ -218,12 +221,14 @@ Phases (each raises on failure; nothing is caught):
      tree's on the same card, in turns (parent, new, new, parent): K1 in
      every form at the paths' shapes, K3 at each dim (the 3D cavity moving
      and at rest), K5, K4 in every form the paths run, K7 at dims 1, 2
-     and 3, K8, rows 4a, 4b, 10 and 14, the projection (row 3) and K2 at
+     and 3, K8, rows 10 and 14, the split fd (4a diag and general, 4b) at
+     N+1 = 5..8 in each direction, the projection (row 3) and K2 at
      every N+1 the paths run, on its own and against the parent's K2 with
      the exchange (and, after the split front, the combine) it took in,
      each pair held to each other, and the parent's roll exchange at N=3;
      the device-bound stages (Euler N=3, N=4 'auto', N=5, N=6, curved,
-     N=7, 'split' at N=4, 5, 6) over 300 stages and the host-bound ones'
+     N=7, 'split' at N=4, 5, 6, 'split_dense' at N=4) over 300 stages and
+     the host-bound ones'
      device busy time,
      torch.profiler over 100 stages (both cavities' default forms, the 3D
      cavity's 'fused' form, Becker 3D, the 1D anchor path), their wall
@@ -495,9 +500,10 @@ def nbytes(*tensors):
 # its hand total in that weighing, with the divisions, logs, exps, powers
 # and square roots the source does and the FMAs and multiplies it shows;
 # add takes the rest of the total.
-# Pair costs: the 3D EC pair with one metric direction (diag) 74, seven
-# of them divisions (ec_pair_n: the two logarithmic means' v and series
-# term, rho's mean, beta's reciprocal mean, the pressure average); the
+# Pair costs: the 3D EC pair with one metric direction (diag) 74, five
+# of them divisions (ec_pair_n: the two logarithmic means' v, rho's mean,
+# beta's reciprocal mean, the pressure average; the two series terms
+# v / 448 are multiplies by 1/448, common.cuh); the
 # general 3-term contraction adds the two other directional fluxes (12)
 # and two more metric terms per field (20): 106; a curved metric adds the
 # pairwise average of the three terms (6): 112.  The 2D EC pair with both
@@ -540,13 +546,13 @@ def split(total, fma=0, mul=0, **special):
     return Ops(fma=fma, mul=mul, add=rest - mul, **special)
 
 
-PAIR_3D = {"diag": split(74, fma=11, mul=27, div=7),
-           "general": split(106, fma=23, mul=35, div=7),
-           "curved": split(112, fma=23, mul=38, div=7)}
-PAIR_MODAL = {1: split(55, fma=15, mul=14, div=7),
-              2: split(85, fma=29, mul=20, div=7),
+PAIR_3D = {"diag": split(74, fma=11, mul=29, div=5),
+           "general": split(106, fma=23, mul=37, div=5),
+           "curved": split(112, fma=23, mul=40, div=5)}
+PAIR_MODAL = {1: split(55, fma=15, mul=16, div=5),
+              2: split(85, fma=29, mul=22, div=5),
               3: PAIR_3D["general"]}
-PAIR_TRI_CURVED = split(93, fma=29, mul=24, div=7)
+PAIR_TRI_CURVED = split(93, fma=29, mul=26, div=5)
 # pow is libdevice's expansion, exp(y log x) with corrections: priced as a
 # log, an exp and a multiply
 POW_PARTS = ("log", "exp", "mul")
@@ -622,17 +628,18 @@ def ops_k1(n1, ef_entries, lift_entries, form="diag"):
 
 
 def ops_k2(n1, lift_entries, diag=True, split_form=False):
-    """At every face node the EC pair, both sides' conservative states,
-    both wave speeds (three divisions and a square root each) and LF; the
-    general form adds the two other directional fluxes (12), two more
-    normal terms per field (20) and the 3-component normal velocity of
-    both sides (8), and reads 1/sj where diag divides.  The split form
+    """At every face node the EC pair (five divisions, as PAIR_3D's),
+    both sides' conservative states, both wave speeds (three divisions
+    and a square root each) and LF; the general form adds the two other
+    directional fluxes (12), two more normal terms per field (20) and the
+    3-component normal velocity of both sides (8), and reads 1/sj where
+    diag divides.  The split form
     adds the combine: 2 (1/wf) face rows at each face node, and at each
     volume node 2 (1/wq) times the three parts' sum where ph_qf was
     read."""
     nq, nfq = n1 ** 3, 6 * n1 * n1
-    face = (split(120, fma=22, mul=50, div=16, sqrt=2) if diag
-            else split(160, fma=38, mul=58, div=15, sqrt=2))
+    face = (split(120, fma=22, mul=52, div=14, sqrt=2) if diag
+            else split(160, fma=38, mul=60, div=13, sqrt=2))
     if split_form:
         face = face + Ops(fma=5, mul=1)
     node = split(26, fma=5, mul=6) if split_form else split(15, mul=5)
@@ -698,16 +705,17 @@ def ops_face(dim, rebuild_local):
     """One face node of the CNS surface stage: the traces rebuilt (the
     neighbour's conservative (one division) and entropy ones, with
     rebuild_local the local ones too), the BC ghosts and ghost logs, the
-    EC pair and its dim directions contracted with the normal, LF (two
-    wave speeds: two divisions and a square root each), the entropy BC,
-    the jump and the penalty rows (two divisions)."""
+    EC pair (five divisions, as PAIR_3D's) and its dim directions
+    contracted with the normal, LF (two wave speeds: two divisions and a
+    square root each), the entropy BC, the jump and the penalty rows (two
+    divisions)."""
     nf = dim + 2
     cons = split(3 * dim + 4, fma=dim, mul=dim + 4, div=1)
     evars = split(3 * dim + 7, fma=dim + 1, mul=dim + 3)
     rebuild = (cons + evars) * (2 if rebuild_local else 1)
     ghosts = split(7 * dim + 2, fma=2 * dim - 1, log=2)
     pair = split(34 + 4 * dim + dim * (2 * dim + 2 + 2 * nf),
-                 fma=7 + 2 * dim + (dim - 1) * nf, div=7)
+                 fma=7 + 2 * dim + (dim - 1) * nf, mul=2, div=5)
     lf = split(4 * dim + 19 + 3 * nf, fma=2 * (dim - 1) + nf, div=4,
                sqrt=2)
     return (rebuild + ghosts + pair + lf + Ops(add=nf)
@@ -751,13 +759,11 @@ def ptxas_report(log):
     build log: the N=3 hex kernels (K1 diag, general and curved; row
     10), K1 and row 10 curved at N=4 in f64, K1 at N = 5, 6, 7 in every
     form and type (a line of a curved f64 thread is more than its 255
-    registers hold), the split fd at N=4 and N=7 (direction 0, diag,
-    general and dense; K2's and the projection's are in their shape
-    lines), K3 at every dim and form, the CNS kernels, K5 and the
-    Becker bisection, the fd section at N+1 = 5, 6, 7 and the probes.  A
-    spill line counts
-    only under its own entry's "Function properties" (not under a device
-    function's, such as libdevice's pow)."""
+    registers hold; K2's, the projection's and the split fd's are in
+    their shape lines), K3 at every dim and form, the CNS kernels, K5 and
+    the Becker bisection, the fd section at N+1 = 5, 6, 7 and the probes.
+    A spill line counts only under its own entry's "Function properties"
+    (not under a device function's, such as libdevice's pow)."""
     out, entry, props = [], None, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -785,7 +791,6 @@ def ptxas_report(log):
         prec = "f64" if form.startswith("Id") else "f32"
         flags = [b == "1" for b in re.findall(r"Lb([01])E", form)]
         ints = re.findall(r"Li(\d+)E", form)
-        n_of = {"5": 4, "8": 7}.get(ints[0]) if ints else None
         if kind == "fd_section":
             out.append(f"ptxas N+1={ints[0]} {kind} {prec} "
                        f"{'diag' if flags[0] else 'general'}: {report}")
@@ -794,16 +799,8 @@ def ptxas_report(log):
             out.append(f"ptxas {kind}" + (f" kind {ints[0]}" if ints else "")
                        + f": {report}")
             continue
-        if kind in ("hex_surface", "hex_project"):
+        if kind in ("hex_surface", "hex_project", "hex_fd_dir"):
             continue    # in their shape lines (kernel_shapes)
-        if kind == "hex_fd_dir":
-            # the split fd at N=4 and N=7 in direction 0
-            if n_of is None or ints[1] != "0":
-                continue
-            variant = (" dense" if flags[1] else
-                       " diag" if flags[0] else " general")
-            out.append(f"ptxas N={n_of} {kind} {prec}{variant}: {report}")
-            continue
         if kind.startswith("hex_"):
             if kind == "hex_volume":
                 variant = ("diag" if flags[0] else
@@ -1588,8 +1585,10 @@ def shape_line(label, occ, ptx):
 
 def kernel_shapes(dev, log):
     """The launch shape of every K1 instantiation (N+1 = 2..8, diag,
-    general, curved, f32 and f64), of K2 in its grid forms and the split
-    projection (row 3) at N+1 = 2..8, of K3 at each dim (and curved tris) and
+    general, curved, f32 and f64), of K2 in its grid forms, the split
+    projection (row 3) and the split fd (rows 4a, 4b; at N+1 = 8 in f32
+    at least 16 warps an SM and no local memory, else it raises) at
+    N+1 = 2..8, of K3 at each dim (and curved tris) and
     of K4 (both fold_tail forms) and K7 at dim 3 (hex N=3 with either
     front, N=5 without) at the paths' operators, as
     cudaOccupancyMaxActiveBlocksPerMultiprocessor
@@ -1638,6 +1637,24 @@ def kernel_shapes(dev, log):
             print(shape_line(f"row 3 hex_project N+1={n1} {prec}", occ[:6],
                              ptx))
             warps[("row 3", n1, "", prec)] = occ[0] * ((occ[1] + 31) // 32)
+            # the split fd (rows 4a, 4b; dense runs the general kernel) in
+            # direction 0 (the others differ in their strides alone)
+            for diag in (True, False):
+                occ = fv.hex_fd_dir_shape(dtype, n1, diag=diag)
+                mangled = (f"hex_fd_dir_kernelI{'f' if prec == 'f32' else 'd'}"
+                           f"Li{n1}ELi0ELb{int(diag)}E")
+                ptx = next((tuple(v) for name, v in entries.items()
+                            if mangled in name), None)
+                form = "diag" if diag else "general (dense)"
+                print(shape_line(f"rows 4a/4b hex_fd_dir N+1={n1} {form} "
+                                 f"{prec} (min blocks {occ[6]})", occ[:6],
+                                 ptx))
+                w = occ[0] * ((occ[1] + 31) // 32)
+                warps[("fd", n1, form, prec)] = w
+                if prec == "f32" and n1 == 8 and (w < 16 or occ[4]):
+                    raise AssertionError(
+                        f"hex_fd_dir N+1=8 {form} f32: {w} warps an SM, "
+                        f"{occ[4]} local bytes (want >= 16 and 0)")
     cases = (("hex N=3", lambda dt: lid_driven_cavity_3d(3, 2, dtype=dt,
                                                          device=dev)[0]),
              ("tri N=3", lambda dt: lid_driven_cavity(3, 2, dtype=dt,
@@ -1687,26 +1704,6 @@ def kernel_shapes(dev, log):
     return warps
 
 
-def load_parent(parent_dir):
-    """The parent tree's port, PARENT_DIR/esdg_cns_tpu_torch, imported as
-    the package esdg_parent beside this tree's (its imports are relative):
-    its wrappers launch its own kernels, built from its own sources into
-    its own build folder."""
-    import importlib
-    import importlib.util
-    from pathlib import Path
-
-    init = Path(parent_dir).resolve() / "esdg_cns_tpu_torch" / "__init__.py"
-    if not init.exists():
-        raise FileNotFoundError(f"--parent: no {init}")
-    spec = importlib.util.spec_from_file_location(
-        "esdg_parent", init, submodule_search_locations=[str(init.parent)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules["esdg_parent"] = pkg
-    spec.loader.exec_module(pkg)
-    return lambda name: importlib.import_module(f"esdg_parent.{name}")
-
-
 # the A/B's turns: parent, this tree, this tree, parent
 AB_TURNS = ("parent", "new", "new", "parent")
 # a kernel or stage of this tree slower than the parent's by more than
@@ -1727,6 +1724,8 @@ def ab_phase(card, dev, dev_ms, parent_dir):
     Returns the rows [(name, parent ms, new ms)]."""
     import numpy as np
     import torch
+
+    from esdg_cns_tpu_torch.probes.timing import load_parent
 
     par = load_parent(parent_dir)
     pkernels = par("kernels")
@@ -1923,22 +1922,34 @@ def ab_phase(card, dev, dev_ms, parent_dir):
         turns(label, calls)
         del disc, q, qh, qlog, largs
         torch.cuda.empty_cache()
-    for label, n, k1d, dense in (("row 4a N=7 k1d=16", 7, 16, False),
-                                 ("row 4a N=4 k1d=24", 4, 24, False),
-                                 ("row 4b N=4 k1d=24", 4, 24, True)):
+    # the split fd at the 'split' paths' shapes, N+1 = 5..8: diag and the
+    # dense form on the mesh's metric (the paths' forms), general on a
+    # random affine one
+    for n, k1d in ((4, 24), (5, 20), (6, 16), (7, 16)):
         disc, _ = npre.euler_hex_3d(n=n, k1d=k1d, dtype=f32, device=dev)
         qh, qlog = fd_inputs(disc, rstate(disc, 6))
-        for d in range(3):
-            kw = dict(line_ops=disc.line_ops, d=d)
-            if not dense:
-                kw["diag"] = True
-            nf_ = nfv.hex_fd_dir_dense if dense else nfv.hex_fd_dir
-            pf_ = pfv.hex_fd_dir_dense if dense else pfv.hex_fd_dir
-            calls = {"new": lambda: nf_(qh, qlog, disc.geo, 1.4, **kw),
-                     "parent": lambda: pf_(qh, qlog, disc.geo, 1.4, **kw)}
-            agree(label, calls["new"](), calls["parent"]())
-            turns(f"{label} d={d}", calls)
-        del disc, qh, qlog
+        rgeo = torch.as_tensor(np.random.default_rng(9).uniform(
+            0.5, 1.5, (9, 1, disc.num_elements)), dtype=f32, device=dev)
+        for row, form, geo in (("4a", "diag", disc.geo),
+                               ("4a", "general, random metric", rgeo),
+                               ("4b", "dense", disc.geo)):
+            label = f"row {row} N+1={n + 1} k1d={k1d} {form}"
+            for d in range(3):
+                kw = dict(line_ops=disc.line_ops, d=d)
+                if row == "4a":
+                    kw["diag"] = form == "diag"
+                nf_ = nfv.hex_fd_dir_dense if row == "4b" else nfv.hex_fd_dir
+                pf_ = pfv.hex_fd_dir_dense if row == "4b" else pfv.hex_fd_dir
+                calls = {"new": lambda: nf_(qh, qlog, geo, 1.4, **kw),
+                         "parent": lambda: pf_(qh, qlog, geo, 1.4, **kw)}
+                agree(label, calls["new"](), calls["parent"]())
+                turns(f"{label} d={d}", calls)
+            p_ms, n_ms = (statistics.mean(r[i] for r in rows[-3:])
+                          for i in (1, 2))
+            print(f"[{card}] A/B {label}, mean of the three directions: "
+                  f"parent {p_ms:.4f} ms, new {n_ms:.4f} ms "
+                  f"({n_ms / p_ms:.3f}x)")
+        del disc, qh, qlog, rgeo
         torch.cuda.empty_cache()
     # ---- row 3, and K2: on its own (gathered traces, ph_qf) and with
     # the work it took in (the parent's K2 after its roll exchange and,
@@ -2074,6 +2085,10 @@ def ab_phase(card, dev, dev_ms, parent_dir):
              N7_DT, False),
             ("Euler N=4 k1d=24 'split'",
              lambda pp, ps: euler_case(pp, ps, 4, 24, volume_mode="split"),
+             N5_DT, False),
+            ("Euler N=4 k1d=24 'split_dense'",
+             lambda pp, ps: euler_case(pp, ps, 4, 24,
+                                       volume_mode="split_dense"),
              N5_DT, False),
             ("Euler N=5 k1d=20 'split'",
              lambda pp, ps: euler_case(pp, ps, 5, 20, volume_mode="split"),
@@ -3376,6 +3391,52 @@ def main(parent=None):
         split_case(d_, random_state(d_, 11), f"N={n_} k1d={k1d} f64"
                    + (" (K=27, ragged)" if k1d == 3 else ""),
                    random_affine(d_)[0])
+    # the split fd at every N+1 = 2..8, f32 and f64, on ragged K = 27, on
+    # a moving state and at rest (uniform density and pressure, so every
+    # pair is of equal states): diag and general on the mesh's metric,
+    # general and dense on a random one
+    for n_ in range(1, 8):
+        for dt_ in (torch.float32, torch.float64):
+            d_, _ = euler_hex_3d(n=n_, k1d=3, dtype=dt_, device=dev)
+            prec = str(dt_).replace("torch.", "")
+            rgeo = random_affine(d_)[0]
+            full = lambda v, *sh: torch.full((*sh, d_.np_, d_.num_elements),
+                                             v, dtype=dt_, device=dev)
+            rest = primitive_to_conservative(full(1.2), full(0.0, 3),
+                                             full(1.5))
+            for state, q_ in (("moving", random_state(d_, 30 + n_)),
+                              ("at rest", rest)):
+                qh, qlog, _ = fv.hex_project_plain(q_, d_.vhp[d_.nq:],
+                                                   gamma)
+                errs = {}
+                for d in range(3):
+                    kw = dict(line_ops=d_.line_ops, d=d)
+                    for form, geo, diag in (
+                            ("diag", d_.geo, True),
+                            ("general", d_.geo, False),
+                            ("general, random metric", rgeo, False),
+                            ("dense", d_.geo, None),
+                            ("dense, random metric", rgeo, None)):
+                        if diag is None:
+                            got = fv.hex_fd_dir_dense(qh, qlog, geo, gamma,
+                                                      **kw)
+                            want = fv.hex_fd_dir_dense_plain(
+                                qh, qlog, geo, gamma, **kw)
+                        else:
+                            got = fv.hex_fd_dir(qh, qlog, geo, gamma,
+                                                diag=diag, **kw)
+                            want = fv.hex_fd_dir_plain(qh, qlog, geo, gamma,
+                                                       diag=diag, **kw)
+                        errs[form] = max(errs.get(form, 0.0),
+                                         rel_err(got, want)[0])
+                print(f"split fd N+1={n_ + 1} K=27 {prec} {state}, the "
+                      "three directions: rel " + ", ".join(
+                          f"{k} {v:.3e}" for k, v in errs.items())
+                      + f" (tol {TOL[prec]:.0e})")
+                if not all(v <= TOL[prec] for v in errs.values()):
+                    raise AssertionError(f"the split fd disagrees with its "
+                                         f"plain version (N+1={n_ + 1}, "
+                                         f"{prec}, {state})")
     del d_
 
     # ---- 19. the N=7 path ----
@@ -3534,11 +3595,21 @@ def main(parent=None):
               f"{5 * N4_TIMED_STEPS} stages, median of {REPEATS}; stage "
               f"queued ahead of the device {sdev:.4f} ms; volume stage "
               f"{vms:.4f} ms (device time)")
+    # row 4b at the shape of the run that counts its launches (the N=4
+    # 'split_dense' path), each direction beside its plain version
+    n4_times = {}
     for key, label in (("proj", "hex_project"), ("fd0", "hex_fd_dir d=0"),
                        ("dense0", "hex_fd_dir_dense d=0"),
+                       ("dense1", "hex_fd_dir_dense d=1"),
+                       ("dense2", "hex_fd_dir_dense d=2"),
                        ("k2", "K2 euler_surface N+1=5 (split, grid)")):
-        print(f"[{card}] {label} N=4 k1d={N4_K1D} f32: "
-              f"{dev_ms(n4_calls[key][0], 20):.4f} ms, device time")
+        call, plain = n4_calls[key]
+        ms = dev_ms(call, 20)
+        pms = dev_ms(plain, 2) if key.startswith("dense") else None
+        n4_times[key] = (ms, pms)
+        print(f"[{card}] {label} N=4 k1d={N4_K1D} f32: kernel {ms:.4f} ms"
+              + (f", plain {pms:.4f} ms ({pms / ms:.1f}x)" if pms else "")
+              + ", device time")
     ne7 = d7.num_elements
     nq7, nfp7 = d7.nq, d7.nfq // 6
     itemsize = 4
@@ -3553,9 +3624,13 @@ def main(parent=None):
     fd_bound = bound(fd_in + ne7 * itemsize + nbytes(n7_io["out"]),
                      PAIR_3D["diag"] * (line_pairs(N7 + 1) // 3 * ne7),
                      n7_io["out"].dtype)
-    dense_bound = bound(fd_in + 3 * ne7 * itemsize + nbytes(n7_io["out"]),
-                        PAIR_3D["general"] * (line_pairs(N7 + 1) // 3 * ne7),
-                        n7_io["out"].dtype)
+    # row 4b at N=4 k1d=24: the general form's reads (three metric rows)
+    # and pairs, each once
+    ne4, nq4, nfp4 = d4.num_elements, d4.nq, d4.nfq // 6
+    dense_bound = bound(7 * (nq4 + 2 * nfp4) * ne4 * itemsize
+                        + 3 * ne4 * itemsize + nbytes(n4_io["out"]),
+                        PAIR_3D["general"] * (line_pairs(N4 + 1) // 3 * ne4),
+                        n4_io["out"].dtype)
     # K2's split form on the grid: traces (its neighbours' are the same
     # array), compact nxj, 1/J, LIFT, 1/wq, 1/wf and the three parts -> dq
     sa = n7_io["sargs"]
@@ -3567,8 +3642,13 @@ def main(parent=None):
                        n7_io["dq"].dtype)
     fd_avg = fd_ms / 3
     fd_plain_avg = sum(n7_times[f"fd{d}"][1] for d in range(3)) / 3
-    dense_avg = sum(n7_times[f"dense{d}"][0] for d in range(3)) / 3
-    dense_plain_avg = sum(n7_times[f"dense{d}"][1] for d in range(3)) / 3
+    dense_avg = sum(n4_times[f"dense{d}"][0] for d in range(3)) / 3
+    dense_plain_avg = sum(n4_times[f"dense{d}"][1] for d in range(3)) / 3
+    dense7_avg = sum(n7_times[f"dense{d}"][0] for d in range(3)) / 3
+    print(f"[{card}] hex_fd_dir_dense, mean of the directions: N=4 "
+          f"k1d={N4_K1D} {dense_avg:.4f} ms (plain {dense_plain_avg:.4f}), "
+          f"N=7 k1d={N7_K1D} {dense7_avg:.4f} ms; hex_fd_dir diag N=7 "
+          f"{fd_avg:.4f} ms (device times)")
     del rhs7, mode_rhs, vol4, n7_calls, n4_calls, n7_io, n4_io, d4, q4m
 
     # ---- 22., 23. K1 at N+1 = 6, 7: the Euler paths JAX runs on it ----
@@ -3938,7 +4018,8 @@ def main(parent=None):
          r10_ms, r10_plain_ms, r10_bound),
         # the split path: launches over the N=7 path's 100 stages (the
         # dense fd: the N=4 'split_dense' run's); ms per launch at N=7
-        # k1d=16 (the fd: the mean of the three directions)
+        # k1d=16 (the fd: the mean of the three directions; the dense fd
+        # at N=4 k1d=24, the shape of the run that counts it)
         ("hex_project", "hex_split.cu", "pallas_volume.py:429",
          n7_launches["hex_project"], n7_errs["proj"], *n7_times["proj"],
          proj_bound),
@@ -3946,8 +4027,9 @@ def main(parent=None):
          n7_launches["hex_fd_dir"], n7_errs["fd"], fd_avg, fd_plain_avg,
          fd_bound),
         ("hex_fd_dir_dense", "hex_split.cuh", "pallas_volume.py:930",
-         mode_launches["split_dense"]["hex_fd_dir_dense"], n7_errs["dense"],
-         dense_avg, dense_plain_avg, dense_bound),
+         mode_launches["split_dense"]["hex_fd_dir_dense"],
+         max(n7_errs["dense"], n4_errs["dense"]), dense_avg,
+         dense_plain_avg, dense_bound),
         ("euler_surface_n8", "hex_surface.cu", "pallas_volume.py:1146",
          n7_launches["euler_surface"], n7_errs["k2"], *n7_times["k2"],
          k2n8_bound),

@@ -116,23 +116,40 @@ extern "C" int esdg_hex_project_shape(int dtype, int n1, int* occ) {
                      0, 1.4, nullptr, occ);
 }
 
-// One direction d (0, 1, 2) of the split fd; geo [9, 1, K] affine.  diag
-// takes one metric term (axis-aligned mesh); dense the dense form, which
-// always contracts all three.  Returns cudaGetLastError() after the
-// launch, -1 for an unsupported n1, -2 for an unknown dtype, -3 for diag
-// with dense, -4 for a direction outside 0..2.
-extern "C" int esdg_hex_fd_dir(int dtype, int n1, int d, int diag, int dense,
-                               const void* qh, const void* qlog,
-                               const void* geo, const void* cvol,
-                               const void* cface, void* out, long long K,
-                               double gamma, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (diag && dense) return -3;
+static int hex_fd_dir(int dtype, int n1, int d, int diag, const void* qh,
+                      const void* qlog, const void* geo, const void* cvol,
+                      const void* cface, void* out, long long K,
+                      double gamma, void* stream, int* occ) {
   auto direction = d == 0   ? esdg::fd_dir_direction<0>
                    : d == 1 ? esdg::fd_dir_direction<1>
                    : d == 2 ? esdg::fd_dir_direction<2>
                             : nullptr;
   if (direction == nullptr) return -4;
-  return direction(dtype, n1, diag, dense, qh, qlog, geo, cvol, cface, out,
-                   K, gamma, st);
+  return direction(dtype, n1, diag, qh, qlog, geo, cvol, cface, out, K,
+                   gamma, static_cast<cudaStream_t>(stream), occ);
+}
+
+// One direction d (0, 1, 2) of the split fd; geo [9, 1, K] affine.  diag
+// takes one metric term (axis-aligned mesh); dense the dense form (row
+// 4b), which is the general form with each pair once (hex_split.cuh).
+// Returns cudaGetLastError() after the launch, -1 for an unsupported n1,
+// -2 for an unknown dtype, -3 for diag with dense, -4 for a direction
+// outside 0..2.
+extern "C" int esdg_hex_fd_dir(int dtype, int n1, int d, int diag, int dense,
+                               const void* qh, const void* qlog,
+                               const void* geo, const void* cvol,
+                               const void* cface, void* out, long long K,
+                               double gamma, void* stream) {
+  if (diag && dense) return -3;
+  return hex_fd_dir(dtype, n1, d, diag, qh, qlog, geo, cvol, cface, out, K,
+                    gamma, stream, nullptr);
+}
+
+// The split fd's launch shape in direction d at line length n1, diag or
+// general (the dense form's) (common.cuh's launch_shape: occ[7]); returns
+// as esdg_hex_fd_dir.
+extern "C" int esdg_hex_fd_dir_shape(int dtype, int n1, int d, int diag,
+                                     int* occ) {
+  return hex_fd_dir(dtype, n1, d, diag, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, 0, 1.4, nullptr, occ);
 }

@@ -1,10 +1,10 @@
 // The line-sparse skew EC flux differencing of collocated hex elements,
-// shared by K1 (hex_volume.cu), the standalone line kernel (hex_lines.cu),
-// the fd section (fd_section.cuh) and the split path's per-direction
-// kernels (hex_split.cuh).  It replaces the copies of one loop in the TPU
-// package: the fd mid-section of
-// esdg_cns_tpu/ops/pallas_volume.py::_volume_kernel, the per-direction
-// kernels _fd_dir_kernel / _fd_dir_dense_kernel of the same file and
+// shared by K1 (hex_volume.cu), the standalone line kernel (hex_lines.cu)
+// and the fd section (fd_section.cuh); the split path's per-direction
+// kernel (hex_split.cuh) mostly spreads a line's pairs over its nodes'
+// threads instead, and runs line_pairs in its one-thread-a-line tiles.
+// It replaces the copies of one loop in the TPU package: the fd
+// mid-section of esdg_cns_tpu/ops/pallas_volume.py::_volume_kernel and
 // esdg_cns_tpu/ops/tensor_product_fd.py::_hex_lines_kernel, whose pair
 // bookkeeping must agree.
 //
@@ -13,16 +13,15 @@
 // u1, u2, u3, beta, log rho, log beta)) through the caller's loader,
 // evaluates every vol-vol pair ONCE (a < a', the triangular form: node a'
 // receives the negated contribution, exact because S1 is skew and the
-// flux symmetric) or, DENSE, every node against all N+1 nodes of its line
-// (cvol's diagonal is zero), and every vol-face pair, keeps the line's
-// sums in registers and hands them to the caller: the volume sums of its
-// N+1 nodes and the face rows (the skew negatives of the vol-face
-// couplings) of its two face points.  Every volume node lies on exactly
-// one line of a direction and every face point of faces 2d, 2d+1 on
-// exactly one, so no two threads of one direction write one value.  HOLD
-// keeps the line's points in registers (the split kernels, which read
-// them from global memory); otherwise each pair reads both its points
-// again from the caller's shared tile (7 (N+1) fewer registers).
+// flux symmetric) and every vol-face pair, keeps the line's sums in
+// registers and hands them to the caller: the volume sums of its N+1
+// nodes and the face rows (the skew negatives of the vol-face couplings)
+// of its two face points.  Every volume node lies on exactly one line of
+// a direction and every face point of faces 2d, 2d+1 on exactly one, so
+// no two threads of one direction write one value.  HOLD keeps the
+// line's points in registers (K1 at N+1 = 8); otherwise each pair reads
+// both its points again from the caller's shared tile (7 (N+1) fewer
+// registers).
 //
 // line_fd runs the lines of all three directions of a tile of TE elements
 // AT ONCE: one thread per (element, direction, line), 3 (N+1)^2 threads
@@ -134,7 +133,7 @@ struct VolumeTile {
 // ops/tensor_product_fd._hex_line_coeffs.  A pair's coefficient multiplies
 // its metric terms before the flux is contracted (one product where
 // scaling the five flux components took five).
-template <typename T, int N1, bool DIAG, bool CURVED, bool DENSE, bool HOLD,
+template <typename T, int N1, bool DIAG, bool CURVED, bool HOLD,
           typename VLoad, typename FLoad, typename GLoad, typename VolOut,
           typename FaceOut>
 __device__ __forceinline__ void line_pairs(int d, int L, const T g[3],
@@ -144,8 +143,6 @@ __device__ __forceinline__ void line_pairs(int d, int L, const T g[3],
                                            FLoad fload, GLoad gload,
                                            VolOut vol_out, FaceOut face_out) {
   static_assert(!(DIAG && CURVED), "the diag form is for affine meshes");
-  static_assert(!(DENSE && (DIAG || CURVED || !HOLD)),
-                "the dense form takes the affine 3-term contraction");
   constexpr int NQ = N1 * N1 * N1, NFP = N1 * N1;
   const int stride = line_stride<N1>(d);
   const int base = line_base<N1>(d, L);
@@ -186,43 +183,28 @@ __device__ __forceinline__ void line_pairs(int d, int L, const T g[3],
 #pragma unroll
     for (int x = 0; x < (DIAG ? 1 : 3); ++x) gs[x] = g[x] * cf;
   };
-  if constexpr (DENSE) {
-    // every node against every node of its line: node a gets cvol*F(a, ap)
+  // vol-vol pairs, each once: node a gets cvol*F, node ap its negative
 #pragma unroll
-    for (int a = 0; a < N1; ++a) {
+  for (int ap = 1; ap < N1; ++ap) {
 #pragma unroll
-      for (int ap = 0; ap < N1; ++ap) {
-        T gs[3], fr[5];
-        scaled(__ldg(cv + ap * NQ + a * stride), gs);
-        contracted_flux<T, false>(qv[a], qv[ap], d, gs, c, fr);
+    for (int a = 0; a < ap; ++a) {
+      T Lv[7], R[7];
+      point(a, Lv);
+      point(ap, R);
+      const T cf = __ldg(cv + ap * NQ + a * stride);
+      T gs[3], fr[5];
+      if constexpr (CURVED) {
+        const T half_cf = T(0.5) * cf;
 #pragma unroll
-        for (int f = 0; f < 5; ++f) al[a][f] += fr[f];
+        for (int x = 0; x < 3; ++x) gs[x] = (gv[a][x] + gv[ap][x]) * half_cf;
+      } else {
+        scaled(cf, gs);
       }
-    }
-  } else {
-    // vol-vol pairs, each once: node a gets cvol*F, node ap its negative
+      contracted_flux<T, DIAG>(Lv, R, d, gs, c, fr);
 #pragma unroll
-    for (int ap = 1; ap < N1; ++ap) {
-#pragma unroll
-      for (int a = 0; a < ap; ++a) {
-        T Lv[7], R[7];
-        point(a, Lv);
-        point(ap, R);
-        const T cf = __ldg(cv + ap * NQ + a * stride);
-        T gs[3], fr[5];
-        if constexpr (CURVED) {
-          const T half_cf = T(0.5) * cf;
-#pragma unroll
-          for (int x = 0; x < 3; ++x) gs[x] = (gv[a][x] + gv[ap][x]) * half_cf;
-        } else {
-          scaled(cf, gs);
-        }
-        contracted_flux<T, DIAG>(Lv, R, d, gs, c, fr);
-#pragma unroll
-        for (int f = 0; f < 5; ++f) {
-          al[a][f] += fr[f];
-          al[ap][f] -= fr[f];
-        }
+      for (int f = 0; f < 5; ++f) {
+        al[a][f] += fr[f];
+        al[ap][f] -= fr[f];
       }
     }
   }
@@ -322,7 +304,7 @@ __device__ __forceinline__ void line_fd(T* sh, const T* __restrict__ geo,
   // are the only reader of that point
   const T scale = iwf != nullptr ? iwf[L] : T(1);
   T vs[N1][5];
-  line_pairs<T, N1, DIAG, CURVED, false, Tile::HOLD>(
+  line_pairs<T, N1, DIAG, CURVED, Tile::HOLD>(
       d, L, g, cvol, cface, c, vload, fload, gload,
       [&](int f, int a, int, T s) { vs[a][f] = s; },
       [&](int f, int side, T s) {

@@ -149,6 +149,8 @@ def library() -> ctypes.CDLL:
     lib.esdg_hex_fd_dir.argtypes = [_I] * 5 + [_P] * 6 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_fd_dir.restype = _I
+    lib.esdg_hex_fd_dir_shape.argtypes = [_I] * 4 + [_P]
+    lib.esdg_hex_fd_dir_shape.restype = _I
     lib.esdg_hex_volume_shape.argtypes = [_I] * 4 + [_P]
     lib.esdg_hex_volume_shape.restype = _I
     lib.esdg_modal_volume.argtypes = [_I, _I, _I] + [_P] * 7 + [

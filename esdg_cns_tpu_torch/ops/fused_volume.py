@@ -33,8 +33,8 @@ the line loop, ``csrc/line_fd.cuh``), K2 with per-point normals, sj and
 1/J (its general form).  K1 keeps an element's flux variables in shared
 memory and runs one thread per (element, direction, line), the three
 directions at once (``csrc/line_fd.cuh``); it is built, as K2 and the
-split path (one line of one direction per thread in registers, affine
-only) are, for N = 1..7.
+split path (affine only; the fd spreads each line's pairs over its
+nodes' threads, ``fd_pair_schedule``) are, for N = 1..7.
 """
 
 from __future__ import annotations
@@ -661,6 +661,23 @@ def _fd_dir_launch(name, qh, qlog, geo, gamma, line_ops, d, diag, dense,
     return out
 
 
+def fd_pair_schedule(n1):
+    """The split fd kernel's pair schedule on one line
+    (``csrc/hex_split.cuh``, kFdPairs): a list of rounds, each a list of
+    the pairs (a, p) that the threads of nodes a evaluate in that round,
+    p a node of the line or, p = n1 + side, its face point on face
+    2d + side.  Rounds r = 1..n1 // 2 pair node a with node a + r mod n1
+    (at even n1 the last round, distance n1 / 2, only for a < n1 / 2):
+    node a keeps s F(a, p) and node p receives its negative, s the
+    triangular form's coefficient cvol[d n1 + max(a, p)][node min(a, p)],
+    negated when a > p.  The last two rounds pair every node with face
+    point 0, then 1: node a keeps c F and the face row, summed over the
+    line's nodes in node order, takes the negatives."""
+    rounds = [[(a, (a + r) % n1) for a in range(n1) if 2 * r < n1 or a < r]
+              for r in range(1, n1 // 2 + 1)]
+    return rounds + [[(a, n1 + side) for a in range(n1)] for side in (0, 1)]
+
+
 def hex_fd_dir_plain(qh, qlog, geo, gamma, *, line_ops: LineOps, d: int,
                      diag: bool = False, coeffs=None):
     """Plain PyTorch version of ``hex_fd_dir``."""
@@ -698,9 +715,11 @@ def hex_fd_dir_dense_plain(qh, qlog, geo, gamma, *, line_ops: LineOps,
 
 def hex_fd_dir_dense(qh, qlog, geo, gamma, *, line_ops: LineOps, d: int):
     """Direction d of the dense flat-partner flux differencing (row 4b):
-    every node against all N+1 nodes of its line (cvol's diagonal is zero)
-    and both face points, always the 3-term affine contraction; same
-    contract as ``hex_fd_dir``."""
+    every node against all N+1 nodes of its line and both face points,
+    always the 3-term affine contraction; same contract as
+    ``hex_fd_dir``.  cvol's line blocks are skew with a zero diagonal and
+    the flux is symmetric, so on the card it runs ``hex_fd_dir``'s general
+    kernel, every pair once: the same function, another roundoff."""
     if qh.device.type == "cpu":
         return hex_fd_dir_dense_plain(qh, qlog, geo, gamma,
                                       line_ops=line_ops, d=d)
@@ -711,6 +730,22 @@ def hex_fd_dir_dense(qh, qlog, geo, gamma, *, line_ops: LineOps, d: int):
 
 
 hex_fd_dir_dense.launches = 0
+
+
+def hex_fd_dir_shape(dtype, n1, *, diag=False, d=0):
+    """The split fd's launch shape at line length n1 in direction d, diag
+    or general (the dense form's) (``launch_shape``)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"hex_fd_dir_shape: dtype {dtype} not supported "
+                        "(float32 or float64)")
+    if d not in (0, 1, 2):
+        raise ValueError(f"hex_fd_dir_shape: direction {d}, expected 0, 1 "
+                         "or 2")
+    if not 2 <= n1 <= 8:
+        raise NotImplementedError(f"hex_fd_dir_shape: N+1 = {n1}: "
+                                  f"{_N7_BUILT}")
+    return launch_shape("esdg_hex_fd_dir_shape", _DTYPE_CODE[dtype], n1, d,
+                        int(diag))
 
 
 def split_combine(parts, lift, line_ops: LineOps):

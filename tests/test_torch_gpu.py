@@ -281,6 +281,57 @@ def test_split_volume_kernels_match_plain(cuda, dtype, n, k1d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7])
+def test_split_fd_every_order_moving_and_at_rest(cuda, dtype, n):
+    """Rows 4a and 4b at every N+1 = 2..8 on K=27 (a ragged last tile), on
+    a moving state and at rest (uniform density and pressure: every pair
+    of equal states), diag and general on the mesh's metric, general and
+    dense on a random affine one."""
+    disc, _ = euler_hex_3d(n=n, k1d=3, dtype=dtype, device=cuda)
+    sh = (disc.np_, disc.num_elements)
+    full = lambda v, *lead: torch.full((*lead, *sh), v, dtype=dtype,
+                                       device=cuda)
+    rest = primitive_to_conservative(full(1.2), full(0.0, 3), full(1.5))
+    random_geo = _random_affine(disc, dtype, cuda)[0]
+    lo = disc.line_ops
+    for q in (_random_state(disc, dtype, cuda, seed=n), rest):
+        qh, qlog, _ = fv.hex_project_plain(q, disc.vhp[disc.nq:], GAMMA)
+        for d in range(3):
+            for geo, diag in ((disc.geo, True), (disc.geo, False),
+                              (random_geo, False)):
+                a = fv.hex_fd_dir(qh, qlog, geo, GAMMA, line_ops=lo, d=d,
+                                  diag=diag)
+                b = fv.hex_fd_dir_plain(qh, qlog, geo, GAMMA, line_ops=lo,
+                                        d=d, diag=diag)
+                torch.cuda.synchronize()
+                assert _rel(a, b) <= TOL[dtype], (d, diag)
+            for geo in (disc.geo, random_geo):
+                a = fv.hex_fd_dir_dense(qh, qlog, geo, GAMMA, line_ops=lo,
+                                        d=d)
+                b = fv.hex_fd_dir_dense_plain(qh, qlog, geo, GAMMA,
+                                              line_ops=lo, d=d)
+                torch.cuda.synchronize()
+                assert _rel(a, b) <= TOL[dtype], d
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n1", [2, 3, 4, 5, 6, 7, 8])
+def test_split_fd_launch_shape(cuda, dtype, n1):
+    """The split fd's tile fits the card in both forms: at least one
+    resident block, its threads a multiple of its elements, and at N+1 = 8
+    in f32 at least 16 warps an SM and no local memory (the old tile held
+    8 warps)."""
+    for diag in (True, False):
+        blocks, threads, smem, _, local, te, _ = fv.hex_fd_dir_shape(
+            dtype, n1, diag=diag)
+        assert blocks >= 1 and threads % te == 0 and smem <= 232448
+        if dtype == torch.float32 and n1 == 8:
+            assert blocks * threads // 32 >= 16 and local == 0, diag
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [5, 6, 7])
 @pytest.mark.parametrize("diag", [True, False])
 def test_surface_kernel_at_high_order(cuda, dtype, n, diag):

@@ -290,6 +290,39 @@ def test_counts_by_kind_keep_the_old_totals(n1):
                 == old.pair_3d[form] * cs.line_pairs(n1) // 3 * 5)
 
 
+_PAIRS = {"3d " + k: v for k, v in cs.PAIR_3D.items()}
+_PAIRS.update({f"modal dim {k}": v for k, v in cs.PAIR_MODAL.items()},
+              tri_curved=cs.PAIR_TRI_CURVED)
+
+
+@pytest.mark.parametrize("name", sorted(_PAIRS))
+def test_pair_counts_take_five_divisions(name):
+    """Every EC pair count takes the five divisions ec_pair_n performs
+    (csrc/common.cuh: the two logarithmic means' v, rho's mean, beta's
+    reciprocal mean, the pressure average; the two series terms v / 448
+    are multiplies by 1/448), and keeps its old total."""
+    old = _old_counts()
+    totals = {"3d " + k: v for k, v in old.pair_3d.items()}
+    totals.update({f"modal dim {k}": v for k, v in old.pair_modal.items()},
+                  tri_curved=93)
+    assert _PAIRS[name]["div"] == 5
+    assert _PAIRS[name].flops() == totals[name]
+
+
+@pytest.mark.parametrize("dim", [1, 2, 3])
+def test_face_counts_take_the_pairs_five_divisions(dim):
+    """The CNS face node: one division to rebuild each conservative trace
+    (the neighbour's, and with rebuild_local the local one), the pair's
+    five, two wave speeds' four and the penalty rows' two; K2's face node
+    the pair's five, both sides' conservative states, both wave speeds'
+    six and, diag, 1/sj."""
+    for local, rebuilt in ((True, 2), (False, 1)):
+        assert cs.ops_face(dim, local)["div"] == rebuilt + 5 + 4 + 2
+    nfq = 6 * 4 * 4
+    assert cs.ops_k2(4, 0, diag=True)["div"] == (5 + 2 + 6 + 1) * nfq
+    assert cs.ops_k2(4, 0, diag=False)["div"] == (5 + 2 + 6) * nfq
+
+
 def _disc(kind, n):
     """A two-element-a-side discretization: its operators are the
     reference element's."""
