@@ -29,6 +29,7 @@ import torch
 
 from ..mesh.connectivity import build_node_maps, connect_mesh, make_periodic
 from ..mesh.geometry import geometric_factors_2d, geometric_factors_3d
+from ..tracing import span
 from .ref_elem import RefElem
 
 # static fields, and the tensor fields (tuple-valued ones hold one tensor
@@ -108,11 +109,12 @@ class Discretization:
         gather is replaced by ``grid_neighbours``' flat rolls; elsewhere
         one ``index_select`` through map_p.
         """
-        if self.grid_shape is not None and self.elem_type == "hex":
-            return grid_neighbours(uf, self.grid_shape, self.wrap_masks)
-        flat = uf.reshape(*uf.shape[:-2], self.nfq * self.num_elements)
-        return torch.index_select(flat, -1, self.map_p.reshape(-1)) \
-            .reshape(uf.shape)
+        with span("core.discretization.gather_traces"):
+            if self.grid_shape is not None and self.elem_type == "hex":
+                return grid_neighbours(uf, self.grid_shape, self.wrap_masks)
+            flat = uf.reshape(*uf.shape[:-2], self.nfq * self.num_elements)
+            return torch.index_select(flat, -1, self.map_p.reshape(-1)) \
+                .reshape(uf.shape)
 
 
 def _wrap_masks(grid_shape, device):

@@ -46,6 +46,7 @@ import torch
 
 from ..core.discretization import grid_neighbours
 from ..physics.euler import ec_flux_fields
+from ..tracing import span
 from .tensor_product_fd import (LineOps, _dir_layout, _hex_line_coeffs,
                                 flux_differencing_lines)
 
@@ -530,10 +531,11 @@ def hex_project(q, ef, gamma):
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.esdg_hex_project(
-            _DTYPE_CODE[q.dtype], n1, q.data_ptr(), ef.data_ptr(),
-            qh.data_ptr(), qlog.data_ptr(), traces.data_ptr(), k,
-            float(gamma), stream)
+        with span("ops.fused_volume.hex_project"):
+            rc = lib.esdg_hex_project(
+                _DTYPE_CODE[q.dtype], n1, q.data_ptr(), ef.data_ptr(),
+                qh.data_ptr(), qlog.data_ptr(), traces.data_ptr(), k,
+                float(gamma), stream)
     _raise_on(name, rc, _N7_BUILT)
     hex_project.launches += 1
     return qh, qlog, traces

@@ -51,6 +51,7 @@ import torch
 
 from ..physics import euler as phys
 from ..physics.viscous import viscous_flux_nd
+from ..tracing import span
 from .dg_ops import _apply
 
 
@@ -263,9 +264,10 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
         vol = euler_volume_split if split_front else euler_volume
         ph_qf, tr = vol(q, geo, ef, disc.lift, gamma,
                         line_ops=disc.line_ops, diag=hex_diag)
-        vu_q = phys.v_ufun(q, gamma)
-        vqd = (None if use_fused_viscous
-               else list(_apply(front, vu_q).split(nq, dim=1)))
+        with span("solvers.cns_fused.entropy_vars"):
+            vu_q = phys.v_ufun(q, gamma)
+            vqd = (None if use_fused_viscous
+                   else list(_apply(front, vu_q).split(nq, dim=1)))
         return (tr, *traces(tr), vu_q, vqd, ph_qf)
 
     front_fn = {"fused": front_fused,
@@ -312,14 +314,12 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
             if viscous_dissipation:
                 pen = viscous_penalty_rows(disc, bc, adiab, vuf, vup, dv, re)
 
-        if use_merged:
-            rhstest_visc = torch.sum(prod)
-        elif use_fused_viscous:
+        # the viscous mid-section, where K4 did not run it
+        if use_fused_viscous and not use_merged:
             t_f, div, prod, vuq = cns_viscous(
                 vuq, dv, geo, nxj, inv_j, disc.wjq, front, vqlift, ef, drpq,
                 contract=True, **visc_kw)
-            rhstest_visc = torch.sum(prod)
-        else:
+        elif not use_fused_viscous:
             grad_q = [(sum(geo[r * dim + x] * vqd[r] for r in range(dim))
                        + _apply(vqlift, 0.5 * dv * disc.nxj[x][None]))
                       * inv_j for x in range(dim)]
@@ -333,32 +333,36 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
                                           for x in range(dim)))
                       for r in range(dim))
 
-        # ---- exchange 2: the contracted traction ----
-        t_ex = gather(t_f)
-        t_pn = neighbor_traction(disc, bc, t_f, t_ex, t)
-        jump_n = 0.5 * (t_pn - t_f)
-        if use_merged and fold_tail:
-            # everything but the jump LIFT happened in the kernel
-            dq = dq_part + _apply(disc.lift, jump_n) * inv_j[None]
-            return dq, {"rhstest_visc": rhstest_visc}
+        # ---- the tail: the production's sum, exchange 2 (the contracted
+        # traction), the traction BC, the jump's LIFT and the 1/J scaling
+        with span("solvers.cns_fused.tail"):
+            if use_fused_viscous:
+                rhstest_visc = torch.sum(prod)
+            t_ex = gather(t_f)
+            t_pn = neighbor_traction(disc, bc, t_f, t_ex, t)
+            jump_n = 0.5 * (t_pn - t_f)
+            if use_merged and fold_tail:
+                # everything but the jump LIFT happened in the kernel
+                dq = dq_part + _apply(disc.lift, jump_n) * inv_j[None]
+                return dq, {"rhstest_visc": rhstest_visc}
 
-        lift_in = [flux, jump_n] + ([pen] if viscous_dissipation else [])
-        lifted = _apply(disc.lift, torch.stack(lift_in))
-        dq_i = -(ph_qf + lifted[0]) * inv_j[None]
-        dq_v = (div + lifted[1]) * inv_j[None]
-        if viscous_dissipation:
-            # the lifted penalty is added after the 1/J scaling
-            # (reference cavity_optimized:840-846)
-            dq_v = dq_v + lifted[2]
-        dq = dq_i + dq_v
-        aux = {"rhstest_visc": rhstest_visc}
-        if compute_rhstest:
-            aux["rhstest"] = weighted_entropy_residual(
-                disc.wjq, vuq, _apply(disc.vq, dq), rhstest_mode)
-            rtv = weighted_entropy_residual(
-                disc.wjq, vuq, _apply(disc.vq, dq_v), rhstest_mode)
-            aux["rhstest_visc_total"] = rtv + rhstest_visc
-        return dq, aux
+            lift_in = [flux, jump_n] + ([pen] if viscous_dissipation else [])
+            lifted = _apply(disc.lift, torch.stack(lift_in))
+            dq_i = -(ph_qf + lifted[0]) * inv_j[None]
+            dq_v = (div + lifted[1]) * inv_j[None]
+            if viscous_dissipation:
+                # the lifted penalty is added after the 1/J scaling
+                # (reference cavity_optimized:840-846)
+                dq_v = dq_v + lifted[2]
+            dq = dq_i + dq_v
+            aux = {"rhstest_visc": rhstest_visc}
+            if compute_rhstest:
+                aux["rhstest"] = weighted_entropy_residual(
+                    disc.wjq, vuq, _apply(disc.vq, dq), rhstest_mode)
+                rtv = weighted_entropy_residual(
+                    disc.wjq, vuq, _apply(disc.vq, dq_v), rhstest_mode)
+                aux["rhstest_visc_total"] = rtv + rhstest_visc
+            return dq, aux
 
     # the lists the kernels read, for holding them against the plain
     # versions on the same lists

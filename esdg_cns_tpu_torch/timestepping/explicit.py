@@ -19,6 +19,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..tracing import span
+
 # Carpenter & Kennedy (1994) RK45(5,4) low-storage coefficients.
 LSRK45_A = np.array([
     0.0,
@@ -67,10 +69,12 @@ def lsrk45(rhs: Callable, q0, dt, num_steps: int, t0=0.0):
     for i in range(num_steps):
         t = t0 + i * dt
         aux_last = None
-        for s in range(5):
-            dq, aux_last = rhs(q, t + float(LSRK45_C[s]) * dt)
-            res = float(LSRK45_A[s]) * res + dt * dq
-            q = q + float(LSRK45_B[s]) * res
+        with span("timestepping.explicit.lsrk45.step"):
+            for s in range(5):
+                dq, aux_last = rhs(q, t + float(LSRK45_C[s]) * dt)
+                with span("timestepping.explicit.lsrk45.update"):
+                    res = float(LSRK45_A[s]) * res + dt * dq
+                    q = q + float(LSRK45_B[s]) * res
         per_step.append(aux_last)
     return q, _stack_aux(per_step)
 
