@@ -27,7 +27,8 @@ Phases (each raises on failure; nothing is caught):
   4. Euler path: presets.euler_hex_3d(3, 32, f32) -> make_euler_rhs_fused ->
      lsrk45 for 20 steps with every launch counter at 0 before; checks the
      state is finite, each kernel launched once per stage and no roll
-     exchange or split combine run (their call counters), the state agrees
+     exchange or split combine run (their call counters), the update
+     kernel (ops.lsrk45_update) launched once per stage, the state agrees
      with the plain twin make_euler_rhs(flux_diff_impl='lines') run from the
      same q0, and sum(wJq q) per field is conserved; then an f64 k1d=4
      entropy-conservation check (dissipation off) on the kernel path;
@@ -40,6 +41,10 @@ Phases (each raises on failure; nothing is caught):
      device time by kernel and the device's busy share; then the general
      contraction on the same uniform mesh (axis_aligned=False) timed
      beside the diag path, stage and kernels (the diag-vs-general delta);
+     then LSRK45's update kernel against the plain two lines at each
+     stage, bitwise, on the path's state and RHS in f32 and f64, and its
+     device time a stage beside its bound (update_roofline's: 24 passes
+     over the state in 5 stages) and the plain lines' five kernels;
   6. cavity kernels: K3 (euler_modal_volume) and K4 (cns_surface_viscous,
      both fold_tail forms) against their plain versions on seeded moving
      states (esdg_cns_tpu_torch.cavity_cases: velocity of standard
@@ -984,7 +989,8 @@ def modal_phases(c):
     print(f"3D cavity fused path (K3 dim 3, then K4 (3, True)): {CAV_STEPS} "
           f"LSRK45 steps ({stages} stages) at dt={CAV_DT:g}, launches "
           f"{counts}")
-    want = {"euler_modal_volume": stages, "cns_surface_viscous": stages}
+    want = {"euler_modal_volume": stages, "cns_surface_viscous": stages,
+            "lsrk45_update": stages}
     if counts != want:
         raise AssertionError(f"expected launches {want} on the fused 3D "
                              "path, K1 none")
@@ -2160,6 +2166,87 @@ def ab_phase(card, dev, dev_ms, parent_dir):
     return rows
 
 
+def update_phase(card, dev_ms, q, dq):
+    """LSRK45's update kernel against the plain two lines, bitwise at each
+    stage, on the state q and its RHS dq (res random, NaN at the first
+    stage, where it is not read), in float32 and float64; then its
+    device time a stage over a step beside its bound and the plain lines'
+    (the five kernels and the zero fill a step that the stepper ran
+    before the kernel).  Prints; raises on a difference."""
+    import torch
+
+    from esdg_cns_tpu_torch.ops.lsrk45_update import lsrk45_update
+    from esdg_cns_tpu_torch.timestepping.explicit import LSRK45_A, LSRK45_B
+
+    coef = [(float(a), float(b)) for a, b in zip(LSRK45_A, LSRK45_B)]
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+    def plain_step(q, dq, dt):
+        res = torch.zeros_like(q)
+        for a, b in coef:
+            res = a * res + dt * dq
+            q_new = q + b * res
+        return q_new
+
+    for dtype in (torch.float32, torch.float64):
+        qs, dqs = q.to(dtype), dq.to(dtype)
+        g = torch.Generator(device=q.device).manual_seed(3)
+        res = torch.randn(qs.shape, dtype=dtype, device=q.device,
+                          generator=g)
+        dt = torch.tensor(DT, dtype=dtype).item()
+        before = lsrk45_update.launches
+        differ = []
+        for s, (a, b) in enumerate(coef):
+            r0 = res if s else torch.zeros_like(qs)
+            want_res = a * r0 + dt * dqs
+            want_q = qs + b * want_res
+            given = res.clone() if s else torch.full_like(qs, float("nan"))
+            got_q, got_res = lsrk45_update(qs, given, dqs, a, b, dt, s == 0)
+            torch.cuda.synchronize()
+            differ.append(sum(int((x.view(ints[dtype]) != y.view(
+                ints[dtype])).sum()) for x, y in ((got_q, want_q),
+                                                  (got_res, want_res))))
+        name = str(dtype).replace("torch.", "")
+        print(f"update kernel {name} {tuple(qs.shape)}: values differing "
+              f"bitwise from the plain lines a stage {differ}, launches "
+              f"{lsrk45_update.launches - before}")
+        if any(differ) or lsrk45_update.launches - before != 5:
+            raise AssertionError("the update kernel departs from the plain "
+                                 f"lines ({name})")
+        # views one value off 16-byte alignment: the one-value-a-thread form
+        n = qs.numel()
+        flat = torch.empty(3 * n + 1, dtype=dtype, device=q.device)
+        uq, ur, ud = (flat[1 + k * n:1 + (k + 1) * n].view(qs.shape)
+                      for k in range(3))
+        for view, t in ((uq, qs), (ur, res), (ud, dqs)):
+            view.copy_(t)
+        want_res = a * res + dt * dqs
+        want_q = qs + b * want_res
+        before = lsrk45_update.launches
+        got_q, got_res = lsrk45_update(uq, ur, ud, a, b, dt, False)
+        torch.cuda.synchronize()
+        off = sum(int((x.view(ints[dtype]) != y.view(ints[dtype])).sum())
+                  for x, y in ((got_q, want_q), (got_res, want_res)))
+        print(f"update kernel {name}, views off 16-byte alignment: values "
+              f"differing bitwise {off}, launches "
+              f"{lsrk45_update.launches - before}")
+        if off or lsrk45_update.launches - before != 1:
+            raise AssertionError("the update kernel's unaligned form departs "
+                                 f"from the plain lines ({name})")
+        del flat, uq, ur, ud
+        b_step = bound(24 * n * qs.element_size(),
+                       Ops(mul=14 * n, add=10 * n), dtype)
+        k_ms = dev_ms(lambda: [lsrk45_update(qs, res, dqs, a, b, dt, s == 0)
+                               for s, (a, b) in enumerate(coef)], 20) / 5
+        p_ms = dev_ms(lambda: plain_step(qs, dqs, dt), 5) / 5
+        print(f"[{card}] update kernel {name}, {n} values (no TPU kernel; "
+              f"not in the kernels line): {k_ms:.4f} ms a stage over a step, "
+              f"bound {b_step.ms / 5:.4f} ms by {b_step.by} "
+              f"({b_step.ms / 5 / k_ms:.1%}); plain lines {p_ms:.4f} ms "
+              f"({p_ms / k_ms:.2f}x); device times")
+        del qs, dqs, res, given, got_q, got_res, want_q, want_res
+
+
 def report(card, rows, prices, fma_per_s, split_rows, bisect_times):
     """Print every kernel's time beside its data-sheet and priced bounds,
     the f64 rows' operation legs, the order of the perf work and the
@@ -2244,6 +2331,7 @@ def main(parent=None):
     from esdg_cns_tpu_torch.ops import modal_volume as mv
     from esdg_cns_tpu_torch.ops import surface_viscous as sv
     from esdg_cns_tpu_torch.ops import tensor_product_fd as tp
+    from esdg_cns_tpu_torch.ops.lsrk45_update import lsrk45_update
     from esdg_cns_tpu_torch.presets import (euler_hex_3d, lid_driven_cavity,
                                             lid_driven_cavity_3d)
     from esdg_cns_tpu_torch.solvers import (make_cns_rhs, make_cns_rhs_affine,
@@ -2268,7 +2356,8 @@ def main(parent=None):
                     tp.flux_differencing_lines_fused,
                 "flux_differencing_dense": df.flux_differencing_dense,
                 "hex_project": fv.hex_project, "hex_fd_dir": fv.hex_fd_dir,
-                "hex_fd_dir_dense": fv.hex_fd_dir_dense}
+                "hex_fd_dir_dense": fv.hex_fd_dir_dense,
+                "lsrk45_update": lsrk45_update}
 
     # the plain stage work that K2 took in on grid meshes: the roll
     # exchange and the split combine, counted per call
@@ -2427,7 +2516,8 @@ def main(parent=None):
     qf, _ = lsrk45(rhs, q0, DT, STEPS)
     torch.cuda.synchronize()
     counts = read_counts()
-    launches = {k: counts[k] for k in ("euler_volume", "euler_surface")}
+    launches = {k: counts[k] for k in ("euler_volume", "euler_surface",
+                                       "lsrk45_update")}
     stages = 5 * STEPS
     print(f"main path: {STEPS} LSRK45 steps ({stages} stages), launches "
           f"{launches}")
@@ -2531,6 +2621,7 @@ def main(parent=None):
     if not e_g <= TOL["float32"]:
         raise AssertionError("the general contraction disagrees with diag")
     del grhs, gsargs
+    update_phase(card, dev_ms, q0, rhs(q0)[0])
     k_out, k_tr, k_s = kouts
     ne = disc.num_elements
     # bytes the diag variants read and write: q, geo, Ef, LIFT -> ph_qf,
@@ -2669,12 +2760,14 @@ def main(parent=None):
     torch.cuda.synchronize()
     counts = read_counts()
     cav_launches = {k: counts[k] for k in ("euler_modal_volume",
-                                           "cns_surface_viscous")}
+                                           "cns_surface_viscous",
+                                           "lsrk45_update")}
     stages = 5 * CAV_STEPS
     print(f"cavity path: {CAV_STEPS} LSRK45 steps ({stages} stages) at "
           f"dt={CAV_DT:g}, launches {counts}")
     if any(v != stages for v in cav_launches.values()):
-        raise AssertionError(f"expected {stages} launches of K3 and K4")
+        raise AssertionError(f"expected {stages} launches of K3, K4 and "
+                             "the update")
     if cqf.dtype != torch.float32 or not bool(torch.isfinite(cqf).all()):
         raise AssertionError("cavity state not finite f32")
     ctwin = make_cns_rhs(cdisc, **flags)
@@ -2840,11 +2933,13 @@ def main(parent=None):
     torch.cuda.synchronize()
     counts = read_counts()
     cav3_launches = {k: counts[k] for k in ("euler_volume",
-                                            "cns_surface_viscous")}
+                                            "cns_surface_viscous",
+                                            "lsrk45_update")}
     print(f"3D cavity path: {CAV_STEPS} LSRK45 steps ({stages} stages) at "
           f"dt={CAV_DT:g}, launches {counts}")
     if any(v != stages for v in cav3_launches.values()):
-        raise AssertionError(f"expected {stages} launches of K1 and K4")
+        raise AssertionError(f"expected {stages} launches of K1, K4 and "
+                             "the update")
     if hqf.dtype != torch.float32 or not bool(torch.isfinite(hqf).all()):
         raise AssertionError("3D cavity state not finite f32")
     htwin = make_cns_rhs(hdisc, **hflags)
@@ -2972,9 +3067,9 @@ def main(parent=None):
               f"stages), launches {counts}")
         front = "euler_modal_volume" if label == "tri" else "euler_volume"
         if any(counts[k] != stages for k in (front, "cns_surface",
-                                             "cns_viscous")):
+                                             "cns_viscous", "lsrk45_update")):
             raise AssertionError(f"expected {stages} launches of the front, "
-                                 "K8 and K7")
+                                 "K8, K7 and the update")
         if not bool(torch.isfinite(sqf).all()):
             raise AssertionError(f"{label} split-path state not finite")
         dof = (disc.dim + 2) * disc.np_ * disc.num_elements
@@ -3031,11 +3126,13 @@ def main(parent=None):
     torch.cuda.synchronize()
     counts = read_counts()
     curved_launches = {k: counts[k] for k in ("euler_volume",
-                                              "euler_surface")}
+                                              "euler_surface",
+                                              "lsrk45_update")}
     print(f"curved path: {STEPS} LSRK45 steps ({5 * STEPS} stages), "
           f"launches {curved_launches}")
     if any(v != 5 * STEPS for v in curved_launches.values()):
-        raise AssertionError(f"expected {5 * STEPS} launches of K1 and K2")
+        raise AssertionError(f"expected {5 * STEPS} launches of K1, K2 and "
+                             "the update")
     no_plain_work("curved path")
     if vqf.dtype != torch.float32 or not bool(torch.isfinite(vqf).all()):
         raise AssertionError("curved-path state not finite f32")
@@ -3091,8 +3188,9 @@ def main(parent=None):
     print(f"curved twin flux_diff_impl='lines_pallas': {STEPS} steps, "
           f"launches {counts}; vs 'lines' rel {e_lines:.3e} (tol "
           f"{TWIN_TOL_F32:.0e})")
-    if lines_launches != 5 * STEPS:
-        raise AssertionError(f"expected {5 * STEPS} launches of row 10")
+    if lines_launches != 5 * STEPS or counts["lsrk45_update"] != 5 * STEPS:
+        raise AssertionError(f"expected {5 * STEPS} launches of row 10 and "
+                             "the update")
     if not e_lines <= TWIN_TOL_F32:
         raise AssertionError("the 'lines_pallas' twin disagrees")
     vdof = 5 * vdisc.np_ * vdisc.num_elements
@@ -3264,8 +3362,10 @@ def main(parent=None):
     print(f"cavity twin flux_diff_impl='pallas': {CAV_STEPS} steps at "
           f"dt={CAV_DT:g}, launches {counts}; vs 'xla' rel {e_dense:.3e} "
           f"(tol {TWIN_TOL_F32:.0e})")
-    if dense_launches != 5 * CAV_STEPS:
-        raise AssertionError(f"expected {5 * CAV_STEPS} launches of K5")
+    if dense_launches != 5 * CAV_STEPS or (counts["lsrk45_update"]
+                                            != 5 * CAV_STEPS):
+        raise AssertionError(f"expected {5 * CAV_STEPS} launches of K5 and "
+                             "the update")
     if not e_dense <= TWIN_TOL_F32:
         raise AssertionError("the 'pallas' cavity twin disagrees")
     ms = cuda_ms(lambda: lsrk45(ptwin, cq0, CAV_TIMED_DT, TWIN_TIMED_STEPS),
@@ -3452,12 +3552,13 @@ def main(parent=None):
     counts = read_counts()
     n7_launches = {k: counts[k] for k in ("hex_project", "hex_fd_dir",
                                           "euler_surface", "euler_volume",
-                                          "hex_fd_dir_dense")}
+                                          "hex_fd_dir_dense",
+                                          "lsrk45_update")}
     print(f"N=7 path: {STEPS} LSRK45 steps ({5 * STEPS} stages) at "
           f"dt={N7_DT:g}, launches {n7_launches}")
     want = {"hex_project": 5 * STEPS, "hex_fd_dir": 15 * STEPS,
             "euler_surface": 5 * STEPS, "euler_volume": 0,
-            "hex_fd_dir_dense": 0}
+            "hex_fd_dir_dense": 0, "lsrk45_update": 5 * STEPS}
     if n7_launches != want:
         raise AssertionError(f"expected launches {want} on the N=7 path")
     no_plain_work("N=7 path")
@@ -3518,6 +3619,7 @@ def main(parent=None):
                 if m == "auto" else
                 {"hex_project": 5 * STEPS, "euler_surface": 5 * STEPS,
                  ("hex_fd_dir_dense" if dense else "hex_fd_dir"): 15 * STEPS})
+        want["lsrk45_update"] = 5 * STEPS
         if counts != want:
             raise AssertionError(f"expected launches {want} for {m!r}")
         no_plain_work(f"N=4 volume_mode={m!r}")
@@ -3687,7 +3789,8 @@ def main(parent=None):
         print(f"N={n} path ('auto' = K1{', force_fused' if kw else ''}): "
               f"{STEPS} LSRK45 steps ({5 * STEPS} stages) at dt={dt:g}, "
               f"launches {counts}")
-        want = {"euler_volume": 5 * STEPS, "euler_surface": 5 * STEPS}
+        want = {"euler_volume": 5 * STEPS, "euler_surface": 5 * STEPS,
+                "lsrk45_update": 5 * STEPS}
         if counts != want:
             raise AssertionError(f"expected launches {want} on the N={n} "
                                  "path")
@@ -3908,7 +4011,8 @@ def main(parent=None):
         print(f"Becker 3D N={BECKER_N} k1d={BECKER_K1D} (K={disc.num_elements}"
               f", mu={shock.mu}) {name} fused_hex: {STEPS} LSRK45 steps at "
               f"dt={bdt:.6g}, launches {counts}")
-        want = {"euler_volume": 5 * STEPS, "cns_surface_viscous": 5 * STEPS}
+        want = {"euler_volume": 5 * STEPS, "cns_surface_viscous": 5 * STEPS,
+                "lsrk45_update": 5 * STEPS}
         if counts != want:
             raise AssertionError(f"expected launches {want} on the Becker "
                                  "path")

@@ -182,6 +182,9 @@ def library() -> ctypes.CDLL:
     lib.esdg_becker_bisect.argtypes = [_I, _P, _P, ctypes.c_longlong] + [
         ctypes.c_double] * 7 + [_I, _P]
     lib.esdg_becker_bisect.restype = _I
+    lib.esdg_lsrk45_update.argtypes = [_I, _I] + [_P] * 4 + [
+        ctypes.c_longlong] + [ctypes.c_double] * 3 + [_P]
+    lib.esdg_lsrk45_update.restype = _I
     lib.esdg_probe_peak.argtypes = [_P, _P, ctypes.c_longlong, _I, _P]
     lib.esdg_probe_peak.restype = _I
     lib.esdg_probe_chain.argtypes = [_I, _P, _P, ctypes.c_longlong, _I, _P]

@@ -9,7 +9,9 @@ The coefficients are host-side f64 and enter as Python floats, so an f32
 state stays f32 and an f64 state gets full-f64 coefficient values.  The
 step size is rounded to the state dtype first, as the JAX stepper does.
 Per-step diagnostics (the ``aux`` of each step's last stage) come back
-stacked.
+stacked.  LSRK45's update of a stage is one call of
+``ops.lsrk45_update`` (a kernel on the card), which makes a new state at
+every stage and leaves each stage's input as it was.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..ops.lsrk45_update import lsrk45_update
 from ..tracing import span
 
 # Carpenter & Kennedy (1994) RK45(5,4) low-storage coefficients.
@@ -64,7 +67,10 @@ def lsrk45(rhs: Callable, q0, dt, num_steps: int, t0=0.0):
     Returns (q_final, stacked per-step aux from the last stage).
     """
     dt = _state_dt(dt, q0)
-    q, res = q0, torch.zeros_like(q0)
+    # the update kernel takes contiguous states: q0 and an RHS's dq in
+    # another layout are copied (a contiguous one is passed as it is)
+    q = q0.contiguous()
+    res = torch.empty_like(q)   # written at each first stage
     per_step = []
     for i in range(num_steps):
         t = t0 + i * dt
@@ -73,8 +79,9 @@ def lsrk45(rhs: Callable, q0, dt, num_steps: int, t0=0.0):
             for s in range(5):
                 dq, aux_last = rhs(q, t + float(LSRK45_C[s]) * dt)
                 with span("timestepping.explicit.lsrk45.update"):
-                    res = float(LSRK45_A[s]) * res + dt * dq
-                    q = q + float(LSRK45_B[s]) * res
+                    q, res = lsrk45_update(q, res, dq.contiguous(),
+                                           float(LSRK45_A[s]),
+                                           float(LSRK45_B[s]), dt, s == 0)
         per_step.append(aux_last)
     return q, _stack_aux(per_step)
 

@@ -30,6 +30,7 @@ from esdg_cns_tpu_torch.mesh.generators import uniform_hex_mesh
 from esdg_cns_tpu_torch.ops import cns_surface as cs
 from esdg_cns_tpu_torch.ops import dense_fd as df
 from esdg_cns_tpu_torch.ops import fused_volume as fv
+from esdg_cns_tpu_torch.ops.lsrk45_update import lsrk45_update
 from esdg_cns_tpu_torch.ops import modal_volume as mv
 from esdg_cns_tpu_torch.ops import surface_viscous as sv
 from esdg_cns_tpu_torch.ops import tensor_product_fd as tp
@@ -44,6 +45,11 @@ from esdg_cns_tpu_torch.solvers import (
     make_cns_rhs_affine,
     make_euler_rhs,
     make_euler_rhs_fused,
+)
+from esdg_cns_tpu_torch.timestepping.explicit import (
+    LSRK45_A,
+    LSRK45_B,
+    LSRK45_C,
 )
 
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -1114,7 +1120,7 @@ def test_modal_volume_kernel_on_its_lists(cuda, dtype, case, state):
 def test_stage_launch_counts(cuda):
     """One launch a stage: K3 and K4 on the 3D cavity's 'fused' form (its
     lists built once with the RHS), K1 and K2 on the Euler path at N=5
-    ('auto', K1 at N+1 = 6)."""
+    ('auto', K1 at N+1 = 6); the update kernel on both."""
     from esdg_cns_tpu_torch.timestepping import lsrk45
     disc, q0, bc, p = lid_driven_cavity_3d(3, 3, dtype=torch.float32,
                                            device=cuda)
@@ -1122,19 +1128,23 @@ def test_stage_launch_counts(cuda):
                               pr=p["pr"], re=p["re"], bc=bc,
                               compute_rhstest=False)
     k3, k4 = mv.euler_modal_volume.launches, sv.cns_surface_viscous.launches
+    up = lsrk45_update.launches
     qf, _ = lsrk45(rhs, q0, 1e-4, 2)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(qf).all())
     assert mv.euler_modal_volume.launches - k3 == 10
     assert sv.cns_surface_viscous.launches - k4 == 10
+    assert lsrk45_update.launches - up == 10
     disc, q0 = euler_hex_3d(n=5, k1d=3, dtype=torch.float32, device=cuda)
     rhs = make_euler_rhs_fused(disc, dissipation=True)
     k1, k2 = fv.euler_volume.launches, fv.euler_surface.launches
+    up = lsrk45_update.launches
     qf, _ = lsrk45(rhs, q0, 1e-4, 2)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(qf).all())
     assert fv.euler_volume.launches - k1 == 10
     assert fv.euler_surface.launches - k2 == 10
+    assert lsrk45_update.launches - up == 10
 
 
 # ---- K4 and K7 at dim 3 on their operator lists (visc_lists), every
@@ -1363,3 +1373,146 @@ def test_grid_stages_run_no_exchange_or_combine(cuda, n, kw):
     want, _ = make_euler_rhs(disc, dissipation=True, flux_diff_impl="lines",
                              compute_rhstest=False)(q)
     assert _rel(got, want) <= 1e-11
+
+
+# ---- LSRK45's update kernel against the plain two lines, bit for bit ----
+def _plain_update(q, res, dq, a, b, dt):
+    res = a * res + dt * dq
+    return q + b * res, res
+
+
+def _same_bits(a, b):
+    """torch.equal on the values and on their bits (which tell -0 from
+    +0)."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return (a.dtype == b.dtype and torch.equal(a, b)
+            and torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype])))
+
+
+def _state_dt(dtype):
+    return torch.tensor(2.5e-4, dtype=dtype).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(5, 64, 1000), (5, 7, 13), (3,)])
+def test_lsrk45_update_kernel_matches_plain(cuda, dtype, shape):
+    """At each of the five stages from random q, res and dq: the kernel
+    launches, updates res in place, makes a new q, and both equal the two
+    plain lines bit for bit; at the first stage res holds NaN and is not
+    read.  (5, 7, 13) and (3,) leave a tail of the 16-byte vector."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, res, dq = (torch.randn(shape, dtype=dtype, device=cuda, generator=g)
+                  for _ in range(3))
+    dt = _state_dt(dtype)
+    for s in range(5):
+        a, b = float(LSRK45_A[s]), float(LSRK45_B[s])
+        want_q, want_res = _plain_update(
+            q, res if s else torch.zeros_like(q), dq, a, b, dt)
+        res_in = res.clone() if s else torch.full_like(q, float("nan"))
+        before = lsrk45_update.launches
+        got_q, got_res = lsrk45_update(q, res_in, dq, a, b, dt, s == 0)
+        torch.cuda.synchronize()
+        assert lsrk45_update.launches == before + 1
+        assert got_res.data_ptr() == res_in.data_ptr()
+        assert got_q.data_ptr() != q.data_ptr()
+        assert _same_bits(got_res, want_res), s
+        assert _same_bits(got_q, want_q), s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_lsrk45_update_kernel_takes_unaligned_views(cuda, dtype, offset):
+    """Views whose storage offset breaks 16-byte alignment (q, res and dq
+    each off by another amount) launch the kernel's one-value-a-thread
+    form and equal the plain lines bit for bit at every stage."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    n = 5 * 7 * 13
+    base = torch.randn(3 * n + 16, dtype=dtype, device=cuda, generator=g)
+    q, res, dq = (base[at:at + n].view(5, 7, 13)
+                  for at in (offset, n + 4 + 2 * offset, 2 * n + 12 + offset))
+    assert any(t.data_ptr() % 16 for t in (q, res, dq))
+    dt = _state_dt(dtype)
+    for s in range(5):
+        a, b = float(LSRK45_A[s]), float(LSRK45_B[s])
+        want_q, want_res = _plain_update(
+            q, res if s else torch.zeros_like(q), dq, a, b, dt)
+        res_in = res.clone() if s else torch.full_like(q, float("nan"))
+        before = lsrk45_update.launches
+        got_q, got_res = lsrk45_update(q, res_in, dq, a, b, dt, s == 0)
+        torch.cuda.synchronize()
+        assert lsrk45_update.launches == before + 1
+        assert _same_bits(got_res, want_res), s
+        assert _same_bits(got_q, want_q), s
+
+
+@pytest.mark.gpu
+def test_lsrk45_update_raises_on_inputs_the_kernel_does_not_take(cuda):
+    """On the card there is no plain fallback: a non-contiguous tensor,
+    mixed dtypes, another shape or a dtype the kernel is not built for
+    raise and launch nothing."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, res, dq = (torch.randn(5, 7, 13, device=cuda, generator=g)
+                  for _ in range(3))
+    strided = torch.randn(5, 14, 13, device=cuda, generator=g)[:, ::2]
+    cases = [((strided, res, dq), ValueError),
+             ((q, strided, dq), ValueError),
+             ((q, res, dq.double()), TypeError),
+             ((q, res, dq[:3]), ValueError),
+             ((q.half(), res.half(), dq.half()), TypeError)]
+    before = lsrk45_update.launches
+    for args, err in cases:
+        with pytest.raises(err):
+            lsrk45_update(*args, 0.5, 0.25, 1e-3, False)
+    assert lsrk45_update.launches == before
+
+
+def _strided(x):
+    """x's values in a non-contiguous layout."""
+    return x.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("strided", [False, True])
+def test_lsrk45_steps_match_plain_loop_and_keep_stage_inputs(cuda, dtype,
+                                                             strided):
+    """Two whole lsrk45 steps against a loop of the plain lines written
+    here: bit for bit, 10 launches; q0 and every stage's input q_s are
+    unchanged after the steps (held by reference, as the benchmark's
+    recorder holds them) and each stage's q is a distinct tensor.  With
+    strided, q0 and every dq are non-contiguous (as the plain twins' dq
+    is): the stepper hands the kernel contiguous copies."""
+    from esdg_cns_tpu_torch.timestepping import lsrk45
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q0 = torch.randn(5, 64, 125, dtype=dtype, device=cuda, generator=g)
+    w = torch.randn(5, 64, 125, dtype=dtype, device=cuda, generator=g)
+    if strided:
+        q0 = _strided(q0)
+    seen = []
+
+    def rhs(q, t):
+        seen.append((q, q.clone()))
+        dq = -torch.sin(q) * w * (1.0 + t)
+        return (_strided(dq) if strided else dq), {}
+
+    dt = _state_dt(dtype)
+    q0_copy = q0.clone()
+    before = lsrk45_update.launches
+    got, _ = lsrk45(rhs, q0, dt, 2)
+    torch.cuda.synchronize()
+    assert lsrk45_update.launches == before + 10
+    assert _same_bits(q0, q0_copy)
+    assert len(seen) == 10
+    assert len({q.data_ptr() for q, _ in seen} | {got.data_ptr()}) == 11
+    for q, copy in seen:
+        assert _same_bits(q, copy)
+    q, res = q0, torch.zeros_like(q0)
+    for i in range(2):
+        for s in range(5):
+            dq, _ = rhs(q, i * dt + float(LSRK45_C[s]) * dt)
+            q, res = _plain_update(q, res, dq, float(LSRK45_A[s]),
+                                   float(LSRK45_B[s]), dt)
+    assert _same_bits(got, q)
