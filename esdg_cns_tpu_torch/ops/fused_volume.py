@@ -23,7 +23,10 @@ Each wrapper has a plain PyTorch version beside it (``*_plain``).  The
 wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises.  Each counts its launches in a plain
 integer attribute (``euler_volume.launches``), bumped only where the
-kernel is launched.
+kernel is launched; K1 and K2 count them by form besides
+(``euler_volume.forms``, ``euler_surface.forms``).  The launch calls of
+K1, K2 and the projection sit inside a span named by the wrapper
+(``ops.fused_volume.euler_volume``; ``tracing.span``).
 
 The TPU kernels' lane blocking, sublane padding and packed folds are
 layouts, not math: the port keeps the math.  The CUDA kernels cover
@@ -243,17 +246,23 @@ def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.esdg_hex_volume(
-            _DTYPE_CODE[q.dtype], n1, int(diag), int(curved),
-            q.data_ptr(), geo.data_ptr(), cvol.data_ptr(), cface.data_ptr(),
-            iw.data_ptr(), iwf.data_ptr(), ef.data_ptr(), lift.data_ptr(),
-            out.data_ptr(), traces.data_ptr(), k, float(gamma), stream)
+        with span("ops.fused_volume.euler_volume"):
+            rc = lib.esdg_hex_volume(
+                _DTYPE_CODE[q.dtype], n1, int(diag), int(curved),
+                q.data_ptr(), geo.data_ptr(), cvol.data_ptr(),
+                cface.data_ptr(), iw.data_ptr(), iwf.data_ptr(),
+                ef.data_ptr(), lift.data_ptr(), out.data_ptr(),
+                traces.data_ptr(), k, float(gamma), stream)
     _raise_on(name, rc, _N7_BUILT)
     euler_volume.launches += 1
+    euler_volume.forms["curved" if curved else "diag" if diag
+                       else "general"] += 1
     return out, traces
 
 
 euler_volume.launches = 0
+# launches by metric form: one-row diagonal, general affine, curved
+euler_volume.forms = {"diag": 0, "general": 0, "curved": 0}
 
 
 def launch_shape(entry, *args):
@@ -474,16 +483,27 @@ def euler_surface(traces, nbr, nxj, sj, inv_sj, inv_jac, lift, ph_qf,
     dims = (ctypes.c_int * 3)(kx, ky, kz)
     with torch.cuda.device(traces.device):
         stream = torch.cuda.current_stream(traces.device).cuda_stream
-        rc = lib.esdg_hex_surface(
-            _DTYPE_CODE[traces.dtype], n1, int(diag), int(grid_form),
-            int(split_form), int(dissipation), ptrs, dims, k, float(gamma),
-            stream)
+        with span("ops.fused_volume.euler_surface"):
+            rc = lib.esdg_hex_surface(
+                _DTYPE_CODE[traces.dtype], n1, int(diag), int(grid_form),
+                int(split_form), int(dissipation), ptrs, dims, k,
+                float(gamma), stream)
     _raise_on(name, rc, _N7_BUILT)
     euler_surface.launches += 1
+    forms = euler_surface.forms
+    forms[("diag." if diag else "general.")
+          + ("grid" if grid_form else "gather")] += 1
+    if split_form:
+        forms["split"] += 1
     return out
 
 
 euler_surface.launches = 0
+# launches by normal form (compact diagonal or general) crossed with the
+# neighbours' source (read on the grid or gathered); "split" counts the
+# launches that took the split front's parts, each also counted above
+euler_surface.forms = {"diag.grid": 0, "diag.gather": 0, "general.grid": 0,
+                       "general.gather": 0, "split": 0}
 
 
 def euler_surface_shape(dtype, n1, *, diag=False, grid=False, split=False):

@@ -3,9 +3,10 @@ measured where the work happens.
 
 ``span(name)`` is a context manager placed at a few layer boundaries of
 the main paths (the stepper's step and update, the cavity RHS's v(U),
-exchanges and tail, the projection's launch); each name is the module
-path of the code it wraps, e.g. ``timestepping.explicit.lsrk45.update``
-or ``ops.fused_volume.hex_project``.
+exchanges and tail, the launches of K1, K2 and the projection); each
+name is the module path of the code it wraps, e.g.
+``timestepping.explicit.lsrk45.update`` or
+``ops.fused_volume.euler_volume``.
 
 Spans are off unless ``enable(True)`` was called or a torch profiler is
 recording.  Off, ``span`` reads two flags and hands back one shared
@@ -29,7 +30,8 @@ and the profiler already times each device operation.
 
 Device times are resolved lazily: ``records()`` and ``summary()`` wait on
 each span's exit event, then read the pair.  The span call counts are the
-counters; the kernel wrappers' ``.launches`` integers stay beside them.
+counters; the kernel wrappers' ``.launches`` integers (and K1's and
+K2's ``.forms``, launches by form) stay beside them.
 
 Spans nest by the order they are entered in one thread; the solvers run
 on one host thread, and the store is not meant for several.

@@ -1147,6 +1147,49 @@ def test_stage_launch_counts(cuda):
     assert lsrk45_update.launches - up == 10
 
 
+@pytest.mark.gpu
+def test_curved_cell_path_launches_the_curved_forms(cuda):
+    """A step of the curved benchmark cell's path (the warped preset,
+    'auto', f32): five curved K1s and five general grid K2s, no diag
+    launch and no exchange, each launch inside its span once; the affine
+    preset takes the diag forms; spans off record nothing."""
+    from esdg_cns_tpu_torch import tracing
+    from esdg_cns_tpu_torch.solvers.euler_fused import resolve_volume_mode
+    from esdg_cns_tpu_torch.timestepping import lsrk45
+
+    spans = ("ops.fused_volume.euler_volume",
+             "ops.fused_volume.euler_surface")
+    for curved, k1, k2 in ((True, "curved", "general.grid"),
+                           (False, "diag", "diag.grid")):
+        disc, q0 = euler_hex_3d(n=3, k1d=4, curved=curved,
+                                dtype=torch.float32, device=cuda)
+        assert resolve_volume_mode(disc) == ("joint" if curved
+                                             else "joint_packed")
+        assert fv.detect_axis_aligned(disc) is not curved
+        rhs = make_euler_rhs_fused(disc, dissipation=True)
+        v0, s0 = dict(fv.euler_volume.forms), dict(fv.euler_surface.forms)
+        tracing.reset()
+        tracing.enable(True)
+        try:
+            qf, _ = lsrk45(rhs, q0, 1e-3, 1)
+            summary = tracing.summary()
+        finally:
+            tracing.enable(False)
+        assert bool(torch.isfinite(qf).all())
+        assert {k: fv.euler_volume.forms[k] - v for k, v in v0.items()} == {
+            **dict.fromkeys(v0, 0), k1: 5}
+        assert {k: fv.euler_surface.forms[k] - v
+                for k, v in s0.items()} == {**dict.fromkeys(s0, 0), k2: 5}
+        for name in spans:
+            assert summary[name]["calls"] == 5
+            assert summary[name]["device_calls"] == 5
+            assert summary[name]["device_ms"] > 0
+        assert "core.discretization.gather_traces" not in summary
+        tracing.reset()
+        lsrk45(rhs, q0, 1e-3, 1)
+        assert tracing.records() == []
+
+
 # ---- K4 and K7 at dim 3 on their operator lists (visc_lists), every
 # form, against the dense plain versions: a moving state and the state at
 # rest, every wall kind of the 3D cavity; k1d=3 gives K=27, a ragged last
