@@ -66,19 +66,24 @@ Phases (each raises on failure; nothing is caught):
      rate, K3 and K4 beside their plain versions, the two exchanges, the
      rest of the stage, and the profiler's split as in phase 5;
   9. 3D cavity kernels: K1 (in this use), K4 at dim=3 (both fold_tail
-     forms), K8 (cns_surface) and K7 (cns_viscous) against their plain
-     versions on the 3D cavity's moving states (hex N=3, k1d=16, f32,
-     isothermal), at k1d=4 in f64 for every BC shape, and at k1d=3 (K=27, a
-     ragged last tile); K8 and K7 also over the 2D cases of phase 6;
+     forms), the tail kernel after it (cns_traction_tail, on every BC
+     shape its rule covers), K8 (cns_surface) and K7 (cns_viscous)
+     against their plain versions on the 3D cavity's moving states (hex
+     N=3, k1d=16, f32, isothermal), at k1d=4 in f64 for every BC shape,
+     and at k1d=3 (K=27, a ragged last tile); K8 and K7 also over the 2D
+     cases of phase 6;
  10. 3D cavity path: presets.lid_driven_cavity_3d(3, 16, f32) ->
      make_cns_rhs_affine(volume_impl='fused_hex', bench.py's flags) ->
      lsrk45 for 20 steps at dt=1e-4 with every launch counter at 0 before;
-     checks K1 and K4 launched once per stage, the state is finite f32 and
-     agrees with the twin make_cns_rhs; the f64 kernel path conserves mass
-     over 20 steps; an f64 k1d=4 entropy check (adiabatic walls, the lid at
-     rest, rhstest on);
+     checks K1, K4 and the tail kernel launched once per stage, the state
+     is finite f32 and agrees with the twin make_cns_rhs; the f64 kernel
+     path (the tail kernel once per stage) conserves mass over 20 steps;
+     an f64 k1d=4 entropy check (adiabatic walls, the lid at rest, rhstest
+     on);
  11. 3D cavity timing, as phase 8: the rate over 1200 stages, the twin's,
-     K1 and K4 beside their plain versions, the exchanges, the profiler;
+     K1, K4 and the tail kernel beside their plain versions (the tail's:
+     the exchange, stress_normal, the jump's LIFT and 1/J) and the tail's
+     bound, the exchange, the profiler;
  12. the split path on both cavities at full width: surface_impl='fused'
      (K3 or K1, then K8, then K7) against merged_tail on one RHS (f32, and
      f64 at k1d=8 / k1d=4), 20 steps with every counter at 0 before (K8
@@ -184,14 +189,14 @@ Phases (each raises on failure; nothing is caught):
      with the cause printed) and its time per RHS beside the loop's;
  28. the 3D hex path through K3: lid_driven_cavity_3d(3, 16, f32) ->
      make_cns_rhs_affine(volume_impl='fused', bench.py's flags) -> lsrk45
-     for 20 steps with every counter at 0 before (K3 and K4 once per stage,
-     K1 never), finite and within 1e-5 of the twin; one RHS against
-     fused_hex (f32 1e-5; f64 k1d=4 1e-9), the split form (K8, K7 at (3,
-     True)) against merged_tail; f64 mass over 20 steps; the rate over 1200
-     stages, K3's, K4's and K7's device times (K3 also on the cavity at
-     rest, beside row 12's divide chain on zero dividends and on x = 1),
-     the profiler; the 3D Becker
-     tube (N=2, k1d=8, f64) through 'fused' on one RHS against the twin
+     for 20 steps with every counter at 0 before (K3, K4 and the tail
+     kernel once per stage, K1 never), finite and within 1e-5 of the
+     twin; one RHS against fused_hex (f32 1e-5; f64 k1d=4 1e-9), the
+     split form (K8, K7 at (3, True)) against merged_tail; f64 mass
+     over 20 steps; the rate over 1200 stages, K3's, K4's and K7's device
+     times (K3 also on the cavity at rest, beside row 12's divide chain on
+     zero dividends and on x = 1), the profiler; the 3D Becker tube (N=2,
+     k1d=8, f64) through 'fused' on one RHS against the twin
      (1e-10) and fused_hex (1e-9);
  29. the 1D path: becker_shocktube_1d(4, 128, f64) ->
      make_cns_rhs_affine(volume_impl='fused', compute_rhstest=False) (K3
@@ -787,7 +792,7 @@ def ptxas_report(log):
                                  "hex_project", "hex_fd_dir",
                                  "modal_volume", "dense_fd",
                                  "cns_surface_viscous", "cns_surface",
-                                 "cns_viscous", "becker_bisect",
+                                 "cns_viscous", "cns_tail", "becker_bisect",
                                  "fd_section", "probe_peak", "probe_chain")
                      if k + "_kernel" in name), None)
         if kind is None:
@@ -804,7 +809,7 @@ def ptxas_report(log):
             out.append(f"ptxas {kind}" + (f" kind {ints[0]}" if ints else "")
                        + f": {report}")
             continue
-        if kind in ("hex_surface", "hex_project", "hex_fd_dir"):
+        if kind in ("hex_surface", "hex_project", "hex_fd_dir", "cns_tail"):
             continue    # in their shape lines (kernel_shapes)
         if kind.startswith("hex_"):
             if kind == "hex_volume":
@@ -990,7 +995,7 @@ def modal_phases(c):
           f"LSRK45 steps ({stages} stages) at dt={CAV_DT:g}, launches "
           f"{counts}")
     want = {"euler_modal_volume": stages, "cns_surface_viscous": stages,
-            "lsrk45_update": stages}
+            "cns_traction_tail": stages, "lsrk45_update": stages}
     if counts != want:
         raise AssertionError(f"expected launches {want} on the fused 3D "
                              "path, K1 none")
@@ -1595,8 +1600,9 @@ def kernel_shapes(dev, log):
     projection (row 3) and the split fd (rows 4a, 4b; at N+1 = 8 in f32
     at least 16 warps an SM and no local memory, else it raises) at
     N+1 = 2..8, of K3 at each dim (and curved tris) and
-    of K4 (both fold_tail forms) and K7 at dim 3 (hex N=3 with either
-    front, N=5 without) at the paths' operators, as
+    of the tail kernel after K4 at N+1 = 2..8, of K4 (both fold_tail
+    forms) and K7 at dim 3 (hex N=3 with either front, N=5 without) at
+    the paths' operators, as
     cudaOccupancyMaxActiveBlocksPerMultiprocessor
     and cudaFuncGetAttributes give them, beside ptxas' report; returns
     {(kernel, N+1 or dim, form, type): warps resident per SM}."""
@@ -1604,6 +1610,7 @@ def kernel_shapes(dev, log):
     from esdg_cns_tpu_torch.cavity_cases import warped_tri_case
     from esdg_cns_tpu_torch.ops import fused_volume as fv
     from esdg_cns_tpu_torch.ops import modal_volume as mv
+    from esdg_cns_tpu_torch.ops import cns_tail as ct
     from esdg_cns_tpu_torch.presets import (becker_shocktube_1d,
                                             lid_driven_cavity,
                                             lid_driven_cavity_3d)
@@ -1643,6 +1650,12 @@ def kernel_shapes(dev, log):
             print(shape_line(f"row 3 hex_project N+1={n1} {prec}", occ[:6],
                              ptx))
             warps[("row 3", n1, "", prec)] = occ[0] * ((occ[1] + 31) // 32)
+            occ = ct.cns_traction_tail_shape(dtype, n1)
+            ptx = ptxas_of(entries, "cns_tail", prec,
+                           [n1, occ[5], occ[1], occ[6]], [])
+            print(shape_line(f"tail cns_traction_tail N+1={n1} {prec}",
+                             occ[:6], ptx))
+            warps[("tail", n1, "", prec)] = occ[0] * ((occ[1] + 31) // 32)
             # the split fd (rows 4a, 4b; dense runs the general kernel) in
             # direction 0 (the others differ in their strides alone)
             for diag in (True, False):
@@ -2326,12 +2339,14 @@ def main(parent=None):
 
     from esdg_cns_tpu_torch import kernels
     from esdg_cns_tpu_torch.ops import cns_surface as cs
+    from esdg_cns_tpu_torch.ops import cns_tail as ct
     from esdg_cns_tpu_torch.ops import dense_fd as df
     from esdg_cns_tpu_torch.ops import fused_volume as fv
     from esdg_cns_tpu_torch.ops import modal_volume as mv
     from esdg_cns_tpu_torch.ops import surface_viscous as sv
     from esdg_cns_tpu_torch.ops import tensor_product_fd as tp
     from esdg_cns_tpu_torch.ops.lsrk45_update import lsrk45_update
+    from esdg_cns_tpu_torch.solvers._shared import neighbor_traction
     from esdg_cns_tpu_torch.presets import (euler_hex_3d, lid_driven_cavity,
                                             lid_driven_cavity_3d)
     from esdg_cns_tpu_torch.solvers import (make_cns_rhs, make_cns_rhs_affine,
@@ -2344,7 +2359,8 @@ def main(parent=None):
     from esdg_cns_tpu_torch.cavity_cases import (CAVITY_BCS, VELOCITY,
                                                  cavity_case, fd_inputs,
                                                  k4_inputs, k7_inputs,
-                                                 k8_inputs, warped_tri_case)
+                                                 k8_inputs, tail_inputs,
+                                                 warped_tri_case)
 
     wrappers = {"euler_volume": fv.euler_volume,
                 "euler_surface": fv.euler_surface,
@@ -2357,7 +2373,8 @@ def main(parent=None):
                 "flux_differencing_dense": df.flux_differencing_dense,
                 "hex_project": fv.hex_project, "hex_fd_dir": fv.hex_fd_dir,
                 "hex_fd_dir_dense": fv.hex_fd_dir_dense,
-                "lsrk45_update": lsrk45_update}
+                "lsrk45_update": lsrk45_update,
+                "cns_traction_tail": ct.cns_traction_tail}
 
     # the plain stage work that K2 took in on grid meshes: the roll
     # exchange and the split combine, counted per call
@@ -2701,6 +2718,19 @@ def main(parent=None):
             k4kw = dict(k4kw, lists=lists)
             kw7 = dict(kw7, lists=lists)
         ins["k4"] = (k4args, k4tail, k4kw)
+        rule = ct.traction_rule(disc, bc) if disc.dim == 3 else None
+        if rule is not None:
+            # the tail kernel after K4's fold_tail form, where its rule
+            # covers the walls, against the plain tail
+            (dq_part, t_f, lift, inv_j), t_pn = tail_inputs(disc, q, bc, p,
+                                                            t=t)
+            ins["tail"] = (dq_part, t_f, lift, inv_j, rule, t_pn)
+            errs["tail"] = held(
+                "tail cns_traction_tail", tag,
+                (ct.cns_traction_tail(dq_part.clone(), t_f, lift, inv_j,
+                                      rule=rule),),
+                (ct.cns_traction_tail_plain(dq_part, t_f, lift, inv_j,
+                                            t_pn=t_pn),), tol, ("dq",))
         errs["k4"] = 0.0
         for fold in (False, True):
             tail = k4tail if fold else ()
@@ -2934,12 +2964,13 @@ def main(parent=None):
     counts = read_counts()
     cav3_launches = {k: counts[k] for k in ("euler_volume",
                                             "cns_surface_viscous",
+                                            "cns_traction_tail",
                                             "lsrk45_update")}
     print(f"3D cavity path: {CAV_STEPS} LSRK45 steps ({stages} stages) at "
           f"dt={CAV_DT:g}, launches {counts}")
     if any(v != stages for v in cav3_launches.values()):
-        raise AssertionError(f"expected {stages} launches of K1, K4 and "
-                             "the update")
+        raise AssertionError(f"expected {stages} launches of K1, K4, the "
+                             "tail kernel and the update")
     if hqf.dtype != torch.float32 or not bool(torch.isfinite(hqf).all()):
         raise AssertionError("3D cavity state not finite f32")
     htwin = make_cns_rhs(hdisc, **hflags)
@@ -2965,6 +2996,9 @@ def main(parent=None):
           f"{CAV_MASS_TOL_F64:.0e})")
     if not hdrift64 <= CAV_MASS_TOL_F64:
         raise AssertionError("3D cavity mass not conserved")
+    if read_counts()["cns_traction_tail"] != stages:
+        raise AssertionError(f"expected {stages} launches of the tail "
+                             "kernel on the f64 3D cavity path")
     del d64, q64, q64f
 
     edisc, eq0, ebc, ep = lid_driven_cavity_3d(CAV3_N, 4, bctype="adiabatic",
@@ -3010,14 +3044,33 @@ def main(parent=None):
     h1_ms = htimes["K1 euler_volume (3D cavity)"][0]
     h4_ms, h4_plain_ms = htimes["K4 cns_surface_viscous dim=3 (fold_tail)"]
     h4out = h4_call()
+    tdq, tf_, tlift, tinv_j, trule, _ = hins["tail"]
+    tdq_k = tdq.clone()     # the kernel writes dq over its dq_part
+    ttimes = kernel_times(f"hex N=3 k1d={CAV3_K1D} f32", [
+        ("tail cns_traction_tail (3D cavity)",
+         lambda: ct.cns_traction_tail(tdq_k, tf_, tlift, tinv_j, rule=trule),
+         lambda: ct.cns_traction_tail_plain(
+             tdq, tf_, tlift, tinv_j, t_pn=neighbor_traction(
+                 hdisc, hbc, tf_, hdisc.gather_traces(tf_))))])
+    htail_ms, htail_plain_ms = ttimes["tail cns_traction_tail (3D cavity)"]
+    # per element: the 5 x 6 LIFT entries of each volume node and the
+    # scaled add (FMAs), a negate, a difference and a halving per field
+    # of a face point
+    htail_bound = bound(
+        nbytes(tdq, tf_, trule.code, trule.wall, tlift, tinv_j, tdq),
+        Ops(fma=35 * hdisc.nq, add=10 * hdisc.nfq, mul=5 * hdisc.nfq)
+        * hdisc.num_elements, tdq.dtype)
+    print(f"[{card}] tail kernel bound ({htail_bound.by}: dq_part, t_f, "
+          f"the code, LIFT, 1/J in, dq out): {htail_bound.ms:.4f} ms, "
+          f"{100 * htail_bound.ms / htail_ms:.2f}% of it; plain tail "
+          f"{htail_plain_ms:.4f} ms")
     hex1_ms = dev_ms(lambda: hdisc.gather_traces(k1outs[1]), 20)
-    hex2_ms = dev_ms(lambda: hdisc.gather_traces(h4out[1]), 20)
-    hrest = hstage_ms - h1_ms - h4_ms - hex1_ms - hex2_ms
+    hrest = hstage_ms - h1_ms - h4_ms - hex1_ms - htail_ms
     print(f"[{card}] 3D cavity stage split: K1 {h1_ms:.4f} + exchange 1 "
-          f"(index_select, 7 rows) {hex1_ms:.4f} + K4 {h4_ms:.4f} + "
-          f"exchange 2 (index_select, 5 rows) {hex2_ms:.4f} + rest (v(U), "
-          f"traction BC, jump LIFT, 1/J, LSRK45 update, host gaps) "
-          f"{hrest:.4f} = {hstage_ms:.4f} ms")
+          f"(index_select, 7 rows) {hex1_ms:.4f} + K4 {h4_ms:.4f} + the "
+          f"tail kernel (exchange 2, traction BC, jump LIFT, 1/J) "
+          f"{htail_ms:.4f} + rest (v(U), the production's sum, LSRK45 "
+          f"update, host gaps) {hrest:.4f} = {hstage_ms:.4f} ms")
     hstage_dev_ms = dev_ms(lambda: lsrk45(hrhs, hq0, CAV_TIMED_DT, 10),
                            1) / 50
     print(f"[{card}] 3D cavity stage device time (queued ahead of the "
@@ -4012,7 +4065,7 @@ def main(parent=None):
               f", mu={shock.mu}) {name} fused_hex: {STEPS} LSRK45 steps at "
               f"dt={bdt:.6g}, launches {counts}")
         want = {"euler_volume": 5 * STEPS, "cns_surface_viscous": 5 * STEPS,
-                "lsrk45_update": 5 * STEPS}
+                "cns_traction_tail": 5 * STEPS, "lsrk45_update": 5 * STEPS}
         if counts != want:
             raise AssertionError(f"expected launches {want} on the Becker "
                                  "path")

@@ -2,8 +2,9 @@
 CNS kernels against their plain versions: the volume fronts K3
 (``ops.modal_volume``, lines, tris and hexes) and K1
 (``ops.fused_volume``, collocated hexes), the merged surface + viscous
-stage K4 and the split stages K8 (``ops.cns_surface``) and K7
-(``ops.surface_viscous.cns_viscous``), in every form
+stage K4, the tail after it (``ops.cns_tail``) and the split stages K8
+(``ops.cns_surface``) and K7 (``ops.surface_viscous.cns_viscous``), in
+every form
 ``make_cns_rhs_affine`` reaches: the cavities (``cavity_case``) and the
 Becker shock tubes on lines and hexes (``becker_case``), with the modal
 front (proj) or, on collocated hexes, K1's.
@@ -30,6 +31,7 @@ from .ops.cns_surface import cns_surface_plain
 from .ops.cns_surface_bc import prepare_surface_bc
 from .ops.fused_volume import detect_axis_aligned, euler_volume_plain
 from .ops.modal_volume import euler_modal_volume_plain
+from .ops.surface_viscous import cns_surface_viscous_plain
 from .physics import pfun, primitive_to_conservative, v_ufun
 from .core import build_discretization, ref_tri
 from .mesh.generators import uniform_tri_mesh
@@ -37,7 +39,7 @@ from .presets import (becker_shocktube_1d, becker_shocktube_3d,
                       lid_driven_cavity, lid_driven_cavity_3d, square_warp)
 from .solvers.euler import entropy_projection, flux_variables
 from .solvers._shared import (adiabatic_mask, entropy_vars_from_flux,
-                              flux_to_conservative)
+                              flux_to_conservative, neighbor_traction)
 from .solvers.boundary import Region, make_wall_bc
 from .solvers.cns_fused import composed_operators
 
@@ -231,6 +233,18 @@ def k4_inputs(disc, q, bc, p, t=0.0, proj=None):
               nq=nq, dissipation=True, with_penalty=True, recipe=recipe,
               proj=proj)
     return args, (ph_qf, disc.lift), kw
+
+
+def tail_inputs(disc, q, bc, p, t=0.0):
+    """The tail's inputs after the plain K4's fold_tail form on
+    ``k4_inputs``, (dq_part, t_f, lift, inv_j), contiguous as the kernel
+    takes them, and the plain neighbour traction t_pn (the exchange and
+    ``WallBC.stress_normal``)."""
+    args, tail, kw = k4_inputs(disc, q, bc, p, t)
+    dq_part, t_f = (a.contiguous() for a in cns_surface_viscous_plain(
+        *args, *tail, fold_tail=True, **kw)[:2])
+    t_pn = neighbor_traction(disc, bc, t_f, disc.gather_traces(t_f), t)
+    return (dq_part, t_f, disc.lift, disc.inv_jac[:1]), t_pn
 
 
 def k8_inputs(disc, q, bc, p, t=0.0, proj=None):

@@ -185,6 +185,10 @@ def library() -> ctypes.CDLL:
     lib.esdg_lsrk45_update.argtypes = [_I, _I] + [_P] * 4 + [
         ctypes.c_longlong] + [ctypes.c_double] * 3 + [_P]
     lib.esdg_lsrk45_update.restype = _I
+    lib.esdg_cns_tail.argtypes = [_I, _I, _P, ctypes.c_longlong, _P]
+    lib.esdg_cns_tail.restype = _I
+    lib.esdg_cns_tail_shape.argtypes = [_I, _I, _P]
+    lib.esdg_cns_tail_shape.restype = _I
     lib.esdg_probe_peak.argtypes = [_P, _P, ctypes.c_longlong, _I, _P]
     lib.esdg_probe_peak.restype = _I
     lib.esdg_probe_chain.argtypes = [_I, _P, _P, ctypes.c_longlong, _I, _P]

@@ -38,6 +38,11 @@ at setup time: the front operator [Vq Pq; Vq D_r Pq], Vq LIFT and D_r Pq
   4. a second exchange, of the contracted traction;
   5. the LIFT of the traction jump (with the flux and penalty LIFTs
      unless folded into K4) and the 1/J scaling.
+After K4's fold_tail form on collocated hexes with CUDA tensors, steps 4
+and 5 are one kernel, ``ops.cns_tail.cns_traction_tail``, which reads
+the neighbours' traction itself, wherever ``ops.cns_tail.traction_rule``
+has a code for every wall region (interior, natural and adiabatic
+points); elsewhere the plain lines.
 
 Semantics equal to ``solvers.cns.make_cns_rhs`` (the plain twin) up to
 roundoff: the same physics, the same BC hooks, the same two exchanges.
@@ -117,6 +122,7 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
     if not disc.affine:
         raise ValueError("make_cns_rhs_affine requires an affine mesh")
     from ..ops.cns_surface import cns_surface
+    from ..ops.cns_tail import cns_traction_tail, traction_rule
     from ..ops.dense_fd import _check_mode
     from ..ops.cns_surface_bc import prepare_surface_bc
     from ..ops.fused_volume import (detect_axis_aligned, euler_volume,
@@ -212,6 +218,13 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
                            proj=proj)
                 if dim == 3 and front.device.type == "cuda"
                 and (use_merged or use_fused_viscous) else None)
+    # the tail kernel's per-face-point rule, where it runs: after K4's
+    # fold_tail form on collocated hexes at the line lengths it is built
+    # for, every wall region of a kind it has a code for
+    tail_rule = (traction_rule(disc, bc)
+                 if fold_tail and dim == 3 and disc.elem_type == "hex"
+                 and disc.line_ops is not None and disc.n + 1 <= 8
+                 and front.device.type == "cuda" else None)
     nxj = torch.stack(disc.nxj)
     inv_j = disc.inv_jac[:1]                         # [1, K] affine
     geo = disc.geo                                   # [dim*dim, 1, K]
@@ -338,13 +351,16 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
         with span("solvers.cns_fused.tail"):
             if use_fused_viscous:
                 rhstest_visc = torch.sum(prod)
+            if use_merged and fold_tail:
+                # everything but the traction jump's LIFT happened in K4
+                t_pn = (None if tail_rule is not None else
+                        neighbor_traction(disc, bc, t_f, gather(t_f), t))
+                dq = cns_traction_tail(dq_part, t_f, disc.lift, inv_j,
+                                       rule=tail_rule, t_pn=t_pn)
+                return dq, {"rhstest_visc": rhstest_visc}
             t_ex = gather(t_f)
             t_pn = neighbor_traction(disc, bc, t_f, t_ex, t)
             jump_n = 0.5 * (t_pn - t_f)
-            if use_merged and fold_tail:
-                # everything but the jump LIFT happened in the kernel
-                dq = dq_part + _apply(disc.lift, jump_n) * inv_j[None]
-                return dq, {"rhstest_visc": rhstest_visc}
 
             lift_in = [flux, jump_n] + ([pen] if viscous_dissipation else [])
             lifted = _apply(disc.lift, torch.stack(lift_in))

@@ -23,11 +23,13 @@ from esdg_cns_tpu_torch.cavity_cases import (
     k4_inputs,
     k7_inputs,
     k8_inputs,
+    tail_inputs,
     warped_tri_case,
 )
 from esdg_cns_tpu_torch.core import build_discretization, ref_hex
 from esdg_cns_tpu_torch.mesh.generators import uniform_hex_mesh
 from esdg_cns_tpu_torch.ops import cns_surface as cs
+from esdg_cns_tpu_torch.ops import cns_tail as ct
 from esdg_cns_tpu_torch.ops import dense_fd as df
 from esdg_cns_tpu_torch.ops import fused_volume as fv
 from esdg_cns_tpu_torch.ops.lsrk45_update import lsrk45_update
@@ -35,6 +37,7 @@ from esdg_cns_tpu_torch.ops import modal_volume as mv
 from esdg_cns_tpu_torch.ops import surface_viscous as sv
 from esdg_cns_tpu_torch.ops import tensor_product_fd as tp
 from esdg_cns_tpu_torch.physics import primitive_to_conservative
+from esdg_cns_tpu_torch.solvers.boundary import Region, make_wall_bc
 from esdg_cns_tpu_torch.presets import (
     euler_hex_3d,
     lid_driven_cavity,
@@ -745,6 +748,98 @@ def test_surface_viscous_3d_kernel_matches_plain(cuda, dtype, case,
     _match(kern, plain, dtype, case)
 
 
+# ---- the tail after K4's fold_tail form (ops.cns_tail) ----
+def _tail_case(case, n, k1d, dtype, device):
+    """The 3D cavity with isothermal walls, adiabatic ones under a moving
+    lid, or 'arrays': the isothermal lid and the adiabatic floor of
+    'mixed' with array wall speeds, then adiabatic side walls with scalar
+    ones over their shared edges."""
+    disc, q, bc, p = cavity_case("mixed" if case == "arrays" else case, n,
+                                 k1d, dtype, device, dim=3)
+    if case == "arrays":
+        top, bottom, low, high = bc.regions
+        bc = make_wall_bc(disc, [top, bottom, Region(
+            mask=low.mask | high.mask, kind="adiabatic",
+            u_wall=(0.2, -0.1, 0.3))])
+    return disc, q, bc, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["isothermal", "adiabatic", "arrays"])
+@pytest.mark.parametrize("n,k1d", [(3, 4), (3, 6), (7, 2)])
+def test_tail_kernel_matches_the_plain_tail(cuda, dtype, case, n, k1d):
+    """The tail kernel on K4's outputs against the plain tail: the
+    exchange, WallBC.stress_normal, the jump's LIFT and 1/J."""
+    disc, q, bc, p = _tail_case(case, n, k1d, dtype, cuda)
+    (dq_part, t_f, lift, inv_j), t_pn = tail_inputs(disc, q, bc, p)
+    plain = ct.cns_traction_tail_plain(dq_part, t_f, lift, inv_j, t_pn=t_pn)
+    rule = ct.traction_rule(disc, bc)
+    assert (rule.wall.shape[0] > 0) == (case != "isothermal")
+    before = ct.cns_traction_tail.launches
+    kern = ct.cns_traction_tail(dq_part.clone(), t_f, lift, inv_j, rule=rule)
+    torch.cuda.synchronize()
+    assert ct.cns_traction_tail.launches == before + 1
+    assert _rel(kern, plain) <= TOL[dtype], case
+
+
+def _cavity_rhs(disc, bc, p, **kw):
+    return make_cns_rhs_affine(disc, mu=p["mu"], pr=p["pr"], re=p["re"],
+                               bc=bc, inviscid_dissipation=True,
+                               viscous_dissipation=True,
+                               volume_impl="fused_hex", compute_rhstest=False,
+                               **kw)
+
+
+def _tail_forms(before):
+    return {k: v - before[k] for k, v in ct.cns_traction_tail.forms.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["isothermal", "adiabatic", "arrays"])
+def test_rhs_on_the_tail_kernel_matches_the_plain_tail(cuda, monkeypatch,
+                                                       dtype, case):
+    """The whole fold_tail RHS on the tail kernel against the same RHS
+    with the plain tail (no rule), on the same state."""
+    disc, q, bc, p = _tail_case(case, 3, 4, dtype, cuda)
+    forms = dict(ct.cns_traction_tail.forms)
+    a, _ = _cavity_rhs(disc, bc, p)(q)
+    assert _tail_forms(forms) == {"kernel": 1, "plain": 0}
+    monkeypatch.setattr(ct, "traction_rule", lambda disc, bc: None)
+    forms = dict(ct.cns_traction_tail.forms)
+    b, _ = _cavity_rhs(disc, bc, p)(q)
+    torch.cuda.synchronize()
+    assert _tail_forms(forms) == {"kernel": 0, "plain": 1}
+    assert _rel(a, b) <= TOL[dtype], case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["slip", "mixed", "stress_state"])
+def test_tail_without_a_rule_takes_the_plain_lines(cuda, case):
+    """A slip region, or Dirichlet ghost stresses, have no code in the
+    rule: the RHS runs the plain tail and launches no tail kernel."""
+    disc, q, bc, p = cavity_case("isothermal" if case == "stress_state"
+                                 else case, 3, 3, torch.float64, cuda, dim=3)
+    if case == "stress_state":
+        # the ghost at rest (rho = beta = 1) over the lid, no ghost stress
+        ghost = torch.ones((5, disc.nfq, disc.num_elements),
+                           dtype=torch.float64, device=cuda)
+        ghost[1:4] = 0.0
+        stress = torch.zeros((3, *ghost.shape), dtype=torch.float64,
+                             device=cuda)
+        bc = make_wall_bc(disc, list(bc.regions) + [Region(
+            mask=bc.regions[0].mask, kind="dirichlet",
+            state=lambda t: ghost, stress_state=lambda t: stress)])
+    forms = dict(ct.cns_traction_tail.forms)
+    launches = ct.cns_traction_tail.launches
+    dq, _ = _cavity_rhs(disc, bc, p)(q)
+    torch.cuda.synchronize()
+    assert _tail_forms(forms) == {"kernel": 0, "plain": 1}
+    assert ct.cns_traction_tail.launches == launches
+    assert bool(torch.isfinite(dq).all())
+
+
 @pytest.mark.gpu
 def test_fused_cavity_3d_rhs_matches_twin_and_is_entropy_stable(cuda):
     disc, q, bc, p = cavity_case("isothermal", 3, 3, torch.float64, cuda,
@@ -1118,9 +1213,10 @@ def test_modal_volume_kernel_on_its_lists(cuda, dtype, case, state):
 
 @pytest.mark.gpu
 def test_stage_launch_counts(cuda):
-    """One launch a stage: K3 and K4 on the 3D cavity's 'fused' form (its
-    lists built once with the RHS), K1 and K2 on the Euler path at N=5
-    ('auto', K1 at N+1 = 6); the update kernel on both."""
+    """One launch a stage: K3, K4 and the tail kernel on the 3D cavity's
+    'fused' form (its lists built once with the RHS), K1, K4 and the tail
+    kernel on its 'fused_hex' form, K1 and K2 on the Euler path at N=5
+    ('auto', K1 at N+1 = 6); the update kernel on each."""
     from esdg_cns_tpu_torch.timestepping import lsrk45
     disc, q0, bc, p = lid_driven_cavity_3d(3, 3, dtype=torch.float32,
                                            device=cuda)
@@ -1128,13 +1224,28 @@ def test_stage_launch_counts(cuda):
                               pr=p["pr"], re=p["re"], bc=bc,
                               compute_rhstest=False)
     k3, k4 = mv.euler_modal_volume.launches, sv.cns_surface_viscous.launches
-    up = lsrk45_update.launches
+    up, tail = lsrk45_update.launches, ct.cns_traction_tail.launches
     qf, _ = lsrk45(rhs, q0, 1e-4, 2)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(qf).all())
     assert mv.euler_modal_volume.launches - k3 == 10
     assert sv.cns_surface_viscous.launches - k4 == 10
     assert lsrk45_update.launches - up == 10
+    assert ct.cns_traction_tail.launches - tail == 10
+    rhs = make_cns_rhs_affine(disc, volume_impl="fused_hex", mu=p["mu"],
+                              pr=p["pr"], re=p["re"], bc=bc,
+                              compute_rhstest=False)
+    k1, k4 = fv.euler_volume.launches, sv.cns_surface_viscous.launches
+    up, tail = lsrk45_update.launches, ct.cns_traction_tail.launches
+    forms = dict(ct.cns_traction_tail.forms)
+    qf, _ = lsrk45(rhs, q0, 1e-4, 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(qf).all())
+    assert fv.euler_volume.launches - k1 == 10
+    assert sv.cns_surface_viscous.launches - k4 == 10
+    assert lsrk45_update.launches - up == 10
+    assert ct.cns_traction_tail.launches - tail == 10
+    assert _tail_forms(forms) == {"kernel": 10, "plain": 0}
     disc, q0 = euler_hex_3d(n=5, k1d=3, dtype=torch.float32, device=cuda)
     rhs = make_euler_rhs_fused(disc, dissipation=True)
     k1, k2 = fv.euler_volume.launches, fv.euler_surface.launches
