@@ -9,7 +9,9 @@ in ``examples/`` (``vpu_peak.py``, ``vpu_divide.py``,
     sqrt in FMA issue slots;
   * ``fd_section``: K1's flux-differencing section alone, K1's joint line
     body against the split path's three per-direction launches;
-  * ``timing``: the slope timing the probes share.
+  * ``timing``: the slope timing the probes share;
+  * ``counts``: the pricing model, each kernel's operations by kind, its
+    data-sheet bound and its bound priced at the costs the probes measure.
 
 Each kernel's wrapper has its plain PyTorch version beside it, takes it
 for CPU tensors and for CUDA tensors launches its kernel or raises; each

@@ -15,7 +15,6 @@ from __future__ import annotations
 import os
 import statistics
 import subprocess
-import sys
 
 import numpy as np
 
@@ -32,26 +31,6 @@ def card_label():
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def load_parent(parent_dir):
-    """A parent tree's port, PARENT_DIR/esdg_cns_tpu_torch, imported as
-    the package esdg_parent beside this tree's (its imports are relative):
-    its wrappers launch its own kernels, built from its own sources into
-    its own build folder."""
-    import importlib
-    import importlib.util
-    from pathlib import Path
-
-    init = Path(parent_dir).resolve() / "esdg_cns_tpu_torch" / "__init__.py"
-    if not init.exists():
-        raise FileNotFoundError(f"no parent tree: no {init}")
-    spec = importlib.util.spec_from_file_location(
-        "esdg_parent", init, submodule_search_locations=[str(init.parent)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules["esdg_parent"] = pkg
-    spec.loader.exec_module(pkg)
-    return lambda name: importlib.import_module(f"esdg_parent.{name}")
 
 
 def require_cuda(device):

@@ -4,7 +4,7 @@ whose Q_r entry is above roundoff in some direction, and the entries of
 Vq, Vh Pq and Ph above roundoff.
 
 On the Gauss-collocated hex the partners are the points of the row's node
-lines: at N=3 the 672 pairs of chip_smoke.py's ``needed_pairs``, each
+lines: at N=3 the 672 pairs of ``probes.counts.needed_pairs``, each
 listed from both sides; on lines and tris every partner.  Dropping the
 other entries changes the function by roundoff: the plain version with
 them set to zero equals the full plain version to 1e-12 of max |out| in
@@ -16,12 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from esdg_cns_tpu_torch import presets
 from esdg_cns_tpu_torch.cavity_cases import moving_state
 from esdg_cns_tpu_torch.ops.modal_volume import (ROUNDOFF,
                                                  euler_modal_volume_plain,
                                                  modal_lists, partner_mask)
+from esdg_cns_tpu_torch.probes import counts
 
 F64 = torch.float64
 GAMMA = 1.4
@@ -79,7 +79,7 @@ def test_lists_hold_the_needed_entries_in_the_kernels_layout(dim, n):
     np.testing.assert_array_equal(q, np.where(mask, qs.numpy(), 0.0))
     for got, op in ((vq, disc.vq), (vhp, disc.vhp), (ph, disc.ph)):
         np.testing.assert_array_equal(got, _kept(op.numpy()))
-        assert np.count_nonzero(got) == chip_smoke.entries(op)
+        assert np.count_nonzero(got) == counts.entries(op)
 
 
 @pytest.mark.parametrize("dim,n", [(1, 4), (2, 3), (3, 3)])
@@ -91,12 +91,12 @@ def test_partners_are_the_pairs_the_operator_needs(dim, n):
     lists = modal_lists(qs, disc.vq, disc.vhp, disc.ph, nq)
     # every pair from both sides: the sum's rows each own their partners
     np.testing.assert_array_equal(mask, mask.T)
-    assert lists.pairs == int(mask.sum()) == 2 * chip_smoke.needed_pairs(
+    assert lists.pairs == int(mask.sum()) == 2 * counts.needed_pairs(
         qs, nq)
     if dim == 3:
         # the collocated hex: the points of each row's node lines, 672
         # pairs an element at N=3 (3 x 16 lines x (6 + 8))
-        assert chip_smoke.needed_pairs(qs, nq) == 672
+        assert counts.needed_pairs(qs, nq) == 672
         assert lists.pairs == 1344
     else:
         # lines and tris: every partner (the diagonal and the face-face

@@ -1,6 +1,6 @@
 """The port's throughput probes and flux-differencing section (rows 11-14
 of the TPU kernel table) against the TPU study kernels, and the by-kind
-operation counts of chip_smoke.py against the totals they replace.
+operation counts of ``probes.counts`` against the totals they replace.
 
 On the CPU the wrappers take their plain versions.  Rows 12 and 13 run the
 TPU probes' own kernels (``examples/vpu_divide.make_pallas``,
@@ -30,7 +30,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-import chip_smoke as cs  # noqa: E402
 from esdg_cns_tpu_torch.core import build_discretization  # noqa: E402
 from esdg_cns_tpu_torch.core import ref_hex, ref_line, ref_tri  # noqa: E402
 from esdg_cns_tpu_torch.mesh.generators import (  # noqa: E402
@@ -38,6 +37,7 @@ from esdg_cns_tpu_torch.mesh.generators import (  # noqa: E402
 from esdg_cns_tpu_torch.ops.fused_volume import hex_fd_dir_plain  # noqa: E402
 from esdg_cns_tpu_torch.ops.tensor_product_fd import (  # noqa: E402
     LineOps, _hex_line_coeffs)
+from esdg_cns_tpu_torch.probes import counts as cs  # noqa: E402
 from esdg_cns_tpu_torch.probes import divide, peak  # noqa: E402
 from esdg_cns_tpu_torch.probes import fd_section as fs  # noqa: E402
 from esdg_cns_tpu_torch.probes import transcendental  # noqa: E402
@@ -198,12 +198,12 @@ def test_fd_section_plain_is_the_split_directions_summed(n1, diag):
 
 
 # -----------------------------------------------------------------------------
-# chip_smoke.py's operation counts by kind
+# probes.counts: the operation counts by kind
 # -----------------------------------------------------------------------------
 
 def _old_counts():
-    """chip_smoke.py's hand counts before they were split by kind (FMA two
-    operations, every other kind one), verbatim: the totals the data-sheet
+    """The hand counts before they were split by kind (FMA two operations,
+    every other kind one), verbatim: the totals the data-sheet
     bound keeps."""
     pair_3d = {"diag": 74, "general": 106, "curved": 112}
     pair_modal = {1: 55, 2: 85, 3: pair_3d["general"]}

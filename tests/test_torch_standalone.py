@@ -1,11 +1,9 @@
 """The port stands alone: it runs with JAX unimportable and loads no
 module of the JAX package, its copies of the NumPy ``basis`` and ``mesh``
-packages build what the originals build, and its chip check refuses to
-run without a CUDA device (there is no CPU path)."""
+packages build what the originals build."""
 
 import filecmp
 import os
-import shutil
 import subprocess
 import sys
 
@@ -144,25 +142,6 @@ def test_port_runs_with_jax_blocked():
                        timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert r.stdout.strip().endswith("OK")
-
-
-def test_chip_smoke_refuses_without_cuda(tmp_path):
-    """(h) no CUDA device -> non-zero exit, a message, and no result;
-    likewise from a directory that holds chip_smoke.py alone."""
-    env = _env()
-    env["CUDA_VISIBLE_DEVICES"] = ""
-    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=env,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0
-    assert "no CUDA device" in r.stderr
-    assert '"ok"' not in r.stdout
-
-    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
-    env.pop("PYTHONPATH")
-    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
-                       env=env, capture_output=True, text=True, timeout=300)
-    assert r.returncode != 0
-    assert '"ok"' not in r.stdout
 
 
 def test_basis_and_mesh_copies_match_the_jax_package():
