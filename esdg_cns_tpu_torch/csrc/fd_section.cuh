@@ -42,7 +42,7 @@
 //
 // This header holds the kernel; fd_section5.cu the entry esdg_fd_section
 // and N+1 = 5, fd_section6.cu and fd_section7.cu one larger line length
-// each, so that nvcc builds them in parallel, as hex_volume6..8.cu.
+// each, so that nvcc builds them in parallel, as hex_volume5..8.cu.
 #pragma once
 
 #include "line_fd.cuh"

@@ -24,7 +24,13 @@
 //      lift_lines; Ef and LIFT are zero elsewhere up to roundoff).
 // Outputs: ph_qf [5, Nq, K] and traces [7, Nfq, K] =
 // (rho, u1, u2, u3, beta, log rho, log beta) at the face points, faces
-// r-, r+, s-, s+, t-, t+ in the face-node order of ref_hex (Ef's rows).
+// r-, r+, s-, s+, t-, t+ in the face-node order of ref_hex (Ef's rows);
+// with VOUT also step 1's v(U) into vout [5, Nq, K] (Vq = I on the
+// collocated hexes, so the CNS front hands it to the viscous kernels),
+// stored from the registers that hold it.  VOUT is a template flag, so
+// that the Euler fronts' instantiations (vout null) compile as they did
+// before it: as a runtime branch it moved the registers of some forms
+// (f32 N+1 = 5 diag 87 -> 89, f64 N+1 = 3 general 124 -> 120).
 //
 // Design (line_fd.cuh's VolumeTile and line_fd).  A block owns TE
 // elements and one thread per (element, direction, line): 3 (N+1)^2
@@ -64,8 +70,8 @@
 // the plain version to ~1e-6 of max|out|, f64 to ~1e-14.
 //
 // This header holds the kernel; hex_volume.cu the entry esdg_hex_volume
-// with N+1 = 2..5, and hex_volume6/7/8.cu one larger line length each, so
-// that nvcc builds them in parallel.
+// with N+1 = 2..4, and hex_volume5/6/7/8.cu one larger line length each,
+// both VOUT forms, so that nvcc builds them in parallel.
 #pragma once
 
 #include "hex_project.cuh"
@@ -73,7 +79,7 @@
 
 namespace esdg {
 
-template <typename T, int N1, bool DIAG, bool CURVED>
+template <typename T, int N1, bool DIAG, bool CURVED, bool VOUT>
 __global__ void __launch_bounds__(VolumeTile<T, N1>::THREADS,
                                   VolumeTile<T, N1>::MIN_BLOCKS)
     hex_volume_kernel(const T* __restrict__ q, const T* __restrict__ geo,
@@ -81,7 +87,7 @@ __global__ void __launch_bounds__(VolumeTile<T, N1>::THREADS,
                       const T* __restrict__ iw, const T* __restrict__ iwf,
                       const T* __restrict__ ef, const T* __restrict__ lift,
                       T* __restrict__ out, T* __restrict__ traces,
-                      long long K, double gamma) {
+                      T* __restrict__ vout, long long K, double gamma) {
   using Tile = VolumeTile<T, N1>;
   constexpr int NQ = Tile::NQ, NFQ = Tile::NFQ;
   constexpr int TE = Tile::TE, THREADS = Tile::THREADS;
@@ -116,6 +122,13 @@ __global__ void __launch_bounds__(VolumeTile<T, N1>::THREADS,
     project_volume_point(u, c, v, vals);
 #pragma unroll
     for (int f = 0; f < 5; ++f) vslot(e, f, i) = v[f];
+    if constexpr (VOUT) {
+      if (k < K) {
+#pragma unroll
+        for (int f = 0; f < 5; ++f)
+          vout[(long long)(f * NQ + i) * K + k] = v[f];
+      }
+    }
 #pragma unroll
     for (int r = 0; r < 7; ++r) at(e, r, i) = vals[r];
   }
@@ -170,13 +183,14 @@ __global__ void __launch_bounds__(VolumeTile<T, N1>::THREADS,
   }
 }
 
-template <typename T, int N1, bool DIAG, bool CURVED>
+template <typename T, int N1, bool DIAG, bool CURVED, bool VOUT>
 int launch_volume(const void* q, const void* geo, const void* cvol,
                   const void* cface, const void* iw, const void* iwf,
                   const void* ef, const void* lift, void* out, void* traces,
-                  long long K, double gamma, cudaStream_t stream, int* occ) {
+                  void* vout, long long K, double gamma, cudaStream_t stream,
+                  int* occ) {
   using Tile = VolumeTile<T, N1>;
-  auto kern = hex_volume_kernel<T, N1, DIAG, CURVED>;
+  auto kern = hex_volume_kernel<T, N1, DIAG, CURVED, VOUT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(Tile::SMEM));
   if (err != cudaSuccess) return int(err);
@@ -188,31 +202,32 @@ int launch_volume(const void* q, const void* geo, const void* cvol,
       static_cast<const T*>(cvol), static_cast<const T*>(cface),
       static_cast<const T*>(iw), static_cast<const T*>(iwf),
       static_cast<const T*>(ef), static_cast<const T*>(lift),
-      static_cast<T*>(out), static_cast<T*>(traces), K, gamma);
+      static_cast<T*>(out), static_cast<T*>(traces), static_cast<T*>(vout),
+      K, gamma);
   return int(cudaGetLastError());
 }
 
-// One line length N1 of K1 for both types and all three metric forms;
-// returns as esdg_hex_volume.  hex_volume.cu instantiates N1 = 2..5,
-// hex_volume<N1>.cu the larger ones.
-template <int N1>
+// One line length N1 of K1 for both types and all three metric forms,
+// with (VOUT) or without v(U); returns as esdg_hex_volume.  hex_volume.cu
+// instantiates N1 = 2..4, hex_volume<N1>.cu the larger ones.
+template <int N1, bool VOUT>
 int volume_order(int dtype, int diag, int curved, const void* q,
                  const void* geo, const void* cvol, const void* cface,
                  const void* iw, const void* iwf, const void* ef,
-                 const void* lift, void* out, void* traces, long long K,
-                 double gamma, cudaStream_t stream, int* occ) {
+                 const void* lift, void* out, void* traces, void* vout,
+                 long long K, double gamma, cudaStream_t stream, int* occ) {
 #define ESDG_VOLUME_FORMS(T)                                                \
   if (diag)                                                                 \
-    return launch_volume<T, N1, true, false>(q, geo, cvol, cface, iw, iwf,  \
-                                             ef, lift, out, traces, K,      \
-                                             gamma, stream, occ);           \
+    return launch_volume<T, N1, true, false, VOUT>(                         \
+        q, geo, cvol, cface, iw, iwf, ef, lift, out, traces, vout, K,       \
+        gamma, stream, occ);                                                \
   if (curved)                                                               \
-    return launch_volume<T, N1, false, true>(q, geo, cvol, cface, iw, iwf,  \
-                                             ef, lift, out, traces, K,      \
-                                             gamma, stream, occ);           \
-  return launch_volume<T, N1, false, false>(q, geo, cvol, cface, iw, iwf,   \
-                                            ef, lift, out, traces, K,       \
-                                            gamma, stream, occ);
+    return launch_volume<T, N1, false, true, VOUT>(                         \
+        q, geo, cvol, cface, iw, iwf, ef, lift, out, traces, vout, K,       \
+        gamma, stream, occ);                                                \
+  return launch_volume<T, N1, false, false, VOUT>(                          \
+      q, geo, cvol, cface, iw, iwf, ef, lift, out, traces, vout, K, gamma,  \
+      stream, occ);
   if (diag && curved) return -3;
   if (dtype == 0) {
     ESDG_VOLUME_FORMS(float)
@@ -227,6 +242,6 @@ int volume_order(int dtype, int diag, int curved, const void* q,
 #define ESDG_VOLUME_ORDER_ARGS                                             \
   int, int, int, const void*, const void*, const void*, const void*,      \
       const void*, const void*, const void*, const void*, void*, void*,   \
-      long long, double, cudaStream_t, int*
+      void*, long long, double, cudaStream_t, int*
 
 }  // namespace esdg

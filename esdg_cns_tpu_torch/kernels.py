@@ -133,7 +133,7 @@ _I = ctypes.c_int
 def library() -> ctypes.CDLL:
     """The kernel library, built at first use."""
     lib = ctypes.CDLL(str(build().path))
-    lib.esdg_hex_volume.argtypes = [_I] * 4 + [_P] * 10 + [
+    lib.esdg_hex_volume.argtypes = [_I] * 4 + [_P] * 11 + [
         ctypes.c_longlong, ctypes.c_double, _P]
     lib.esdg_hex_volume.restype = _I
     lib.esdg_hex_surface.argtypes = [_I] * 6 + [_P, _P] + [
@@ -151,7 +151,7 @@ def library() -> ctypes.CDLL:
     lib.esdg_hex_fd_dir.restype = _I
     lib.esdg_hex_fd_dir_shape.argtypes = [_I] * 4 + [_P]
     lib.esdg_hex_fd_dir_shape.restype = _I
-    lib.esdg_hex_volume_shape.argtypes = [_I] * 4 + [_P]
+    lib.esdg_hex_volume_shape.argtypes = [_I] * 5 + [_P]
     lib.esdg_hex_volume_shape.restype = _I
     lib.esdg_modal_volume.argtypes = [_I, _I, _I] + [_P] * 7 + [
         ctypes.c_longlong] + [_I] * 5 + [ctypes.c_double, _P]

@@ -24,7 +24,8 @@ wrapper takes the plain version only for CPU tensors; for CUDA tensors
 it launches its kernel or raises.  Each counts its launches in a plain
 integer attribute (``euler_volume.launches``), bumped only where the
 kernel is launched; K1 and K2 count them by form besides
-(``euler_volume.forms``, ``euler_surface.forms``).  The launch calls of
+(``euler_volume.forms``, ``euler_surface.forms``), and K1 the launches
+that wrote v(U) (``euler_volume.with_v``).  The launch calls of
 K1, K2 and the projection sit inside a span named by the wrapper
 (``ops.fused_volume.euler_volume``; ``tracing.span``).
 
@@ -48,7 +49,7 @@ import numpy as np
 import torch
 
 from ..core.discretization import grid_neighbours
-from ..physics.euler import ec_flux_fields
+from ..physics.euler import ec_flux_fields, v_ufun
 from ..tracing import span
 from .tensor_product_fd import (LineOps, _dir_layout, _hex_line_coeffs,
                                 flux_differencing_lines)
@@ -183,13 +184,14 @@ def _entropy_project_hex(q, ef, gamma):
 
 
 def euler_volume_plain(q, geo, ef, lift, gamma, *, line_ops: LineOps,
-                       diag: bool = False):
+                       diag: bool = False, with_v: bool = False):
     """Plain PyTorch fused volume stage; same contract as ``euler_volume``.
 
     Entropy projection, line-sparse flux differencing, then
     Ph QF = QF_vol / wq + LIFT (QF_face / wf).  diag (affine meshes only,
     as in the kernel) drops the off-diagonal metric terms, exactly as
-    the kernel's single-term contraction does.
+    the kernel's single-term contraction does.  with_v: v(U) is
+    ``v_ufun(q, gamma)``.
     """
     nq = q.shape[1]
     qh, qlog = _entropy_project_hex(q, ef, gamma)
@@ -205,14 +207,17 @@ def euler_volume_plain(q, geo, ef, lift, gamma, *, line_ops: LineOps,
                           device=q.device)[:, None]
     ph_qf = iw * qf[:, :nq] + lift @ (iwf * qf[:, nq:])
     traces = torch.cat([qh[:, nq:], qlog[:, nq:]], dim=0)
+    if with_v:
+        return ph_qf, traces, v_ufun(q, gamma)
     return ph_qf, traces
 
 
 def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
-                 diag: bool = False):
+                 diag: bool = False, with_v: bool = False):
     """Fused volume stage.  Returns (ph_qf [5, Nq, K], traces [7, Nfq, K])
     with traces = (rho, u1, u2, u3, beta, log rho, log beta) at the face
-    points.
+    points; with_v, also the entropy variables v(U) [5, Nq, K] at the
+    volume nodes that the kernel computes for its projection.
 
     q [5, Nq, K] conservative state; geo [9, 1, K] affine metric or
     [9, Nh, K] curved; ef [Nfq, Nq] face extrapolation; lift [Nq, Nfq].
@@ -221,7 +226,8 @@ def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
     """
     if q.device.type == "cpu":
         return euler_volume_plain(q, geo, ef, lift, gamma,
-                                  line_ops=line_ops, diag=diag)
+                                  line_ops=line_ops, diag=diag,
+                                  with_v=with_v)
     if q.device.type != "cuda":
         raise ValueError(f"euler_volume: no kernel for device {q.device}")
     name = "euler_volume"
@@ -238,8 +244,11 @@ def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
         _check_shape(name, key, t, shape)
     out = torch.empty((nf, nq, k), dtype=q.dtype, device=q.device)
     traces = torch.empty((7, nfq, k), dtype=q.dtype, device=q.device)
+    v = (torch.empty((nf, nq, k), dtype=q.dtype, device=q.device)
+         if with_v else None)
+    res = (out, traces, v) if with_v else (out, traces)
     if k == 0:
-        return out, traces
+        return res
     cvol, cface, iw, iwf = _volume_consts(line_ops, q.dtype, q.device)
     from ..kernels import library
 
@@ -252,17 +261,21 @@ def euler_volume(q, geo, ef, lift, gamma, *, line_ops: LineOps,
                 q.data_ptr(), geo.data_ptr(), cvol.data_ptr(),
                 cface.data_ptr(), iw.data_ptr(), iwf.data_ptr(),
                 ef.data_ptr(), lift.data_ptr(), out.data_ptr(),
-                traces.data_ptr(), k, float(gamma), stream)
+                traces.data_ptr(), v.data_ptr() if with_v else None, k,
+                float(gamma), stream)
     _raise_on(name, rc, _N7_BUILT)
     euler_volume.launches += 1
     euler_volume.forms["curved" if curved else "diag" if diag
                        else "general"] += 1
-    return out, traces
+    euler_volume.with_v += int(with_v)
+    return res
 
 
 euler_volume.launches = 0
 # launches by metric form: one-row diagonal, general affine, curved
 euler_volume.forms = {"diag": 0, "general": 0, "curved": 0}
+# launches that wrote v(U) (the CNS front's; the Euler fronts ask for none)
+euler_volume.with_v = 0
 
 
 def launch_shape(entry, *args):
@@ -281,10 +294,12 @@ def launch_shape(entry, *args):
     return tuple(occ)
 
 
-def euler_volume_shape(dtype, n1, *, diag=False, curved=False):
-    """K1's launch shape at line length n1 (``launch_shape``)."""
+def euler_volume_shape(dtype, n1, *, diag=False, curved=False,
+                       with_v=False):
+    """K1's launch shape at line length n1, in the form that stores v(U)
+    with with_v (``launch_shape``)."""
     return launch_shape("esdg_hex_volume_shape", _DTYPE_CODE[dtype], n1,
-                        int(diag), int(curved))
+                        int(diag), int(curved), int(with_v))
 
 
 # -----------------------------------------------------------------------------

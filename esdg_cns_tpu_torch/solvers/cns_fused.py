@@ -18,9 +18,10 @@ at setup time: the front operator [Vq Pq; Vq D_r Pq], Vq LIFT and D_r Pq
                  so), or at N = 7 the split path ``euler_volume_split``
                  (projection kernel, one fd kernel per direction), chosen
                  as the TPU package chooses; Vq = Pq = I
-                 there, so the viscous front reads v(U) directly and its
-                 front operator is the gradient rows [Vq D_r Pq] alone
-                 (proj=False);
+                 there, so the viscous front reads v(U) directly (K1
+                 stores the v(U) of its projection; after the split
+                 path ``phys.v_ufun``) and its front operator is the
+                 gradient rows [Vq D_r Pq] alone (proj=False);
      'xla'       (the default, and any other name, as in the TPU
                  package) plain tensor code: one front GEMM [Vh Pq;
                  Vq Pq; Vq D_r Pq] on v(U) and ``flux_diff_impl``;
@@ -274,13 +275,18 @@ def make_cns_rhs_affine(disc, *, mu: float, lam: Optional[float] = None,
                 list(fr[:, nq:].split(nq, dim=1)), ph_qf)
 
     def front_fused_hex(q):
-        vol = euler_volume_split if split_front else euler_volume
-        ph_qf, tr = vol(q, geo, ef, disc.lift, gamma,
-                        line_ops=disc.line_ops, diag=hex_diag)
-        with span("solvers.cns_fused.entropy_vars"):
-            vu_q = phys.v_ufun(q, gamma)
-            vqd = (None if use_fused_viscous
-                   else list(_apply(front, vu_q).split(nq, dim=1)))
+        vkw = dict(line_ops=disc.line_ops, diag=hex_diag)
+        if split_front:
+            ph_qf, tr = euler_volume_split(q, geo, ef, disc.lift, gamma,
+                                           **vkw)
+            with span("solvers.cns_fused.entropy_vars"):
+                vu_q = phys.v_ufun(q, gamma)
+        else:
+            # K1 stores the v(U) it computes for its projection
+            ph_qf, tr, vu_q = euler_volume(q, geo, ef, disc.lift, gamma,
+                                           with_v=True, **vkw)
+        vqd = (None if use_fused_viscous
+               else list(_apply(front, vu_q).split(nq, dim=1)))
         return (tr, *traces(tr), vu_q, vqd, ph_qf)
 
     front_fn = {"fused": front_fused,

@@ -40,11 +40,14 @@ from esdg_cns_tpu_torch.cavity_cases import (
 )
 from esdg_cns_tpu_torch.core.discretization import ARRAY_FIELDS, META_FIELDS
 from esdg_cns_tpu_torch.ops import cns_surface as cs
+from esdg_cns_tpu_torch.ops import fused_volume as fv
 from esdg_cns_tpu_torch.ops import surface_viscous as sv
 from esdg_cns_tpu_torch.ops.cns_surface_bc import prepare_surface_bc
 from esdg_cns_tpu_torch.ops.fused_volume import detect_axis_aligned
+from esdg_cns_tpu_torch.physics.euler import v_ufun
 from esdg_cns_tpu_torch.presets import lid_driven_cavity, lid_driven_cavity_3d
-from esdg_cns_tpu_torch.solvers import make_cns_rhs, make_cns_rhs_affine
+from esdg_cns_tpu_torch.solvers import (cns_fused, make_cns_rhs,
+                                        make_cns_rhs_affine)
 from esdg_cns_tpu_torch.solvers._shared import adiabatic_mask
 
 F64 = torch.float64
@@ -292,3 +295,47 @@ def test_cavity_cases_3d_move_and_take_the_plain_path_on_cpu(case):
             assert torch.equal(a, b) and bool(torch.isfinite(a).all())
     assert counts == (sv.cns_surface_viscous.launches,
                       sv.cns_viscous.launches, cs.cns_surface.launches)
+
+
+# where the viscous terms take v(U): K4 (merged), K7 after K8 (fused), the
+# plain mid-section (xla), whose gradient rows are computed from it
+_TAKES_V = {"merged_tail": (sv, "cns_surface_viscous"),
+            "fused": (sv, "cns_viscous"),
+            "xla": (cns_fused, "viscous_flux_nd")}
+
+
+@pytest.mark.parametrize("surface,viscous", [
+    ("merged_tail", "auto"), ("fused", "auto"), ("xla", "xla")])
+def test_fused_hex_front_hands_on_k1s_own_v(monkeypatch, surface, viscous):
+    """The K1 front asks K1 for v(U) and hands that very tensor to the
+    viscous terms, so no v_ufun runs on that front; on the CPU it is
+    v_ufun(q), and the RHS equals the twin."""
+    (_, _, _, p), (td, tq0, tbc, _) = _cavity_pair(2, 2)
+    q = moving_state(tq0, np.random.default_rng(11))
+    seen = {}
+    real_k1 = fv.euler_volume
+
+    def k1(*args, **kw):
+        out = real_k1(*args, **kw)
+        seen["k1"] = out[2] if kw.get("with_v") else None
+        return out
+
+    module, name = _TAKES_V[surface]
+    real_viscous = getattr(module, name)
+
+    def viscous_terms(vuq, *args, **kw):
+        seen["viscous"] = vuq
+        return real_viscous(vuq, *args, **kw)
+
+    monkeypatch.setattr(fv, "euler_volume", k1)
+    monkeypatch.setattr(module, name, viscous_terms)
+    flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=tbc,
+                 inviscid_dissipation=True, viscous_dissipation=True)
+    got, _ = make_cns_rhs_affine(
+        td, volume_impl="fused_hex", surface_impl=surface,
+        viscous_impl=viscous, compute_rhstest=surface != "merged_tail",
+        **flags)(q, 0.0)
+    assert seen["k1"] is not None and seen["viscous"] is seen["k1"]
+    assert torch.equal(seen["k1"], v_ufun(q))
+    twin, _ = make_cns_rhs(td, **flags)(q, 0.0)
+    assert _rel(got.numpy(), twin.numpy()) <= 1e-9

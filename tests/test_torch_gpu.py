@@ -40,6 +40,7 @@ from esdg_cns_tpu_torch.ops import modal_volume as mv
 from esdg_cns_tpu_torch.ops import surface_viscous as sv
 from esdg_cns_tpu_torch.ops import tensor_product_fd as tp
 from esdg_cns_tpu_torch.physics import primitive_to_conservative
+from esdg_cns_tpu_torch.physics.euler import v_ufun
 from esdg_cns_tpu_torch.solvers.boundary import Region, make_wall_bc
 from esdg_cns_tpu_torch.presets import (
     becker_shocktube_1d,
@@ -94,6 +95,25 @@ def _surface_inputs(disc, diag):
     return torch.stack(disc.nxj), disc.inv_jac
 
 
+def _check_volume(vargs, vkw, dtype):
+    """K1 against its plain version, launched without and with v(U) asked
+    for: both launches counted, the second also as one that wrote v; the
+    same ph_qf and traces bit for bit; v(U) against v_ufun(q).  Returns
+    the plain (ph_qf, traces)."""
+    before = fv.euler_volume.launches, fv.euler_volume.with_v
+    p_out, p_tr = fv.euler_volume_plain(*vargs, **vkw)
+    k_out, k_tr = fv.euler_volume(*vargs, **vkw)
+    v_out, v_tr, v = fv.euler_volume(*vargs, with_v=True, **vkw)
+    torch.cuda.synchronize()
+    assert (fv.euler_volume.launches, fv.euler_volume.with_v) == (
+        before[0] + 2, before[1] + 1)
+    assert _rel(k_out, p_out) <= TOL[dtype]
+    assert _rel(k_tr, p_tr) <= TOL[dtype]
+    assert torch.equal(v_out, k_out) and torch.equal(v_tr, k_tr)
+    assert _rel(v, v_ufun(vargs[0], GAMMA)) <= TOL[dtype]
+    return p_out, p_tr
+
+
 # k1d=3 gives K=27: a ragged last tile for both kernels.  N=3 k1d=32 in
 # f32 is the main path's own launch (K=32768, many waves of blocks), where
 # a fault that needs many blocks shows: a race between blocks, a grid
@@ -129,13 +149,7 @@ def test_kernels_match_plain(cuda, dtype, n, k1d, diag):
     ef = disc.vhp[disc.nq:]
     vargs = (q, disc.geo, ef, disc.lift, GAMMA)
     vkw = dict(line_ops=disc.line_ops, diag=diag)
-    before = fv.euler_volume.launches
-    p_out, p_tr = fv.euler_volume_plain(*vargs, **vkw)
-    k_out, k_tr = fv.euler_volume(*vargs, **vkw)
-    torch.cuda.synchronize()
-    assert fv.euler_volume.launches == before + 1
-    assert _rel(k_out, p_out) <= TOL[dtype]
-    assert _rel(k_tr, p_tr) <= TOL[dtype]
+    p_out, p_tr = _check_volume(vargs, vkw, dtype)
     nxj, inv_jac = _surface_inputs(disc, diag)
     _check_surface(disc, p_tr, p_out, nxj, disc.sj, disc.inv_sj, inv_jac,
                    diag, dtype)
@@ -164,11 +178,7 @@ def test_general_kernels_on_random_affine_metric(cuda, dtype, n, k1d):
     geo, nxj, sj, inv_sj, inv_jac = _random_affine(disc, dtype, cuda)
     vargs = (q, geo, disc.vhp[disc.nq:], disc.lift, GAMMA)
     vkw = dict(line_ops=disc.line_ops, diag=False)
-    p_out, p_tr = fv.euler_volume_plain(*vargs, **vkw)
-    k_out, k_tr = fv.euler_volume(*vargs, **vkw)
-    torch.cuda.synchronize()
-    assert _rel(k_out, p_out) <= TOL[dtype]
-    assert _rel(k_tr, p_tr) <= TOL[dtype]
+    p_out, p_tr = _check_volume(vargs, vkw, dtype)
     _check_surface(disc, p_tr, p_out, nxj, sj, inv_sj, inv_jac, False,
                    dtype)
 
@@ -248,8 +258,10 @@ def test_kernel_wrappers_refuse_what_they_do_not_cover(cuda):
 
 
 def _launch_counts():
-    """Every kernel wrapper's launches so far, by name."""
+    """Every kernel wrapper's launches so far, by name (and K1's that
+    wrote v(U))."""
     return {"euler_volume": fv.euler_volume.launches,
+            "euler_volume_with_v": fv.euler_volume.with_v,
             "euler_surface": fv.euler_surface.launches,
             "euler_modal_volume": mv.euler_modal_volume.launches,
             "cns_surface_viscous": sv.cns_surface_viscous.launches,
@@ -477,14 +489,8 @@ def test_volume_kernel_at_high_order(cuda, dtype, n, form):
     geo = _random_affine(disc, dtype, cuda)[0] if form == "random" \
         else disc.geo
     vargs = (q, geo, disc.vhp[disc.nq:], disc.lift, GAMMA)
-    vkw = dict(line_ops=disc.line_ops, diag=form == "diag")
-    before = fv.euler_volume.launches
-    p_out, p_tr = fv.euler_volume_plain(*vargs, **vkw)
-    k_out, k_tr = fv.euler_volume(*vargs, **vkw)
-    torch.cuda.synchronize()
-    assert fv.euler_volume.launches == before + 1
-    assert _rel(k_out, p_out) <= TOL[dtype]
-    assert _rel(k_tr, p_tr) <= TOL[dtype]
+    _check_volume(vargs, dict(line_ops=disc.line_ops, diag=form == "diag"),
+                  dtype)
 
 
 @pytest.mark.gpu
@@ -543,14 +549,11 @@ def test_curved_kernels_match_plain(cuda, dtype, n, k1d):
     assert disc.geo.shape[1] == disc.nh
     q = _random_state(disc, dtype, cuda)
     vargs = (q, disc.geo, disc.vhp[disc.nq:], disc.lift, GAMMA)
-    before = fv.euler_volume.launches
-    p_out, p_tr = fv.euler_volume_plain(*vargs, line_ops=disc.line_ops)
     # diag is ignored on a curved metric
-    k_out, k_tr = fv.euler_volume(*vargs, line_ops=disc.line_ops, diag=True)
-    torch.cuda.synchronize()
-    assert fv.euler_volume.launches == before + 1
-    assert _rel(k_out, p_out) <= TOL[dtype]
-    assert _rel(k_tr, p_tr) <= TOL[dtype]
+    p_out, p_tr = _check_volume(vargs, dict(line_ops=disc.line_ops,
+                                            diag=True), dtype)
+    assert torch.equal(p_out, fv.euler_volume_plain(
+        *vargs, line_ops=disc.line_ops)[0])
     nbr = disc.gather_traces(p_tr)
     for dissipation in (True, False):
         sargs = (p_tr, nbr, torch.stack(disc.nxj), disc.sj, disc.inv_sj,
@@ -1193,14 +1196,8 @@ def test_volume_kernel_every_order_form_and_tile(cuda, dtype, n, form, k):
     disc, q, geo = _k1_case(n, form, dtype, cuda)
     q, geo = q[:, :, :k].contiguous(), geo[:, :, :k].contiguous()
     vargs = (q, geo, disc.vhp[disc.nq:], disc.lift, GAMMA)
-    vkw = dict(line_ops=disc.line_ops, diag=form == "diag")
-    before = fv.euler_volume.launches
-    p_out, p_tr = fv.euler_volume_plain(*vargs, **vkw)
-    k_out, k_tr = fv.euler_volume(*vargs, **vkw)
-    torch.cuda.synchronize()
-    assert fv.euler_volume.launches == before + 1
-    assert _rel(k_out, p_out) <= TOL[dtype]
-    assert _rel(k_tr, p_tr) <= TOL[dtype]
+    _check_volume(vargs, dict(line_ops=disc.line_ops, diag=form == "diag"),
+                  dtype)
 
 
 @pytest.mark.gpu
@@ -1209,15 +1206,19 @@ def test_volume_kernel_every_order_form_and_tile(cuda, dtype, n, form, k):
 def test_volume_launch_shape(cuda, dtype, n1):
     """K1's tile fits the card: the occupancy query reports at least one
     resident block of 3 (N+1)^2 threads per element, and in f32 the warps
-    this design is for (32 an SM up to N+1 = 4, 16 at N+1 = 5..7)."""
+    this design is for (32 an SM up to N+1 = 4, 16 at N+1 = 5..7), with
+    and without the store of v(U)."""
     for form in ("diag", "general", "curved"):
-        blocks, threads, smem, *_ , te, _ = fv.euler_volume_shape(
-            dtype, n1, diag=form == "diag", curved=form == "curved")
-        assert threads == te * 3 * n1 * n1 and smem <= 232448
-        warps = blocks * ((threads + 31) // 32)
-        assert blocks >= 1
-        if dtype == torch.float32 and n1 <= 7:
-            assert warps >= (32 if n1 <= 4 else 16), (form, warps)
+        for with_v in (False, True):
+            blocks, threads, smem, *_ , te, _ = fv.euler_volume_shape(
+                dtype, n1, diag=form == "diag", curved=form == "curved",
+                with_v=with_v)
+            assert threads == te * 3 * n1 * n1 and smem <= 232448
+            warps = blocks * ((threads + 31) // 32)
+            assert blocks >= 1
+            if dtype == torch.float32 and n1 <= 7:
+                assert warps >= (32 if n1 <= 4 else 16), (form, with_v,
+                                                          warps)
 
 
 def _rest(disc, dtype, device):
@@ -1802,6 +1803,8 @@ def _becker_run(n, k1d):
 
 _K1 = dict(euler_volume=1, euler_surface=1)
 _SPLIT = dict(hex_project=1, hex_fd_dir=3, euler_surface=1)
+# the CNS fused_hex front's K1, which writes v(U) for the viscous terms
+_K1_V = dict(euler_volume=1, euler_volume_with_v=1)
 # name: (build, launches a stage besides the update's, what is conserved:
 # "fields" sum(wJq q) per field in f32, "mass" the cavity's, else None)
 _RUNS = {
@@ -1831,16 +1834,15 @@ _RUNS = {
     "cavity_2d_pallas": (_cavity_run(2, 128, impl="pallas"),
                          dict(flux_differencing_dense=1), None),
     "cavity_3d": (_cavity_run(3, 16, volume_impl="fused_hex"),
-                  dict(euler_volume=1, cns_surface_viscous=1,
-                       cns_traction_tail=1), "mass"),
+                  dict(_K1_V, cns_surface_viscous=1, cns_traction_tail=1),
+                  "mass"),
     "cavity_3d_split": (
         _cavity_run(3, 16, volume_impl="fused_hex", surface_impl="fused"),
-        dict(euler_volume=1, cns_surface=1, cns_viscous=1), None),
+        dict(_K1_V, cns_surface=1, cns_viscous=1), None),
     "cavity_3d_modal": (_cavity_run(3, 16, volume_impl="fused"),
                         dict(euler_modal_volume=1, cns_surface_viscous=1,
                              cns_traction_tail=1), "mass"),
-    "becker_3d": (_becker_run(5, 32), dict(euler_volume=1,
-                                           cns_surface_viscous=1,
+    "becker_3d": (_becker_run(5, 32), dict(_K1_V, cns_surface_viscous=1,
                                            cns_traction_tail=1), None),
 }
 # f32, the paths' type; f64 where the mass is held to roundoff and the
@@ -1862,7 +1864,8 @@ def _mass(disc, q):
 def test_run_launches_each_kernel_once_a_stage_and_matches_its_twin(
         cuda, name, dtype):
     """20 steps of the path: each of its kernels and the update launched
-    once a stage and no other kernel; where K2 runs (the periodic grids)
+    once a stage and no other kernel, K1 writing v(U) once a stage on the
+    CNS fused_hex paths and on no Euler path; where K2 runs (the periodic grids)
     no roll exchange or split combine; where the tail kernel runs, no call
     of the plain tail; a finite state of the path's type
     within _TWIN_TOL of the twin's; what the path conserves, conserved; on

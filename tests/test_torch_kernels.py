@@ -22,6 +22,7 @@ from esdg_cns_tpu.presets import euler_hex_3d as jax_preset
 from esdg_cns_tpu_torch import interop
 from esdg_cns_tpu_torch.core.discretization import ARRAY_FIELDS, META_FIELDS
 from esdg_cns_tpu_torch.ops import fused_volume as fv
+from esdg_cns_tpu_torch.physics.euler import v_ufun
 
 F64 = torch.float64
 GAMMA = 1.4
@@ -142,6 +143,21 @@ def test_general_variant_on_random_affine_metric(pair, pad_x, packed):
             t(j_tr), t(j_nbr), t(nxj), t(sj), t(inv_sj), t(inv_jac), td.lift,
             t(j_out), GAMMA, dissipation=dissipation, diag=False)
         assert _rel(got, ref) <= TOL
+
+
+@pytest.mark.parametrize("diag", [True, False])
+def test_volume_plain_hands_on_v_ufun_when_asked(pair, diag):
+    """with_v: the same ph_qf and traces, bit for bit, and v(U) exactly
+    v_ufun(q); on CPU tensors no launch and no count."""
+    _, td, _, tq = pair
+    args = (tq, td.geo, td.vhp[td.nq:], td.lift, GAMMA)
+    kw = dict(line_ops=td.line_ops, diag=diag)
+    before = (fv.euler_volume.launches, fv.euler_volume.with_v)
+    out, tr = fv.euler_volume(*args, **kw)
+    v_out, v_tr, v = fv.euler_volume(*args, with_v=True, **kw)
+    assert torch.equal(v_out, out) and torch.equal(v_tr, tr)
+    assert torch.equal(v, v_ufun(tq, GAMMA))
+    assert (fv.euler_volume.launches, fv.euler_volume.with_v) == before
 
 
 def test_cpu_tensors_take_the_plain_version_without_a_launch(pair):

@@ -80,10 +80,12 @@ class _Library:
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append((name, [r.name for r in tracing._store.open]))
+            self.args.append(args)
             return 0
         return entry
 
@@ -118,6 +120,10 @@ def _disc(curved, n=3, gather=False):
     return disc, q
 
 
+# esdg_hex_volume's argument that takes v(U)'s pointer, null for none
+_VOUT = 14
+
+
 def _forms(before, wrapper):
     return {k: v - before[k] for k, v in wrapper.forms.items()
             if v != before[k]}
@@ -140,11 +146,35 @@ def _rhs_forms(disc, q, **kw):
 def test_rhs_counts_its_launches_by_form(card, curved, gather, k1, k2):
     disc, q = _disc(curved, gather=gather)
     launches = fv.euler_volume.launches, fv.euler_surface.launches
+    with_v = fv.euler_volume.with_v
     assert _rhs_forms(disc, q) == ({k1: 1}, {k2: 1})
     assert (fv.euler_volume.launches, fv.euler_surface.launches) == (
         launches[0] + 1, launches[1] + 1)
     assert [name for name, _ in card.calls] == ["esdg_hex_volume",
                                                 "esdg_hex_surface"]
+    # the Euler front asks K1 for no v(U)
+    assert card.args[0][_VOUT] is None
+    assert fv.euler_volume.with_v == with_v
+
+
+@pytest.mark.parametrize("with_v", [False, True])
+def test_k1_writes_v_only_when_asked(card, with_v):
+    disc, q = _disc(False)
+    args = _on_card((q, disc.geo, disc.vhp[disc.nq:].contiguous(),
+                     disc.lift))
+    before = (fv.euler_volume.launches, fv.euler_volume.with_v)
+    res = fv.euler_volume(*args, 1.4, line_ops=disc.line_ops, diag=True,
+                          with_v=with_v)
+    assert len(res) == (3 if with_v else 2)
+    (name, _), = card.calls
+    assert name == "esdg_hex_volume"
+    if with_v:
+        assert res[2].shape == q.shape
+        assert card.args[0][_VOUT] == res[2].data_ptr()
+    else:
+        assert card.args[0][_VOUT] is None
+    assert (fv.euler_volume.launches, fv.euler_volume.with_v) == (
+        before[0] + 1, before[1] + with_v)
 
 
 def test_general_affine_and_split_forms(card):
