@@ -20,9 +20,12 @@ the dense operators and the dense all-pairs flux differencing
 (``ops.flux_differencing``).  The
 wrapper takes it only for CPU tensors; for CUDA tensors it launches the
 kernel or raises.
-``euler_modal_volume.launches`` counts the launches.  The TPU ``fd_mode``
-variants ('tri', 'tri8', 'full') are layouts of one sum: the port
-computes that sum once.
+``euler_modal_volume.launches`` counts the launches and
+``euler_modal_volume.forms`` the launches by dim and metric
+(``dim2.affine``, ``dim2.curved``, ...); the launch call sits inside the
+span ``ops.modal_volume.euler_modal_volume`` (``tracing.span``).  The TPU
+``fd_mode`` variants ('tri', 'tri8', 'full') are layouts of one sum: the
+port computes that sum once.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ..solvers.dg_ops import _apply
+from ..tracing import span
 from .flux_differencing import flux_differencing_xla
 from .fused_volume import _DTYPE_CODE, _check_cuda, _check_shape, _raise_on
 
@@ -189,17 +193,24 @@ def euler_modal_volume(q, geo, q_skew, vq, vhp, ph, gamma, *, nq,
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.esdg_modal_volume(
-            _DTYPE_CODE[q.dtype], dim, int(curved), q.data_ptr(),
-            geo.data_ptr(), lists.idx.data_ptr(), lists.vals.data_ptr(),
-            out.data_ptr(), traces.data_ptr(), vu_q.data_ptr(), k, np_, nq,
-            nh, lists.idx.numel(), lists.vals.numel(), float(gamma), stream)
+        with span("ops.modal_volume.euler_modal_volume"):
+            rc = lib.esdg_modal_volume(
+                _DTYPE_CODE[q.dtype], dim, int(curved), q.data_ptr(),
+                geo.data_ptr(), lists.idx.data_ptr(), lists.vals.data_ptr(),
+                out.data_ptr(), traces.data_ptr(), vu_q.data_ptr(), k, np_,
+                nq, nh, lists.idx.numel(), lists.vals.numel(), float(gamma),
+                stream)
     _raise_on(name, rc, "the element tile does not fit in shared memory")
     euler_modal_volume.launches += 1
+    euler_modal_volume.forms[
+        f"dim{dim}.{'curved' if curved else 'affine'}"] += 1
     return out, traces, vu_q
 
 
 euler_modal_volume.launches = 0
+# launches by dim and metric: the forms the kernel is built for
+euler_modal_volume.forms = {"dim1.affine": 0, "dim2.affine": 0,
+                            "dim2.curved": 0, "dim3.affine": 0}
 
 
 def euler_modal_volume_shape(dtype, dim, curved, np_, nq, nh, lists):

@@ -38,7 +38,10 @@ and the kernels keep their dense loops.
 Each wrapper has its plain PyTorch version beside it (``*_plain``), on
 the very same BC hooks and the dense operators; the wrapper takes it only
 for CPU tensors, and for CUDA tensors launches its kernel or raises.
-``.launches`` counts the launches.
+``.launches`` counts the launches; K4's ``cns_surface_viscous.forms``
+counts them by dim, front and tail (``dim2.proj.fold_tail``,
+``dim3.no_proj.fold_tail``, ...), and its launch call sits inside the
+span ``ops.surface_viscous.cns_surface_viscous`` (``tracing.span``).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ import torch
 from ..physics.viscous import viscous_flux_nd
 from ..solvers._shared import entropy_vars_from_flux, flux_to_conservative
 from ..solvers.dg_ops import _apply
+from ..tracing import span
 from .cns_surface import _surface_body
 from .cns_surface_bc import recipe_rows, region_table
 from .fused_volume import (_DTYPE_CODE, _check_cuda, _check_shape, _raise_on,
@@ -349,22 +353,32 @@ def cns_surface_viscous(vu_q, qm, qm_log, nbr, nxj, sj, inv_sj, pool, geo,
     lib = library()
     with torch.cuda.device(vu_q.device):
         stream = torch.cuda.current_stream(vu_q.device).cuda_stream
-        rc = lib.esdg_cns_surface_viscous(
-            _DTYPE_CODE[vu_q.dtype], dim, int(proj), ins, outs,
-            *_lists_args(lists, dim),
-            None if itab is None else itab.data_ptr(),
-            None if ftab is None else ftab.data_ptr(), k, np_, nq, nfq,
-            float(gamma), float(mu), float(lam_v), float(pr), float(re),
-            int(dissipation), int(with_penalty), int(fold_tail),
-            int(recipe is not None), stream)
+        with span("ops.surface_viscous.cns_surface_viscous"):
+            rc = lib.esdg_cns_surface_viscous(
+                _DTYPE_CODE[vu_q.dtype], dim, int(proj), ins, outs,
+                *_lists_args(lists, dim),
+                None if itab is None else itab.data_ptr(),
+                None if ftab is None else ftab.data_ptr(), k, np_, nq, nfq,
+                float(gamma), float(mu), float(lam_v), float(pr), float(re),
+                int(dissipation), int(with_penalty), int(fold_tail),
+                int(recipe is not None), stream)
     _raise_on(name, rc, "the element tile does not fit in shared memory")
     cns_surface_viscous.launches += 1
+    cns_surface_viscous.forms[
+        f"dim{dim}.{'proj' if proj else 'no_proj'}."
+        f"{'fold_tail' if fold_tail else 'unfolded'}"] += 1
     if fold_tail:
         return div, t_f, prod, vuq
     return flux, pen, t_f, div, prod, vuq
 
 
 cns_surface_viscous.launches = 0
+# launches by dim, front (proj: the modal front's [Vq Pq; Vq D_r Pq];
+# no_proj: the collocated hex's gradient rows) and tail (fold_tail: the
+# LIFTs and 1/J folded in), over the forms the kernel is built for
+cns_surface_viscous.forms = {
+    f"dim{d}.{'proj' if p else 'no_proj'}.{t}": 0
+    for d, p in _CUDA_FORMS for t in ("fold_tail", "unfolded")}
 
 
 # -----------------------------------------------------------------------------

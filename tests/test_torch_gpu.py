@@ -1899,6 +1899,48 @@ def test_run_launches_each_kernel_once_a_stage_and_matches_its_twin(
         assert float(aux["rhstest_visc"]) >= 0.0
 
 
+# the benchmark's 2D cavity cell (cns_cavity_tri.n3_k384): N = 3 on
+# 2 x 384^2 = 294,912 triangles, nine times the elements of the cavity_2d
+# run above, and its time step
+_TRI_CELL_K1D = 384
+_TRI_CELL_DT = 4e-5
+
+
+@pytest.mark.gpu
+def test_tri_cavity_at_the_cells_width_steps_on_k3_and_k4(cuda):
+    """One LSRK45 step of the 2D cavity at the benchmark cell's width, from
+    a seeded moving state, in f32: K3 and K4 launched once a stage in
+    their dim-2 forms (K3 affine; K4 with the projection and the LIFTs
+    folded in), the update, and no other kernel; the traction tail in its
+    plain lines (the tail kernel is the collocated hex's); a finite state
+    within the cavity_2d run's tolerance of the plain twin's step."""
+    from esdg_cns_tpu_torch.cavity_cases import moving_state
+
+    disc, q0, bc, p = lid_driven_cavity(3, _TRI_CELL_K1D,
+                                        dtype=torch.float32, device=cuda)
+    q = moving_state(q0, np.random.default_rng(7))
+    flags = dict(mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
+                 inviscid_dissipation=True, viscous_dissipation=True,
+                 compute_rhstest=False)
+    rhs = make_cns_rhs_affine(disc, volume_impl="fused", **flags)
+    before, tail = _launch_counts(), dict(ct.cns_traction_tail.forms)
+    k3, k4 = (dict(mv.euler_modal_volume.forms),
+              dict(sv.cns_surface_viscous.forms))
+    qf, _ = lsrk45(rhs, q, _TRI_CELL_DT, 1)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"euler_modal_volume": 5,
+                                 "cns_surface_viscous": 5,
+                                 "lsrk45_update": 5}
+    assert {k: v - k3[k] for k, v in mv.euler_modal_volume.forms.items()
+            if v != k3[k]} == {"dim2.affine": 5}
+    assert {k: v - k4[k] for k, v in sv.cns_surface_viscous.forms.items()
+            if v != k4[k]} == {"dim2.proj.fold_tail": 5}
+    assert _tail_forms(tail) == {"kernel": 0, "plain": 5}
+    assert qf.dtype == torch.float32 and bool(torch.isfinite(qf).all())
+    qt, _ = lsrk45(make_cns_rhs(disc, **flags), q, _TRI_CELL_DT, 1)
+    assert _rel(qf, qt) <= _TWIN_TOL[torch.float32]
+
+
 # the free stream on the warped hex mesh, f64: max |dq| of a constant
 # state, every term of which cancels through the curl-form metric identity.
 # The residual grows like 1/h and with N (the plain RHS reads 2.5e-12 at

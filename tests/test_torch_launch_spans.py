@@ -1,4 +1,5 @@
-"""K1's and K2's launch spans and launch counts by form, on the CPU.
+"""The launch spans and launch counts by form of K1 and K2 (the Euler
+paths) and of K3 and K4 (the cavities), on the CPU.
 
 The wrappers take their plain versions for CPU tensors, so here their
 CUDA branch runs on a stand-in card: tensors that report a CUDA device,
@@ -11,6 +12,7 @@ so each test holds the forms that the path itself asks for.
 
 import contextlib
 import dataclasses
+import functools
 import json
 import types
 
@@ -20,8 +22,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from esdg_cns_tpu_torch import kernels, tracing
 from esdg_cns_tpu_torch.ops import fused_volume as fv
-from esdg_cns_tpu_torch.presets import euler_hex_3d
+from esdg_cns_tpu_torch.ops import modal_volume as mv
+from esdg_cns_tpu_torch.ops import surface_viscous as sv
+from esdg_cns_tpu_torch.presets import (euler_hex_3d, lid_driven_cavity,
+                                        lid_driven_cavity_3d)
 from esdg_cns_tpu_torch.solvers import euler_fused
+from esdg_cns_tpu_torch.solvers.cns_fused import make_cns_rhs_affine
 
 CPU = torch.device("cpu")
 F64 = torch.float64
@@ -29,6 +35,9 @@ K1 = "ops.fused_volume.euler_volume"
 K2 = "ops.fused_volume.euler_surface"
 PROJECT = "ops.fused_volume.hex_project"
 GATHER = "core.discretization.gather_traces"
+K3 = "ops.modal_volume.euler_modal_volume"
+K4 = "ops.surface_viscous.cns_surface_viscous"
+TAIL = "solvers.cns_fused.tail"
 
 
 class _Card:
@@ -70,7 +79,7 @@ class _TorchOnCard:
         return _on_card(torch.empty(shape, dtype=dtype))
 
     @staticmethod
-    def as_tensor(a, dtype, device):
+    def as_tensor(a, dtype=None, device=None):
         return _on_card(torch.as_tensor(a, dtype=dtype))
 
 
@@ -231,3 +240,84 @@ def test_profiler_sees_the_launch_spans(card, tmp_path):
     events = json.loads(path.read_text())["traceEvents"]
     names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
     assert names.count(K1) == 1 and names.count(K2) == 1
+
+
+@pytest.fixture
+def cavity_card(card, monkeypatch):
+    """The stand-in card under the cavity RHS's calls of K3 and K4: the
+    wrappers, as ``make_cns_rhs_affine`` imports them when it builds the
+    RHS, take their arguments on the card; their counters are the real
+    wrappers' (``functools.wraps`` shares the forms).  Yields the
+    library."""
+    from esdg_cns_tpu_torch.ops.cns_surface_bc import region_table
+
+    for mod in (mv, sv):
+        monkeypatch.setattr(mod, "torch", _TorchOnCard())
+    monkeypatch.setattr(sv, "region_table",
+                        lambda recipe, device: region_table(recipe, CPU))
+    for mod, name in ((mv, "euler_modal_volume"),
+                      (sv, "cns_surface_viscous")):
+        real = getattr(mod, name)
+
+        @functools.wraps(real)
+        def on_card(*args, _real=real, **kw):
+            return _real(*_on_card(args),
+                         **{k: _on_card(v) for k, v in kw.items()})
+
+        monkeypatch.setattr(mod, name, on_card)
+    yield card
+
+
+def _cavity(dim, volume_impl, rhstest=False):
+    """A cavity's RHS (isothermal walls, N=3, both dissipations) and its
+    state at rest."""
+    make = lid_driven_cavity if dim == 2 else lid_driven_cavity_3d
+    disc, q0, bc, p = make(3, 2, dtype=F64, device=CPU)
+    rhs = make_cns_rhs_affine(
+        disc, mu=p["mu"], pr=p["pr"], re=p["re"], bc=bc,
+        inviscid_dissipation=True, viscous_dissipation=True,
+        volume_impl=volume_impl, compute_rhstest=rhstest)
+    return rhs, q0
+
+
+@pytest.mark.parametrize("dim, volume_impl, rhstest, k3, k4", [
+    # the 2D cavity cell's path: K3, then K4 with the LIFTs folded in
+    (2, "fused", False, {"dim2.affine": 1}, {"dim2.proj.fold_tail": 1}),
+    (2, "fused", True, {"dim2.affine": 1}, {"dim2.proj.unfolded": 1}),
+    (3, "fused", False, {"dim3.affine": 1}, {"dim3.proj.fold_tail": 1}),
+    # K1's front (its plain version here, the state being on the CPU)
+    (3, "fused_hex", False, {}, {"dim3.no_proj.fold_tail": 1}),
+])
+def test_cavity_rhs_counts_k3_and_k4_by_form(cavity_card, dim, volume_impl,
+                                             rhstest, k3, k4):
+    rhs, q = _cavity(dim, volume_impl, rhstest)
+    launches = mv.euler_modal_volume.launches, sv.cns_surface_viscous.launches
+    v0, s0 = dict(mv.euler_modal_volume.forms), dict(
+        sv.cns_surface_viscous.forms)
+    rhs(q, 0.0)
+    assert (_forms(v0, mv.euler_modal_volume),
+            _forms(s0, sv.cns_surface_viscous)) == (k3, k4)
+    assert (mv.euler_modal_volume.launches,
+            sv.cns_surface_viscous.launches) == (launches[0] + len(k3),
+                                                 launches[1] + 1)
+    assert [name for name, _ in cavity_card.calls] == (
+        ["esdg_modal_volume"] * len(k3) + ["esdg_cns_surface_viscous"])
+
+
+def test_cavity_launch_spans_hold_their_launches_alone(cavity_card):
+    rhs, q = _cavity(2, "fused")
+    rhs(q, 0.0)
+    # off: no record, no span around either launch
+    assert tracing.records() == []
+    assert [spans for _, spans in cavity_card.calls] == [[], []]
+    cavity_card.calls.clear()
+    tracing.enable(True)
+    for _ in range(2):
+        rhs(q, 0.0)
+    recs = tracing.records()
+    # exchange 1 between the launches; the plain tail's exchange 2 in it
+    assert [r.name for r in recs] == [K3, GATHER, K4, TAIL, GATHER] * 2
+    assert [r.parent is None for r in recs] == [True] * 4 + [False] + (
+        [True] * 4 + [False])
+    assert cavity_card.calls == [("esdg_modal_volume", [K3]),
+                                 ("esdg_cns_surface_viscous", [K4])] * 2
